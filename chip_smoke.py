@@ -135,7 +135,7 @@ def kernel_phase() -> dict:
         raise AssertionError("edge: an all-invalid row must splat to zeros")
     record["max_abs_err"] = max(record["max_abs_err"],
                                 check_sums("edge", out, splat_sums_ref(cell, payload, 441)))
-    proj = BevProjector(grid_hw=14, num_views=12, map_dim=21, map_res=0.5)
+    proj = BevProjector(grid_hw=14, num_views=12, map_dim=21, map_res=0.5, device="cuda")
     depths = torch.rand(2, 12, 14, 14, generator=g, device="cuda") * 4.0
     depths[0] = 0.0
     eye = torch.eye(4, device="cuda")
@@ -271,23 +271,27 @@ def small_phase() -> None:
     """A small configuration on the card and on the CPU, same parameters."""
     import numpy as np
 
-    from vln_bevbert_tpu.configs import FinetuneConfig, ModelConfig, ShapeConfig
     from vln_bevbert_tpu_torch.cli import finetune
-    from vln_bevbert_tpu_torch.nav.agent import GMapNavAgent
 
-    model = ModelConfig(hidden_size=64, num_attention_heads=2, intermediate_size=128,
-                        num_l_layers=1, num_pano_layers=1, num_x_layers=1,
-                        image_feat_size=32, bev_grid_feat_size=24, dtype="float32")
-    shapes = ShapeConfig(max_gmap_len=32, max_local_len=8, max_pano_len=40,
-                         num_views=12, grid_hw=4, max_pc_steps=4)
-    cfg = FinetuneConfig(model=model, shapes=shapes, batch_size=2, max_action_len=6)
-    args = finetune.parse_args(["--synthetic", "--test"])
+    small = {
+        "model": {"hidden_size": 64, "num_attention_heads": 2, "intermediate_size": 128,
+                  "num_l_layers": 1, "num_pano_layers": 1, "num_x_layers": 1,
+                  "image_feat_size": 32, "bev_grid_feat_size": 24, "dtype": "float32"},
+        "shapes": {"max_gmap_len": 32, "max_local_len": 8, "max_pano_len": 40,
+                   "num_views": 12, "grid_hw": 4, "max_pc_steps": 4},
+        "batch_size": 2, "max_action_len": 6,
+    }
     agents, logits = {}, {}
-    for device in ("cpu", "cuda"):
-        env = finetune.build_synthetic_envs(cfg, args)["val_unseen"]
-        agents[device] = GMapNavAgent(cfg, env, device=device)
-        logits[device] = []
-    agents["cpu"].init_params()
+    with tempfile.TemporaryDirectory() as tmp:
+        config = f"{tmp}/small.json"
+        with open(config, "w") as f:
+            json.dump(small, f)
+        for device in ("cpu", "cuda"):
+            args = finetune.parse_args(["--synthetic", "--test", "--device", device,
+                                        "--config", config, "--output_dir", tmp])
+            _, val_envs, agents[device] = finetune.build(args)
+            agents[device].env = val_envs["val_unseen"]
+            logits[device] = []
     agents["cuda"].model.load_state_dict(agents["cpu"].model.state_dict())
     preds = {}
     for device, agent in agents.items():

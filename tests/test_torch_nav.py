@@ -143,6 +143,65 @@ def test_cli_runs_cpu_slice_without_jax(tmp_path):
     assert len(preds) == 16
 
 
+def test_cli_data_root_reads_hdf5_without_jax(tmp_path):
+    """``--data_root``: the port evaluates from HDF5 stores whose float16
+    rows it casts with numpy, in a process that never imports JAX and leaves
+    the JAX package's float16 converter unset."""
+    import h5py
+
+    from vln_bevbert_tpu.data.feature_db import H5FeatureDB, write_synthetic_features
+
+    root = tmp_path / "data"
+    rng = np.random.default_rng(0)
+    write_synthetic_connectivity(str(root / "connectivity"), rng, n_scans=1, n_nodes=9)
+    graphs = load_nav_graphs(str(root / "connectivity"))
+    paths = write_synthetic_features(
+        str(root), rng, {s: g.node_ids for s, g in graphs.items()}, pack=False,
+        image_feat_size=TINY.image_feat_size, grid_feat_size=TINY.bev_grid_feat_size,
+        grid_hw=SHAPES.grid_hw, num_views=SHAPES.num_views,
+    )
+    for split in ("train", "val_unseen"):
+        items = make_synthetic_annotations(graphs, rng, n_items=4, min_len=2, max_len=4)
+        (root / f"R2R_{split}_enc.json").write_text(json.dumps([
+            {"path_id": i, "scan": it["scan"], "path": it["path"],
+             "heading": it["heading"], "instructions": ["synthetic instruction"],
+             "instr_encodings": [[int(t) for t in it["instr_encoding"]]]}
+            for i, it in enumerate(items)
+        ]))
+
+    depth = cli.NumpyCastFeatureDB(H5FeatureDB(paths["depth"]))
+    scan, vp = "scan00", graphs["scan00"].node_ids[0]
+    with h5py.File(paths["depth"], "r") as f:
+        want = f[f"{scan}_{vp}"][...]
+    assert want.dtype == np.float16
+    got = depth.get(scan, vp)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+
+    code = (
+        "import json, sys\n"
+        "from vln_bevbert_tpu.data import feature_db\n"
+        "from vln_bevbert_tpu_torch.cli import finetune\n"
+        "res = finetune.main(sys.argv[1:])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax'))\n"
+        "print(json.dumps({'bad': bad, 'res': res,\n"
+        "                  'converter': feature_db._F16_CONVERTER is None}))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code, "--data_root", str(root), "--test",
+         "--device", "cpu", "--val_splits", "val_unseen", "--batch_size", "2",
+         "--config", _tiny_config(tmp_path), "--output_dir", str(tmp_path / "out")],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == [] and out["converter"]
+    assert 0.0 <= out["res"]["val_unseen"]["sr"] <= 100.0
+    preds = json.loads((tmp_path / "out" / "preds_val_unseen_0.json").read_text())
+    assert len(preds) == 4
+
+
 def test_cli_cuda_device_raises_without_cuda(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -25,8 +25,7 @@ import torch
 
 from vln_bevbert_tpu.cli import finetune as jax_cli
 from vln_bevbert_tpu.configs import FinetuneConfig, load_config
-from vln_bevbert_tpu.data import feature_db
-from vln_bevbert_tpu.data.feature_db import DictFeatureDB
+from vln_bevbert_tpu.data.feature_db import DictFeatureDB, H5FeatureDB
 from vln_bevbert_tpu.data.loader import make_synthetic_annotations
 from vln_bevbert_tpu.data.nav_graph import (
     build_scanvp_cands,
@@ -96,6 +95,42 @@ def build_synthetic_envs(cfg: FinetuneConfig, args) -> Dict[str, R2RNavBatch]:
     }
 
 
+class NumpyCastFeatureDB:
+    """An HDF5 feature store whose rows are cast by numpy.
+
+    ``H5FeatureDB`` casts float16 rows to float32 through JAX, so the reader
+    wrapped here keeps the stored dtype and ``get`` casts to ``db.dtype``."""
+
+    def __init__(self, db: H5FeatureDB):
+        import h5py
+
+        with h5py.File(db.path, "r") as f:
+            stored = f[next(iter(f.keys()))].dtype
+        self.dtype = np.dtype(db.dtype)
+        self.db = H5FeatureDB(db.path, dtype=stored, max_cache=db.max_cache)
+
+    def get(self, scan: str, viewpoint: str) -> np.ndarray:
+        return self.db.get(scan, viewpoint).astype(self.dtype, copy=False)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self.db
+
+
+def build_envs(cfg: FinetuneConfig, args) -> Dict[str, R2RNavBatch]:
+    """The JAX CLI's eval envs for ``--data_root``, reading through
+    ``NumpyCastFeatureDB``; the envs of a split share their stores."""
+    _, val_envs, _ = jax_cli.build_envs(cfg, args)
+    readers: Dict[int, NumpyCastFeatureDB] = {}
+    for env in val_envs.values():
+        for name in ("view_db", "grid_db", "depth_db"):
+            db = getattr(env.env, name)
+            if db is not None:
+                if id(db) not in readers:
+                    readers[id(db)] = NumpyCastFeatureDB(db)
+                setattr(env.env, name, readers[id(db)])
+    return val_envs
+
+
 def resolve_device(name: str) -> torch.device:
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -103,9 +138,9 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def main(argv=None):
-    """Evaluate every split; returns {split: metrics}."""
-    args = parse_args(argv)
+def build(args):
+    """The config, the eval envs by split, and an agent with random
+    parameters on ``args.device``."""
     if not args.test:
         raise NotImplementedError("training is not ported yet: pass --test")
     if args.dataset in ("reverie", "soon"):
@@ -133,14 +168,16 @@ def main(argv=None):
     if args.synthetic or not args.data_root:
         val_envs = build_synthetic_envs(cfg, args)
     else:
-        # float16 HDF5 rows are cast by numpy: feature_db's default converter
-        # would import JAX
-        feature_db._F16_CONVERTER = lambda x: x.astype(np.float32)
-        _, val_envs, _ = jax_cli.build_envs(cfg, args)
+        val_envs = build_envs(cfg, args)
     agent = GMapNavAgent(cfg, next(iter(val_envs.values())), seed=cfg.seed,
                          device=device)
     agent.init_params()
+    return cfg, val_envs, agent
 
+
+def main(argv=None):
+    """Evaluate every split; returns {split: metrics}."""
+    cfg, val_envs, agent = build(parse_args(argv))
     os.makedirs(cfg.output_dir, exist_ok=True)
     logger = MetricLogger(cfg.output_dir)
     results = {}

@@ -125,6 +125,9 @@ class Attention(nn.Module):
         else:
             self.qkv = Dense(cfg, hid, 3 * hid, device)
         self.dropout = Dropout(cfg.attention_probs_dropout_prob, site="attn_probs")
+        # 1/sqrt(d) rounded to the activation dtype, as the JAX module casts
+        # it; a Python float, so the forward uploads nothing
+        self.scale = torch.tensor(1.0 / math.sqrt(cfg.head_dim), dtype=_dt(cfg)).item()
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -143,8 +146,7 @@ class Attention(nn.Module):
                 raise ValueError("self-attention takes the same tensor as q_in and kv_in")
             q, k, v = (heads(t) for t in self.qkv(q_in).chunk(3, dim=-1))
 
-        scale = torch.tensor(1.0 / math.sqrt(d), dtype=q.dtype, device=q.device)
-        scores = torch.matmul(q * scale, k.transpose(-1, -2))  # (B, H, Q, K)
+        scores = torch.matmul(q * self.scale, k.transpose(-1, -2))  # (B, H, Q, K)
         if bias is not None:
             scores = scores + bias.to(dt)
         probs = torch.softmax(scores.float(), dim=-1).to(dt)

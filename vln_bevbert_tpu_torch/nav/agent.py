@@ -97,6 +97,7 @@ class GMapNavAgent:
             map_dim=cfg.model.bev_dim,
             map_res=cfg.model.bev_res,
             z_clip=0.5,
+            device=self.device,
         )
         self.polar = bev_polar_pos(cfg.model.bev_dim).reshape(-1, 3)
         self.np_rng = np.random.default_rng(seed)

@@ -26,7 +26,8 @@ class BevProjector:
 
     vfov in radians, the feature-grid height/width, map_dim cells of map_res
     metres, and the above-camera clip threshold (points with ego y > z_clip
-    are dropped)."""
+    are dropped). ``device`` holds the per-pixel ray scales: lifting depths
+    that lie there uploads nothing."""
 
     def __init__(
         self,
@@ -37,6 +38,7 @@ class BevProjector:
         map_res: float = 0.5,
         z_clip: float = 0.5,
         num_sem: int = 40,
+        device=None,
     ):
         self.vfov = vfov
         self.grid_hw = grid_hw
@@ -51,7 +53,7 @@ class BevProjector:
         # (H*W, 2): per-pixel ray direction scales, shared by every camera
         self._ray_xy = torch.from_numpy(
             np.stack([x_scale.ravel(), y_scale.ravel()], axis=-1).astype(np.float32)
-        )
+        ).to(device)
 
     # ------------------------------------------------------------------ lift
     def lift(self, depths: torch.Tensor, T_c2w: torch.Tensor):
