@@ -2,19 +2,29 @@
 
     python3 chip_smoke.py
 
-Drives the port's navigation-eval path (``vln_bevbert_tpu_torch.cli.finetune
---synthetic --test``) at full bert-base width with random seeded weights,
-through the hand-written CUDA splat kernel, in phases; each phase prints one
-line and a failing phase raises, so the script exits non-zero:
+Drives the port's two paths at full bert-base width with random seeded
+weights, through the hand-written CUDA kernels, in phases; each phase prints
+one line and a failing phase raises, so the script exits non-zero:
 
 1. device  - a CUDA card must be present; its name and power limit;
-2. build   - compile ``csrc/splat.cu`` with nvcc for sm_90a into ``build/``;
-3. kernel  - the kernel against its plain PyTorch version on the card at the
-             navigation, pretraining and CE shapes and at edge cases;
-4. slice   - the full-width synthetic eval; the kernel's launch count must
-             equal the number of gather-and-splat calls, and the first step's
-             BEV features and action must match the plain version's;
-5. small   - a small configuration evaluated on the card and on the CPU with
+2. build   - compile ``csrc/splat.cu`` and ``csrc/dropout.cu`` with nvcc for
+             sm_90a into ``build/``, one nvcc per source, started together;
+3. kernel  - the splat kernel against its plain PyTorch version on the card
+             at the navigation, pretraining and CE shapes and at edge cases;
+4. dropout - the dropout kernel against its plain version, bitwise, at the
+             pretraining step's shapes and at edge cases; P(keep); the
+             backward's mask; seed-only saved tensors;
+5. slice   - the navigation eval (``cli.finetune --synthetic --test``); the
+             splat kernel's launch count must equal the number of
+             gather-and-splat calls, and the first step's BEV features and
+             action must match the plain version's;
+6. train   - the pretraining path (``cli.pretrain --synthetic --seed 16``),
+             B=16; seed 16's schedule runs each of mlm, sap and masksem
+             eight times in 24 steps; the kernels' launch counts must equal
+             the dropout calls (forward and backward) and the ``prepare_bev``
+             calls; losses and gradient norms finite; ms/step per task,
+             samples/s weighted by the configured task mix, peak memory;
+7. small   - a small configuration evaluated on the card and on the CPU with
              the same parameters: equal trajectories, close logits.
 
 The second-to-last line is a JSON record of the kernels; the last line is
@@ -36,6 +46,9 @@ import torch
 SPLAT = {"name": "splat_sums", "route": "cuda",
          "source": "vln_bevbert_tpu_torch/csrc/splat.cu",
          "replaces": "vln_bevbert_tpu/ops/pallas_splat.py:47"}
+DROPOUT = {"name": "seeded_dropout", "route": "cuda",
+           "source": "vln_bevbert_tpu_torch/csrc/dropout.cu",
+           "replaces": "vln_bevbert_tpu/ops/dropout.py:122"}
 # The count column is integer-valued and must match exactly; feature sums of a
 # bf16 payload accumulate in float32 in another order (atomics), hence:
 RTOL, ATOL = 1e-5, 1e-3
@@ -58,6 +71,23 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Mean device milliseconds per call by torch.profiler: the kernels' and
+    copies' own time, without the gaps in which the host is still launching
+    (which CUDA events around a short kernel measure instead)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(r.end - r.start for r in spans) / 1e3 / iters
+
+
 # ------------------------------------------------------------------ phases
 def device_phase() -> str:
     if not torch.cuda.is_available():
@@ -74,14 +104,20 @@ def device_phase() -> str:
 
 
 def build_phase() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     from vln_bevbert_tpu_torch import _build
 
+    names = ("splat", "dropout")
     t0 = time.perf_counter()
-    path, log = _build.build("splat")
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc process per source
+        built = dict(zip(names, pool.map(_build.build, names)))
     secs = time.perf_counter() - t0
-    _build.load("splat")
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "smem" in ln]
-    phase("build", seconds=f"{secs:.2f}", library=path.name, ptxas=repr(" | ".join(ptxas)))
+    for name, (path, log) in built.items():
+        _build.load(name)
+        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "smem" in ln]
+        phase("build", kernel=name, seconds=f"{secs:.2f}", library=path.name,
+              ptxas=repr(" | ".join(ptxas)))
 
 
 def random_splat_inputs(g, b, n, c, d, valid_frac=2 / 3):
@@ -160,6 +196,180 @@ def kernel_phase() -> dict:
     phase("kernel", shape="edges", all_invalid_row="ok", out_of_range_cells="ok",
           zero_depth="ok", occupied_cells=int(ours[1][1].sum()))
     return record
+
+
+def dropout_phase() -> dict:
+    import math
+
+    from vln_bevbert_tpu_torch.ops.dropout import draw_seeds, dropout, dropout_apply, dropout_ref
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shapes = {  # the pretraining step's largest sites: (shape, dtype, rate)
+        "attn_probs": ((16, 12, 441, 441), torch.bfloat16, 0.1),
+        "hidden": ((16, 200, 768), torch.bfloat16, 0.1),
+        "feat": ((16, 441, 768), torch.float32, 0.4),
+    }
+    record = {"max_abs_err": 0.0}
+    for label, (shape, dtype, rate) in shapes.items():
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        seeds = draw_seeds(shape[0], g, "cuda")
+        y, ref = dropout_apply(x, seeds, rate), dropout_ref(x, seeds, rate)
+        if not torch.equal(y, ref):
+            raise AssertionError(f"dropout {label}: kernel differs from the plain version")
+        err = (y.float() - ref.float()).abs().max().item()
+        keep = (y != 0).float().mean().item()
+        sd = math.sqrt(rate * (1 - rate) / x.numel())
+        if abs(keep - (1 - rate)) > 5 * sd:
+            raise AssertionError(f"dropout {label}: P(keep) {keep} vs {1 - rate}")
+        ms = cuda_ms(lambda: dropout_apply(x, seeds, rate), iters=20)
+        plain_ms = cuda_ms(lambda: dropout_ref(x, seeds, rate), iters=3, warmup=1)
+        dev_ms = device_ms(lambda: dropout_apply(x, seeds, rate))
+        gbps = 2 * x.numel() * x.element_size() / dev_ms / 1e6
+        phase("dropout", site=label, shape=tuple(shape), dtype=str(dtype).split(".")[-1],
+              rate=rate, bitwise="equal", keep=f"{keep:.6f}", ms=f"{ms:.4f}",
+              plain_ms=f"{plain_ms:.4f}", kernel_device_ms=f"{dev_ms:.4f}",
+              kernel_device_GBps=f"{gbps:.1f}")
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        if label == "attn_probs":
+            record.update(ms=ms, plain_ms=plain_ms)
+
+    # edges: rate 0, a row length not divisible by 4, a single row, a
+    # misaligned start (the scalar path)
+    x = torch.randn(1, 1000, generator=g, device="cuda").bfloat16()
+    one = draw_seeds(1, g, "cuda")
+    if not torch.equal(dropout_apply(x, one, 0.0), x):
+        raise AssertionError("dropout edge: rate 0 must be the identity")
+    base = torch.randn(1 + 5 * 3 * 7, generator=g, device="cuda")
+    cases = {"ragged_rows": base[1:].view(5, 3, 7).bfloat16().contiguous(),
+             "misaligned": base[1:].view(5, 21), "single_row": x}
+    for label, t in cases.items():
+        seeds = draw_seeds(t.shape[0], g, "cuda")
+        if not torch.equal(dropout_apply(t, seeds, 0.3), dropout_ref(t, seeds, 0.3)):
+            raise AssertionError(f"dropout edge {label}: kernel differs from the plain version")
+
+    # autograd: the backward relaunches the kernel on dy with the saved seeds
+    x = torch.randn(16, 200, 768, generator=g, device="cuda").bfloat16().requires_grad_()
+    seeds = draw_seeds(16, g, "cuda")
+    packed = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: packed.append(t) or t,
+                                                  lambda t: t):
+        y = dropout(x, seeds, 0.1)
+    if len(packed) != 1 or packed[0] is not seeds:
+        raise AssertionError(f"dropout: saved {len(packed)} tensors, expected the seeds only")
+    dy = torch.randn_like(y)
+    before = dropout_apply.launches
+    y.backward(dy)
+    if dropout_apply.launches != before + 1:
+        raise AssertionError("dropout: the backward did not launch the kernel")
+    if not (torch.equal(x.grad, dropout_ref(dy, seeds, 0.1))
+            and torch.equal(x.grad != 0, (y != 0) & (dy != 0))):
+        raise AssertionError("dropout: the backward's mask differs from the forward's")
+    phase("dropout", edges="rate0 ragged_rows misaligned single_row", backward_mask="equal",
+          saved="seeds only")
+    return record
+
+
+def run_lengths(items):
+    """[(item, length of its run)] of consecutive equal items."""
+    out = []
+    for item in items:
+        if out and out[-1][0] == item:
+            out[-1][1] += 1
+        else:
+            out.append([item, 1])
+    return out
+
+
+def train_phase(steps: int = 24, seed: int = 16, min_each: int = 3) -> dict:
+    """Run the CLI's synthetic pretraining at full width, instrumented.
+    ``seed`` 16 schedules every task at least ``min_each`` times in the first
+    24 steps (the MetaLoader draws tasks in blocks of 8)."""
+    from vln_bevbert_tpu_torch.cli import pretrain
+    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
+    from vln_bevbert_tpu_torch.ops.splat import splat_sums
+    from vln_bevbert_tpu_torch.parallel import train_step as ts_mod
+
+    seen = {"drop_fwd": 0, "drop_bwd": 0, "bev": 0, "steps": []}
+    forward, prepare = drop_mod.Dropout.forward, ts_mod.prepare_bev
+
+    def counted_forward(self, x):
+        if self.training and self.rate > 0 and x.dim() >= 2:
+            seen["drop_fwd"] += 1
+            seen["drop_bwd"] += bool(x.requires_grad and torch.is_grad_enabled())
+        return forward(self, x)
+
+    def counted_prepare(projector, batch):
+        seen["bev"] += "depths" in batch
+        return prepare(projector, batch)
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        trainer = pretrain.build(pretrain.parse_args([
+            "--synthetic", "--device", "cuda", "--num_steps", str(steps),
+            "--batch_size", "16", "--seed", str(seed), "--output_dir", out_dir]))
+        build_s = time.perf_counter() - t0
+        step_fn = trainer.step_fn
+
+        def timed_step(state, batch, task):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            metrics = step_fn(state, batch, task)
+            end.record()
+            seen["steps"].append((task, start, end, metrics))
+            return metrics
+
+        drop_mod.Dropout.forward, ts_mod.prepare_bev = counted_forward, counted_prepare
+        trainer.step_fn = timed_step
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            drop_mod.dropout_apply.launches = splat_sums.launches = 0
+            t0 = time.perf_counter()
+            meters = trainer.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"dropout": drop_mod.dropout_apply.launches,
+                        "splat": splat_sums.launches}
+        finally:
+            drop_mod.Dropout.forward, ts_mod.prepare_bev = forward, prepare
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in trainer.state.params)
+
+    cfg = trainer.cfg
+    schedule = [t for t, *_ in seen["steps"]]
+    mix = {t.split("_")[0]: r for t, r in zip(cfg.tasks, cfg.mix_ratio)}
+    if len(schedule) != steps or any(schedule.count(t) < min_each for t in mix):
+        raise AssertionError(f"train: ran {schedule}; every task of {sorted(mix)} needs "
+                             f"{min_each} of {steps} steps")
+    if launches["splat"] != seen["bev"] or seen["bev"] != steps:
+        raise AssertionError(f"train: {launches['splat']} splat launches for "
+                             f"{seen['bev']} prepare_bev calls in {steps} steps")
+    if launches["dropout"] != seen["drop_fwd"] + seen["drop_bwd"] or seen["drop_bwd"] == 0:
+        raise AssertionError(
+            f"train: {launches['dropout']} dropout launches for {seen['drop_fwd']} "
+            f"forward and {seen['drop_bwd']} backward dropout calls")
+    values = torch.stack([torch.stack([m["loss"], m["grad_norm"]]) for *_, m in seen["steps"]])
+    if not torch.isfinite(values).all() or not (values[:, 1] > 0).all():
+        raise AssertionError(f"train: non-finite or zero loss / grad_norm {values.tolist()}")
+    per_task, first = {}, set()
+    for task, start, end, _ in seen["steps"]:
+        if task in first:
+            per_task.setdefault(task, []).append(start.elapsed_time(end))
+        first.add(task)
+    ms_per_task = {t: sum(v) / len(v) for t, v in per_task.items()}
+    # the configured traffic: mean ms/step weighted by the task mix
+    mix_ms = sum(mix[t] * ms_per_task[t] for t in mix) / sum(mix.values())
+    return {
+        "seed": seed, "steps": steps, "schedule": schedule, "launches": launches,
+        "drop_fwd": seen["drop_fwd"], "drop_bwd": seen["drop_bwd"], "bev": seen["bev"],
+        "ms_per_task": ms_per_task, "mix": mix,
+        "samples_per_s": cfg.train_batch_size * 1e3 / mix_ms,
+        "wall_samples_per_s": cfg.train_batch_size * steps / wall,
+        "wall_s": wall, "build_s": build_s,
+        "peak_bytes": peak, "n_params": n_params, "meters": meters,
+        "first_ms": {t: next(s.elapsed_time(e) for tt, s, e, _ in seen["steps"] if tt == t)
+                     for t in per_task},
+    }
 
 
 def slice_phase(device: str, extra_args: list) -> dict:
@@ -319,7 +529,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 references stay float32
     torch.backends.cudnn.allow_tf32 = False
     build_phase()
-    record = kernel_phase()
+    splat_record = kernel_phase()
+    drop_record = dropout_phase()
 
     run = slice_phase("cuda", [])
     bev_err = check_slice(run, expect_kernel=True)
@@ -337,12 +548,32 @@ def main() -> None:
           peak_mem_MiB=f"{run['peak_bytes'] / 2**20:.1f}",
           first_step_bev_err=f"{bev_err:.3e}", first_step_action="equal")
 
+    train = train_phase()
+    phase("train", seed=train["seed"], steps=train["steps"],
+          schedule=",".join(f"{t}x{n}" for t, n in run_lengths(train["schedule"])),
+          prepare_bev_calls=train["bev"], splat_launches=train["launches"]["splat"],
+          dropout_forward_calls=train["drop_fwd"], dropout_backward_calls=train["drop_bwd"],
+          dropout_launches=train["launches"]["dropout"],
+          **{f"ms_per_step_{t}": f"{ms:.2f}" for t, ms in train["ms_per_task"].items()},
+          **{f"first_step_ms_{t}": f"{ms:.1f}" for t, ms in train["first_ms"].items()},
+          mix=":".join(f"{t}{r:g}" for t, r in train["mix"].items()),
+          samples_per_s_at_mix=f"{train['samples_per_s']:.2f}",
+          wall_samples_per_s=f"{train['wall_samples_per_s']:.2f}",
+          wall_s=f"{train['wall_s']:.2f}", build_s=f"{train['build_s']:.2f}",
+          peak_mem_MiB=f"{train['peak_bytes'] / 2**20:.1f}", params=train["n_params"],
+          **{k.replace("/", "_"): f"{v:.4g}" for k, v in train["meters"].items()
+             if k.endswith(("loss", "grad_norm"))})
+
     small_phase()
 
     loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax"))
     if loaded:
         raise AssertionError(f"JAX modules were imported: {loaded[:5]}")
-    print(json.dumps({"kernels": [{**SPLAT, "launches": run["launches"], **record}]}))
+    print(json.dumps({"kernels": [
+        {**SPLAT, "launches": train["launches"]["splat"], **splat_record,
+         "launches_eval": run["launches"]},
+        {**DROPOUT, "launches": train["launches"]["dropout"], **drop_record},
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -10,8 +10,15 @@ import json
 import pytest
 import torch
 
-from vln_bevbert_tpu_torch.cli import finetune
+from vln_bevbert_tpu_torch.cli import finetune, pretrain
+from vln_bevbert_tpu_torch.ops.dropout import (
+    draw_seeds,
+    dropout,
+    dropout_apply,
+    dropout_ref,
+)
 from vln_bevbert_tpu_torch.ops.splat import splat_sums, splat_sums_ref
+from vln_bevbert_tpu_torch.parallel.train_step import upload
 
 
 @pytest.mark.cuda
@@ -98,3 +105,119 @@ def test_rollout_step_queues_device_work_until_the_pano_read(tmp_path):
         torch.cuda.set_sync_debug_mode(0)
     assert len(trajs) == 2
     assert checked.count("panorama") == checked.count("navigation") >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,rate,offset", [
+    ((16, 200, 768), torch.bfloat16, 0.1, 0),     # hidden activations: vector path
+    ((16, 441, 768), torch.float32, 0.4, 0),      # feat_dropout of the BEV features
+    ((5, 3, 7), torch.bfloat16, 0.3, 0),          # row length 21: scalar path
+    ((3, 64), torch.float32, 0.5, 1),             # misaligned start: scalar path
+    ((1, 1000), torch.bfloat16, 0.0, 0),          # one row; rate 0 is the identity
+])
+def test_dropout_kernel_matches_plain_bitwise_on_card(shape, dtype, rate, offset):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    base = torch.randn(offset + torch.Size(shape).numel(), generator=g, device="cuda")
+    x = base.to(dtype)[offset:].view(shape)
+    seeds = draw_seeds(shape[0], g, "cuda")
+    before = dropout_apply.launches
+    y = dropout_apply(x, seeds, rate)
+    assert dropout_apply.launches == before + 1
+    assert torch.equal(y, dropout_ref(x, seeds, rate))
+    if rate == 0.0:
+        assert torch.equal(y, x)
+
+
+@pytest.mark.cuda
+def test_dropout_backward_relaunches_the_kernel_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(16, 12, 64, 64, generator=g, device="cuda").bfloat16().requires_grad_()
+    seeds = draw_seeds(16, g, "cuda")
+    packed = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: packed.append(t) or t,
+                                                  lambda t: t):
+        y = dropout(x, seeds, 0.1)
+    assert len(packed) == 1 and packed[0] is seeds
+    before = dropout_apply.launches
+    dy = torch.randn_like(y)
+    y.backward(dy)
+    assert dropout_apply.launches == before + 1
+    assert torch.equal(x.grad, dropout_ref(dy, seeds, 0.1))
+    assert torch.equal(x.grad != 0, (y != 0) & (dy != 0))  # the forward's mask
+
+
+@pytest.mark.cuda
+def test_train_step_queues_device_work_without_a_host_sync(tmp_path):
+    """A full-width pretraining step (upload, lift-splat, forward with dropout,
+    backward, clip, AdamW) never waits for the card before the trainer reads
+    its metrics (sync debug mode "error")."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    trainer = pretrain.build(pretrain.parse_args([
+        "--synthetic", "--device", "cuda", "--num_steps", "1", "--batch_size", "16",
+        "--output_dir", str(tmp_path)]))
+    trainer.train()  # warm-up: cuBLAS handles, allocator
+    device = torch.device("cuda")
+    for step in range(3):
+        task, batch = trainer.train_loader.build_batch(step)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            metrics = trainer.step_fn(trainer.state, upload(batch, device), task)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        values = torch.stack([v.float() for v in metrics.values()])
+        assert torch.isfinite(values).all(), task
+
+
+@pytest.mark.cuda
+def test_small_train_steps_match_cpu_on_card(tmp_path, monkeypatch):
+    """A small float32 configuration trained three steps (mlm, sap, masksem)
+    on the card and on the CPU from the same parameters, batches and dropout
+    seeds: the card's kernels (dropout forward and backward, splat) and the
+    CPU's plain versions compute the same masks and sums, so losses and
+    gradient norms agree to float32 summation order (rtol 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
+
+    config = tmp_path / "small.json"
+    config.write_text(json.dumps({
+        "model": {"hidden_size": 64, "num_attention_heads": 2, "intermediate_size": 128,
+                  "num_l_layers": 1, "num_pano_layers": 1, "num_x_layers": 1,
+                  "image_feat_size": 32, "bev_grid_feat_size": 24, "dtype": "float32"},
+        "shapes": {"max_gmap_len": 32, "max_local_len": 8, "max_pano_len": 40,
+                   "num_views": 12, "grid_hw": 4},
+        "optim": {"warmup_steps": 2},
+    }))
+    trainers = {device: pretrain.build(pretrain.parse_args([
+        "--synthetic", "--device", device, "--batch_size", "2", "--config", str(config),
+        "--output_dir", str(tmp_path)])) for device in ("cpu", "cuda")}
+    cpu_model = trainers["cpu"].model
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(6)
+        for p in cpu_model.parameters():  # no all-zero biases: see test_torch_train_step.py
+            p.add_(torch.randn(p.shape, generator=g) * 0.02)
+    trainers["cuda"].model.load_state_dict(cpu_model.state_dict())
+
+    draw, gens = drop_mod.draw_seeds, {}
+
+    def shared_seeds(rows, generator, device):  # one CPU stream per device
+        g = gens.setdefault(torch.device(device).type, torch.Generator().manual_seed(5))
+        return draw(rows, g, "cpu").to(device)
+
+    monkeypatch.setattr(drop_mod, "draw_seeds", shared_seeds)
+    losses = {}
+    for device, trainer in trainers.items():
+        losses[device] = []
+        for step, task in enumerate(("mlm", "sap", "masksem")):
+            _, batch = trainer.train_loader.build_batch(step, task=task)
+            m = trainer.step_fn(trainer.state, upload(batch, torch.device(device)), task)
+            losses[device].append([float(m["loss"]), float(m["grad_norm"])])
+    torch.testing.assert_close(torch.tensor(losses["cuda"]), torch.tensor(losses["cpu"]),
+                               rtol=1e-4, atol=0)
+    for a, b in zip(trainers["cuda"].model.parameters(), cpu_model.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4, atol=1e-4)

@@ -57,6 +57,7 @@ def make_env(root):
         image_feat_size=TINY.image_feat_size, grid_feat_size=TINY.bev_grid_feat_size,
         grid_hw=SHAPES.grid_hw, num_views=SHAPES.num_views,
     )
+    del dbs["sem_db"]  # navigation reads no semantics
     annos = make_synthetic_annotations(graphs, rng, n_items=6, min_len=2, max_len=4)
     return R2RNavBatch(annos, graphs, build_scanvp_cands(graphs), batch_size=2,
                        image_feat_size=TINY.image_feat_size, **dbs)
@@ -222,7 +223,8 @@ def test_synthetic_world_matches_jax_cli_draws(tmp_path):
     ours = cli.synthetic_feature_dbs(np.random.default_rng(5), vps, **kw)
     for key, path, dtype in (("view_db", "img_ft", np.float32),
                              ("grid_db", "rgb", np.float16),
-                             ("depth_db", "depth", np.float32)):
+                             ("depth_db", "depth", np.float32),
+                             ("sem_db", "sem", np.uint8)):
         h5 = H5FeatureDB(paths[path], dtype=dtype)
         for vp in vps["scan00"]:
             got = ours[key].get("scan00", vp)

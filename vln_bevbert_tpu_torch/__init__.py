@@ -7,14 +7,17 @@ and imports the JAX-free host layer of the JAX package (``configs``,
 ``geometry``, ``data``, ``nav.env``, ``nav.graph_map``, ``nav.eval_utils``)
 instead of copying it. It never imports ``jax``.
 
-Ported so far: the navigation-eval slice (``bevbert-finetune --test``):
+Ported so far: the navigation-eval slice (``bevbert-finetune --test``) and
+the pretraining train step (``bevbert-pretrain --synthetic``):
 
-- ``ops``      : masking, the BEV projector, the CUDA splat kernel, dropout
-- ``models``   : BERT blocks, the four encoders, the glocal backbone and the
-                 navigation model
-- ``convert``  : flax parameter tree -> ``state_dict``
+- ``ops``      : masking, the BEV projector, the CUDA splat and dropout kernels
+- ``models``   : BERT blocks, the four encoders, the glocal backbone with its
+                 pretraining heads and losses, and the navigation model
+- ``convert``  : flax parameter tree <-> ``state_dict``
+- ``parallel`` : AdamW with a bf16 first moment, the train step
+- ``pretrain`` : the trainer over the MetaLoader task schedule
 - ``nav``      : the greedy-eval navigation agent
-- ``cli``      : ``python -m vln_bevbert_tpu_torch.cli.finetune --test``
+- ``cli``      : ``finetune --test``, ``pretrain --synthetic``, profilers
 
 Hand-written CUDA sources live in ``csrc/`` and are compiled with ``nvcc`` at
 first use into ``build/`` at the checkout's root (``_build.py``).

@@ -53,8 +53,8 @@ def synthetic_feature_dbs(rng: np.random.Generator, scan_viewpoints,
                           grid_hw: int, num_views: int, num_sem: int = 40):
     """In-memory twin of ``data/feature_db.py:write_synthetic_features``:
     the same draws in the same order, stored as the HDF5 readers return them
-    (views and depth float32, grids float16)."""
-    views, grids, depths = {}, {}, {}
+    (views and depth float32, grids float16, semantic labels uint8)."""
+    views, grids, depths, sems = {}, {}, {}, {}
     for scan, vps in scan_viewpoints.items():
         for vp in vps:
             key = f"{scan}_{vp}"
@@ -65,9 +65,11 @@ def synthetic_feature_dbs(rng: np.random.Generator, scan_viewpoints,
             depths[key] = rng.uniform(
                 0.02, 0.9, (num_views, grid_hw, grid_hw)
             ).astype(np.float16).astype(np.float32)
-            rng.integers(0, num_sem, (num_views, grid_hw, grid_hw))  # semantics
+            sems[key] = rng.integers(
+                0, num_sem, (num_views, grid_hw, grid_hw)
+            ).astype(np.uint8)
     return dict(view_db=DictFeatureDB(views), grid_db=DictFeatureDB(grids),
-                depth_db=DictFeatureDB(depths))
+                depth_db=DictFeatureDB(depths), sem_db=DictFeatureDB(sems))
 
 
 def build_synthetic_envs(cfg: FinetuneConfig, args) -> Dict[str, R2RNavBatch]:
@@ -84,6 +86,7 @@ def build_synthetic_envs(cfg: FinetuneConfig, args) -> Dict[str, R2RNavBatch]:
         grid_feat_size=cfg.model.bev_grid_feat_size,
         grid_hw=cfg.shapes.grid_hw, num_views=cfg.shapes.num_views,
     )
+    del dbs["sem_db"]  # navigation reads no semantics
     make_synthetic_annotations(graphs, rng, n_items=64)  # the train split's draws
     splits = args.val_splits.split(",") if args.val_splits else ["val_unseen"]
     val_annos = {s: make_synthetic_annotations(graphs, rng, n_items=16) for s in splits}

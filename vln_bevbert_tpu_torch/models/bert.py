@@ -99,7 +99,7 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
     for m in module.modules():
         if isinstance(m, (Dense, Embed)):
             m.weight.normal_(0.0, m.init_std, generator=generator)
-        if isinstance(m, Dense):
+        if isinstance(m, (Dense, MlmHead)):
             m.bias.zero_()
         elif isinstance(m, LayerNorm):
             m.weight.fill_(1.0)
@@ -201,21 +201,42 @@ class BertLayer(nn.Module):
 
 
 class BertXLayer(nn.Module):
-    """Cross-modal layer: the visual stream cross-attends to language, then
-    self-attends (with the distance bias added to its mask bias when given),
-    then the FFN. ``lang2visn``/``visn2visn`` (pretraining) are not ported."""
+    """Cross-modal layer.
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    ``forward``   : the visual stream cross-attends to language, then
+                    self-attends (with the distance bias added to its mask
+                    bias when given), then the FFN;
+    ``lang2visn`` : the language stream cross-attends to the visual stream
+                    through the same ``cross`` block, then ``lang_self_attn``
+                    and ``lang_ffn`` (the MLM forward);
+    ``visn2visn`` : self-attention and FFN only (SEM's 'sattn' mode).
+
+    ``lang_self_attn``/``lang_ffn`` exist only with ``lang2visn=True``: flax
+    creates them only in trees whose init ran the MLM forward, and the
+    converter loads strictly."""
+
+    def __init__(self, cfg: ModelConfig, device=None, lang2visn: bool = False):
         super().__init__()
         self.cross = AttentionBlock(cfg, cross=True, device=device)
         self.self_attn = AttentionBlock(cfg, cross=False, device=device)
         self.ffn = Ffn(cfg, device)
+        if lang2visn:
+            self.lang_self_attn = AttentionBlock(cfg, cross=False, device=device)
+            self.lang_ffn = Ffn(cfg, device)
 
     def forward(self, visn, lang, lang_bias, visn_bias, sprel_bias=None):
         x = self.cross(visn, lang, lang_bias)
         bias = visn_bias if sprel_bias is None else visn_bias + sprel_bias
         x = self.self_attn(x, x, bias)
         return self.ffn(x)
+
+    def lang2visn(self, lang, visn, visn_bias, lang_bias):
+        x = self.cross(lang, visn, visn_bias)
+        x = self.lang_self_attn(x, x, lang_bias)
+        return self.lang_ffn(x)
+
+    def visn2visn(self, visn, visn_bias):
+        return self.ffn(self.self_attn(visn, visn, visn_bias))
 
 
 class BertEmbeddings(nn.Module):
@@ -263,6 +284,26 @@ class PanoEncoderLayer(nn.Module):
         y = self.ln2(x).to(self.dtype)
         y = self.drop_inter(F.gelu(self.inter(y), approximate="none"))
         return x + self.drop_out(self.out_dense(y))
+
+
+class MlmHead(nn.Module):
+    """Masked-LM head: dense transform, exact GELU, float32 LayerNorm, and a
+    decoder tied to the (vocab, hidden) word-embedding table, with float32
+    logits (the JAX einsum's float32 accumulation of exact bf16 products, as
+    a float32 matmul of the same values) plus the head's own ``bias``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.dtype = _dt(cfg)
+        self.transform = Dense(cfg, cfg.hidden_size, cfg.hidden_size, device)
+        self.transform_ln = LayerNorm(cfg, device=device)
+        self.bias = nn.Parameter(torch.empty(cfg.vocab_size, dtype=_pdt(cfg), device=device))
+
+    def forward(self, hidden: torch.Tensor, tied_embedding: torch.Tensor) -> torch.Tensor:
+        x = F.gelu(self.transform(hidden), approximate="none")
+        x = self.transform_ln(x).to(self.dtype)
+        logits = torch.matmul(x.float(), tied_embedding.to(self.dtype).float().T)
+        return logits + self.bias.float()
 
 
 class TwoLayerHead(nn.Module):

@@ -94,9 +94,10 @@ class ImageEmbeddings(nn.Module):
 
 class GlobalMapEncoder(nn.Module):
     """Topological-map encoder: node features + step/pos embeddings, cross-
-    modal layers with a learned pairwise-distance attention bias."""
+    modal layers with a learned pairwise-distance attention bias.
+    ``lang2visn`` builds the layers' language branch (``BertXLayer``)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, lang2visn: bool = False):
         super().__init__()
         self.dtype = _dt(cfg)
         hid = cfg.hidden_size
@@ -104,7 +105,7 @@ class GlobalMapEncoder(nn.Module):
         self.pos_ln = LayerNorm(cfg, device=device)
         self.step_embedding = Embed(cfg, cfg.max_action_steps, device)
         self.x_layers = _add_layers(self, "x_layer", cfg.num_x_layers,
-                                    lambda: BertXLayer(cfg, device))
+                                    lambda: BertXLayer(cfg, device, lang2visn))
         # 1 -> 1 linear on the pairwise distances
         self.sprel_linear = Dense(cfg, 1, 1, device) if cfg.graph_sprels else None
 
@@ -136,9 +137,10 @@ class GlobalMapEncoder(nn.Module):
 
 class LocalBEVEncoder(nn.Module):
     """Metric-map encoder over bev_dim^2 cell tokens, cross-modal layers.
-    Returns the cell tokens (B, cells, D)."""
+    Returns the cell tokens (B, cells, D). ``lang2visn`` as in
+    ``GlobalMapEncoder``."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, lang2visn: bool = False):
         super().__init__()
         self.dtype = _dt(cfg)
         hid = cfg.hidden_size
@@ -149,7 +151,7 @@ class LocalBEVEncoder(nn.Module):
         # 0: non-navigable cell, 1: candidate cell
         self.nav_type_embedding = Embed(cfg, 2, device)
         self.x_layers = _add_layers(self, "x_layer", cfg.num_x_layers,
-                                    lambda: BertXLayer(cfg, device))
+                                    lambda: BertXLayer(cfg, device, lang2visn))
 
     def input_embedding(self, bev_fts, bev_pos_fts, bev_nav_masks):
         dt = self.dtype

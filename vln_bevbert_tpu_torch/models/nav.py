@@ -8,14 +8,13 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-import torch
 from torch import nn
 
 from vln_bevbert_tpu.configs import ModelConfig
 
 from ..ops.masking import masked_fill_neg
 from .bert import TwoLayerHead
-from .glocal import GlocalTextPathCMT, gather_tokens
+from .glocal import GlocalTextPathCMT, sap_logits
 
 Batch = Dict[str, Any]
 
@@ -69,30 +68,10 @@ class GlocalTextPathNavCMT(nn.Module):
                 "bev_embeds": None, "fuse_weights": 1.0,
             }
 
-        bev_embeds = self.bert.local_encoder(
-            txt_embeds, txt_masks, batch["bev_fts"], batch["bev_pos_fts"],
-            batch["bev_masks"], batch["bev_nav_masks"],
-        )
-        if self.sap_fuse_linear is None:
-            fuse_weights = 0.5
-        else:
-            fuse_weights = torch.sigmoid(self.sap_fuse_linear(
-                torch.cat([gmap_embeds[:, 0], bev_embeds[:, cfg.bev_center]], -1)
-            ))  # (B, 1)
-
-        global_logits = self.global_sap_head(gmap_embeds)[..., 0] * fuse_weights
-        global_logits = masked_fill_neg(global_logits, batch["gmap_visited_masks"])
-        global_logits = masked_fill_neg(global_logits, ~batch["gmap_masks"])
-
-        cand_embeds = gather_tokens(bev_embeds, batch["bev_cand_idxs"])
-        local_logits = self.local_sap_head(cand_embeds)[..., 0] * (1.0 - fuse_weights)
-        local_logits = masked_fill_neg(local_logits, ~batch["local_masks"])
-
-        # local candidates scored onto global nodes (backtracking included)
-        local_safe = torch.where(batch["local_masks"], local_logits,
-                                 torch.zeros_like(local_logits))
-        fused_logits = global_logits + torch.einsum(
-            "bnk,bk->bn", batch["fuse_map"].float(), local_safe
+        bev_embeds = self.bert.encode_bev(txt_embeds, batch)
+        global_logits, local_logits, fused_logits, fuse_weights = sap_logits(
+            self.global_sap_head, self.local_sap_head, self.sap_fuse_linear,
+            cfg.bev_center, gmap_embeds, bev_embeds, batch,
         )
         return {
             "gmap_embeds": gmap_embeds, "bev_embeds": bev_embeds,

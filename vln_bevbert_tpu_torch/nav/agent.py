@@ -36,6 +36,7 @@ from vln_bevbert_tpu.nav.graph_map import GraphMap
 from ..models.bert import init_params
 from ..models.nav import GlocalTextPathNavCMT
 from ..ops.bev import BevProjector
+from ..utils.device import to_device
 from ..utils.rng import make_generator
 
 IGNORE_ID = -100
@@ -111,12 +112,7 @@ class GMapNavAgent:
     def _upload(self, x) -> torch.Tensor:
         """numpy -> tensor on the agent's device, without waiting for the
         device's queued work (pinned staging + non-blocking copy)."""
-        if isinstance(x, torch.Tensor):
-            return x
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return to_device(x, self.device)
 
     @torch.inference_mode()
     def _forward(self, mode: str, batch: Dict[str, Any]):

@@ -1,1 +1,1 @@
-"""Device ops: masking, BEV projector, the CUDA splat kernel, dropout."""
+"""Device ops: masking, BEV projector, the CUDA splat and dropout kernels."""

@@ -1,0 +1,71 @@
+"""The pretraining loop (port of the step loop of
+``vln_bevbert_tpu/pretrain/trainer.py``): the MetaLoader task schedule of
+``PretrainLoader``, one train step per batch, running meters and
+``MetricLogger`` lines. Validation and checkpoints are not ported yet.
+
+The loop reads each step's metrics back only after it has queued the next
+step, so the card never waits for the host's readback.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+from typing import Dict, Optional
+
+import torch
+
+from vln_bevbert_tpu.configs import PretrainConfig
+from vln_bevbert_tpu.data.loader import PretrainLoader
+from vln_bevbert_tpu.utils.logging import MetricLogger, RunningMeter
+
+from ..parallel.train_step import init_pretrain_state, make_pretrain_step, upload
+
+
+class PretrainTrainer:
+    def __init__(self, cfg: PretrainConfig, train_loader: PretrainLoader, device,
+                 output_dir: Optional[str] = None):
+        self.cfg = cfg
+        self.train_loader = train_loader
+        self.device = torch.device(device)
+        self.logger = MetricLogger(output_dir or cfg.output_dir)
+        self.model, self.projector, self.state = init_pretrain_state(cfg, cfg.seed,
+                                                                     self.device)
+        self.step_fn = make_pretrain_step(self.model, self.projector)
+
+    def train(self, num_steps: Optional[int] = None) -> Dict[str, float]:
+        """Train until ``num_steps`` updates (default
+        ``cfg.optim.num_train_steps``); returns the meters' values by
+        "<task>/<metric>"."""
+        num_steps = num_steps or self.cfg.optim.num_train_steps
+        meters: Dict[str, RunningMeter] = defaultdict(RunningMeter)
+        n_examples, t_start = 0, time.time()
+
+        def record(step: int, task: str, metrics: Dict[str, torch.Tensor]):
+            # one device -> host copy per step
+            values = torch.stack([v.float() for v in metrics.values()]).tolist()
+            for key, val in zip(metrics, values):
+                meters[f"{task}/{key}"].update(val)
+            if step % self.cfg.log_steps == 0:
+                self.logger.log(step, {
+                    "train/examples_per_sec": n_examples / (time.time() - t_start),
+                    "train/lr": self.state.tx.sched(step - 1),
+                    **{k: m.value for k, m in meters.items()},
+                })
+
+        pending = None
+        batches = iter(self.train_loader)
+        try:
+            while self.state.step < num_steps:
+                task, batch = next(batches)
+                base = task.split("_")[0]
+                metrics = self.step_fn(self.state, upload(batch, self.device), base)
+                n_examples += self.train_loader.global_batch_size
+                if pending is not None:
+                    record(*pending)
+                pending = (self.state.step, base, metrics)
+            if pending is not None:
+                record(*pending)
+        finally:
+            batches.close()  # stops the loader's prefetch thread or workers
+        return {k: m.value for k, m in meters.items()}
