@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at full bert-base width with random seeded
+Drives the port's three paths at full bert-base width with random seeded
 weights, through the hand-written CUDA kernels, in phases; each phase prints
 one line and a failing phase raises, so the script exits non-zero:
 
@@ -12,19 +12,31 @@ one line and a failing phase raises, so the script exits non-zero:
 3. kernel  - the splat kernel against its plain PyTorch version on the card
              at the navigation, pretraining and CE shapes and at edge cases;
 4. dropout - the dropout kernel against its plain version, bitwise, at the
-             pretraining step's shapes and at edge cases; P(keep); the
+             pretraining step's and the replay update's largest sites and at
+             edge cases; P(keep); the
              backward's mask; seed-only saved tensors;
 5. slice   - the navigation eval (``cli.finetune --synthetic --test``); the
              splat kernel's launch count must equal the number of
              gather-and-splat calls, and the first step's BEV features and
              action must match the plain version's;
 6. train   - the pretraining path (``cli.pretrain --synthetic --seed 16``),
-             B=16; seed 16's schedule runs each of mlm, sap and masksem
-             eight times in 24 steps; the kernels' launch counts must equal
+             B=16, then its checkpoint; seed 16's schedule runs each of mlm,
+             sap and masksem eight times in 24 steps; the kernels' launch
+             counts must equal
              the dropout calls (forward and backward) and the ``prepare_bev``
              calls; losses and gradient norms finite; ms/step per task,
              samples/s weighted by the configured task mix, peak memory;
-7. small   - a small configuration evaluated on the card and on the CPU with
+7. finetune - DAgger fine-tuning (``cli.finetune --synthetic --pretrain_ckpt
+             <the train phase's checkpoint> --iters 3 --log_every 3``) at the
+             ``FinetuneConfig()`` defaults, B=4: 6 training rollouts and 6
+             replay updates, then val_unseen; every navigation parameter
+             must transfer from the checkpoint; splat launches must equal the
+             gather-and-splat calls, dropout launches the replays' dropout
+             calls (forward and backward); losses and gradient norms finite
+             and > 0, every parameter moved; ``--test --pretrain_ckpt
+             ckpt_latest`` must predict the trained agent's trajectories; ms
+             per replay update and per training-rollout step, peak memory;
+8. small   - a small configuration evaluated on the card and on the CPU with
              the same parameters: equal trajectories, close logits.
 
 The second-to-last line is a JSON record of the kernels; the last line is
@@ -36,6 +48,7 @@ JAX module was loaded.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -208,6 +221,10 @@ def dropout_phase() -> dict:
         "attn_probs": ((16, 12, 441, 441), torch.bfloat16, 0.1),
         "hidden": ((16, 200, 768), torch.bfloat16, 0.1),
         "feat": ((16, 441, 768), torch.float32, 0.4),
+        # the replay update's: a step's BEV attention at B=4, the panorama
+        # encoder over T*B = 60 step-rows of 44 view slots
+        "ft_attn_probs": ((4, 12, 441, 441), torch.bfloat16, 0.1),
+        "ft_pano_hidden": ((60, 44, 768), torch.bfloat16, 0.1),
     }
     record = {"max_abs_err": 0.0}
     for label, (shape, dtype, rate) in shapes.items():
@@ -280,10 +297,11 @@ def run_lengths(items):
     return out
 
 
-def train_phase(steps: int = 24, seed: int = 16, min_each: int = 3) -> dict:
-    """Run the CLI's synthetic pretraining at full width, instrumented.
-    ``seed`` 16 schedules every task at least ``min_each`` times in the first
-    24 steps (the MetaLoader draws tasks in blocks of 8)."""
+def train_phase(out_dir: str, steps: int = 24, seed: int = 16, min_each: int = 3) -> dict:
+    """Run the CLI's synthetic pretraining at full width, instrumented, and
+    save its checkpoint into ``out_dir`` as the CLI does. ``seed`` 16
+    schedules every task at least ``min_each`` times in the first 24 steps
+    (the MetaLoader draws tasks in blocks of 8)."""
     from vln_bevbert_tpu_torch.cli import pretrain
     from vln_bevbert_tpu_torch.ops import dropout as drop_mod
     from vln_bevbert_tpu_torch.ops.splat import splat_sums
@@ -302,37 +320,37 @@ def train_phase(steps: int = 24, seed: int = 16, min_each: int = 3) -> dict:
         seen["bev"] += "depths" in batch
         return prepare(projector, batch)
 
-    with tempfile.TemporaryDirectory() as out_dir:
+    t0 = time.perf_counter()
+    trainer = pretrain.build(pretrain.parse_args([
+        "--synthetic", "--device", "cuda", "--num_steps", str(steps),
+        "--batch_size", "16", "--seed", str(seed), "--output_dir", out_dir]))
+    build_s = time.perf_counter() - t0
+    step_fn = trainer.step_fn
+
+    def timed_step(state, batch, task):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        metrics = step_fn(state, batch, task)
+        end.record()
+        seen["steps"].append((task, start, end, metrics))
+        return metrics
+
+    drop_mod.Dropout.forward, ts_mod.prepare_bev = counted_forward, counted_prepare
+    trainer.step_fn = timed_step
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        drop_mod.dropout_apply.launches = splat_sums.launches = 0
         t0 = time.perf_counter()
-        trainer = pretrain.build(pretrain.parse_args([
-            "--synthetic", "--device", "cuda", "--num_steps", str(steps),
-            "--batch_size", "16", "--seed", str(seed), "--output_dir", out_dir]))
-        build_s = time.perf_counter() - t0
-        step_fn = trainer.step_fn
-
-        def timed_step(state, batch, task):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            metrics = step_fn(state, batch, task)
-            end.record()
-            seen["steps"].append((task, start, end, metrics))
-            return metrics
-
-        drop_mod.Dropout.forward, ts_mod.prepare_bev = counted_forward, counted_prepare
-        trainer.step_fn = timed_step
-        try:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            drop_mod.dropout_apply.launches = splat_sums.launches = 0
-            t0 = time.perf_counter()
-            meters = trainer.train()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {"dropout": drop_mod.dropout_apply.launches,
-                        "splat": splat_sums.launches}
-        finally:
-            drop_mod.Dropout.forward, ts_mod.prepare_bev = forward, prepare
+        meters = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"dropout": drop_mod.dropout_apply.launches,
+                    "splat": splat_sums.launches}
+    finally:
+        drop_mod.Dropout.forward, ts_mod.prepare_bev = forward, prepare
     peak = torch.cuda.max_memory_allocated()
+    ckpt = trainer.save(trainer.state.step)
     n_params = sum(p.numel() for p in trainer.state.params)
 
     cfg = trainer.cfg
@@ -360,6 +378,7 @@ def train_phase(steps: int = 24, seed: int = 16, min_each: int = 3) -> dict:
     # the configured traffic: mean ms/step weighted by the task mix
     mix_ms = sum(mix[t] * ms_per_task[t] for t in mix) / sum(mix.values())
     return {
+        "ckpt": ckpt, "pretrain_names": set(trainer.model.state_dict()),
         "seed": seed, "steps": steps, "schedule": schedule, "launches": launches,
         "drop_fwd": seen["drop_fwd"], "drop_bwd": seen["drop_bwd"], "bev": seen["bev"],
         "ms_per_task": ms_per_task, "mix": mix,
@@ -477,6 +496,129 @@ def check_slice(run: dict, expect_kernel: bool) -> float:
     return (bev_k - bev_p).abs().max().item()
 
 
+def finetune_phase(pretrain_ckpt: str, pretrain_names: set, out_dir: str,
+                   iters: int = 3) -> dict:
+    """DAgger fine-tuning at full width from the pretraining checkpoint,
+    through the CLI (``--synthetic --pretrain_ckpt <ckpt> --iters 3
+    --log_every 3``: 6 training rollouts, 6 replay updates, one evaluation of
+    val_unseen), instrumented; then ``--test --pretrain_ckpt ckpt_latest``."""
+    from vln_bevbert_tpu_torch.cli import finetune
+    from vln_bevbert_tpu_torch.nav import agent as agent_mod
+    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
+    from vln_bevbert_tpu_torch.ops.splat import splat_sums
+
+    seen = {"gathers": 0, "drop_fwd": 0, "drop_bwd": 0, "rollouts": [], "updates": [],
+            "agent": None, "start": None}
+    cls = agent_mod.GMapNavAgent
+    gather, drop_forward = agent_mod.gather_and_splat, drop_mod.Dropout.forward
+    rollout, learn, init = cls._rollout, cls.learn_from_bundle, cls.init_params
+
+    def counted_gather(*args):
+        seen["gathers"] += 1
+        return gather(*args)
+
+    def counted_dropout(self, x):
+        if self.training and self.rate > 0 and x.dim() >= 2:
+            seen["drop_fwd"] += 1
+            seen["drop_bwd"] += bool(x.requires_grad and torch.is_grad_enabled())
+        return drop_forward(self, x)
+
+    def timed_rollout(self, feedback, train):
+        t0 = time.perf_counter()
+        traj, lang, records = rollout(self, feedback, train)
+        torch.cuda.synchronize()
+        if train:
+            seen["rollouts"].append((feedback, time.perf_counter() - t0, len(records)))
+        return traj, lang, records
+
+    def timed_learn(self, rb):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = learn(self, rb)  # ends in the update's one read-back
+        seen["updates"].append(time.perf_counter() - t0)
+        return loss
+
+    def recorded_init(self, *args, **kw):
+        out = init(self, *args, **kw)
+        seen["agent"] = self
+        seen["start"] = {n: p.detach().cpu().clone() for n, p in self.model.named_parameters()}
+        return out
+
+    argv = ["--synthetic", "--device", "cuda", "--output_dir", out_dir]
+    agent_mod.gather_and_splat, drop_mod.Dropout.forward = counted_gather, counted_dropout
+    cls._rollout, cls.learn_from_bundle, cls.init_params = timed_rollout, timed_learn, recorded_init
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        splat_sums.launches = drop_mod.dropout_apply.launches = 0
+        t0 = time.perf_counter()
+        results = finetune.main(argv + ["--pretrain_ckpt", pretrain_ckpt, "--iters", str(iters),
+                                        "--log_every", str(iters)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"splat": splat_sums.launches, "dropout": drop_mod.dropout_apply.launches}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        agent_mod.gather_and_splat, drop_mod.Dropout.forward = gather, drop_forward
+        cls._rollout, cls.learn_from_bundle, cls.init_params = rollout, learn, init
+    agent = seen["agent"]
+
+    nav_names = set(agent.model.state_dict())
+    if not nav_names <= pretrain_names or agent.transferred != len(nav_names):
+        raise AssertionError(f"finetune: {agent.transferred} entries transferred; the models "
+                             f"share {len(nav_names & pretrain_names)} of {len(nav_names)}")
+    feedbacks = [fb for fb, *_ in seen["rollouts"]]
+    if feedbacks != ["teacher", "sample"] * iters or len(seen["updates"]) != 2 * iters:
+        raise AssertionError(f"finetune: rollouts {feedbacks}, {len(seen['updates'])} updates")
+    if launches["splat"] != seen["gathers"]:
+        raise AssertionError(f"finetune: {launches['splat']} splat launches for "
+                             f"{seen['gathers']} gather-and-splat calls")
+    if launches["dropout"] != seen["drop_fwd"] + seen["drop_bwd"] or seen["drop_bwd"] == 0:
+        raise AssertionError(f"finetune: {launches['dropout']} dropout launches for "
+                             f"{seen['drop_fwd']} forward and {seen['drop_bwd']} backward calls")
+    losses, norms = agent.logs["IL_loss"], agent.logs["grad_norm"]
+    values = torch.tensor(losses + norms)
+    if len(losses) != 2 * iters or not torch.isfinite(values).all() or not (values > 0).all():
+        raise AssertionError(f"finetune: IL_loss {losses}, grad_norm {norms}")
+    unchanged = [n for n, p in agent.model.named_parameters()
+                 if torch.equal(p.detach().cpu(), seen["start"][n])]
+    if unchanged:
+        raise AssertionError(f"finetune: {len(unchanged)} parameters unchanged: {unchanged[:3]}")
+    metrics = results["val_unseen"]
+    for key in ("sr", "spl", "nDTW"):
+        if not 0.0 <= metrics[key] <= 100.0:
+            raise AssertionError(f"finetune: {key}={metrics[key]} outside [0, 100]")
+
+    # the saved agent, evaluated on its own, predicts what the trained one did
+    for name in ("ckpt_best", "ckpt_latest"):
+        if not os.path.isfile(os.path.join(out_dir, name)):
+            raise AssertionError(f"finetune: {name} was not written")
+    test_dir = os.path.join(out_dir, "test")
+    finetune.main(["--synthetic", "--device", "cuda", "--test", "--output_dir", test_dir,
+                   "--pretrain_ckpt", os.path.join(out_dir, "ckpt_latest")])
+
+    def by_id(path):
+        with open(path) as f:
+            return {p["instr_id"]: p["trajectory"] for p in json.load(f)}
+
+    trained = by_id(os.path.join(out_dir, f"preds_val_unseen_{iters}.json"))
+    if by_id(os.path.join(test_dir, "preds_val_unseen_0.json")) != trained or len(trained) != 16:
+        raise AssertionError("finetune: --test from ckpt_latest predicts other trajectories")
+    rollouts, updates = seen["rollouts"], seen["updates"]
+    return {
+        "results": results, "wall_s": wall, "launches": launches, "gathers": seen["gathers"],
+        "drop_fwd": seen["drop_fwd"], "drop_bwd": seen["drop_bwd"], "peak_bytes": peak,
+        "transferred": agent.transferred, "params": len(nav_names),
+        "losses": losses, "grad_norms": norms,
+        "rollout_steps": sum(n for *_, n in rollouts),
+        "ms_per_rollout_step": 1e3 * sum(s for _, s, _ in rollouts) / sum(n for *_, n in rollouts),
+        "ms_per_rollout_step_after_first": (1e3 * sum(s for _, s, _ in rollouts[1:])
+                                            / sum(n for *_, n in rollouts[1:])),
+        "ms_per_update": 1e3 * sum(updates[1:]) / len(updates[1:]),
+        "first_update_ms": 1e3 * updates[0],
+    }
+
+
 def small_phase() -> None:
     """A small configuration on the card and on the CPU, same parameters."""
     import numpy as np
@@ -499,7 +641,7 @@ def small_phase() -> None:
         for device in ("cpu", "cuda"):
             args = finetune.parse_args(["--synthetic", "--test", "--device", device,
                                         "--config", config, "--output_dir", tmp])
-            _, val_envs, agents[device] = finetune.build(args)
+            _, _, val_envs, agents[device] = finetune.build(args)
             agents[device].env = val_envs["val_unseen"]
             logits[device] = []
     agents["cuda"].model.load_state_dict(agents["cpu"].model.state_dict())
@@ -548,7 +690,8 @@ def main() -> None:
           peak_mem_MiB=f"{run['peak_bytes'] / 2**20:.1f}",
           first_step_bev_err=f"{bev_err:.3e}", first_step_action="equal")
 
-    train = train_phase()
+    work = tempfile.TemporaryDirectory()  # the checkpoints, removed at exit
+    train = train_phase(os.path.join(work.name, "pretrain"))
     phase("train", seed=train["seed"], steps=train["steps"],
           schedule=",".join(f"{t}x{n}" for t, n in run_lengths(train["schedule"])),
           prepare_bev_calls=train["bev"], splat_launches=train["launches"]["splat"],
@@ -562,7 +705,26 @@ def main() -> None:
           wall_s=f"{train['wall_s']:.2f}", build_s=f"{train['build_s']:.2f}",
           peak_mem_MiB=f"{train['peak_bytes'] / 2**20:.1f}", params=train["n_params"],
           **{k.replace("/", "_"): f"{v:.4g}" for k, v in train["meters"].items()
-             if k.endswith(("loss", "grad_norm"))})
+             if k.endswith(("loss", "grad_norm"))}, ckpt=os.path.basename(train["ckpt"]))
+
+    torch.cuda.empty_cache()
+    ft = finetune_phase(train["ckpt"], train["pretrain_names"], os.path.join(work.name, "ft"))
+    m = ft["results"]["val_unseen"]
+    phase("finetune", iters=3, feedback="dagger", train_rollouts=6, updates=len(ft["losses"]),
+          transferred=f"{ft['transferred']}/{ft['params']}", gathers=ft["gathers"],
+          splat_launches=ft["launches"]["splat"], dropout_forward_calls=ft["drop_fwd"],
+          dropout_backward_calls=ft["drop_bwd"], dropout_launches=ft["launches"]["dropout"],
+          ms_per_replay_update=f"{ft['ms_per_update']:.2f}",
+          first_update_ms=f"{ft['first_update_ms']:.1f}",
+          train_rollout_steps=ft["rollout_steps"],
+          ms_per_train_rollout_step=f"{ft['ms_per_rollout_step']:.2f}",
+          ms_per_train_rollout_step_after_first=f"{ft['ms_per_rollout_step_after_first']:.2f}",
+          peak_mem_MiB=f"{ft['peak_bytes'] / 2**20:.1f}", wall_s=f"{ft['wall_s']:.2f}",
+          IL_loss=",".join(f"{v:.4g}" for v in ft["losses"]),
+          grad_norm=",".join(f"{v:.4g}" for v in ft["grad_norms"]),
+          sr=f"{m['sr']:.2f}", spl=f"{m['spl']:.2f}", nDTW=f"{m['nDTW']:.2f}",
+          test_from_ckpt_latest="equal")
+    work.cleanup()
 
     small_phase()
 
@@ -571,8 +733,9 @@ def main() -> None:
         raise AssertionError(f"JAX modules were imported: {loaded[:5]}")
     print(json.dumps({"kernels": [
         {**SPLAT, "launches": train["launches"]["splat"], **splat_record,
-         "launches_eval": run["launches"]},
-        {**DROPOUT, "launches": train["launches"]["dropout"], **drop_record},
+         "launches_eval": run["launches"], "launches_finetune": ft["launches"]["splat"]},
+        {**DROPOUT, "launches": train["launches"]["dropout"], **drop_record,
+         "launches_finetune": ft["launches"]["dropout"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

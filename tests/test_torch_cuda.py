@@ -74,7 +74,7 @@ def test_rollout_step_queues_device_work_until_the_pano_read(tmp_path):
     }))
     args = finetune.parse_args(["--synthetic", "--test", "--device", "cuda",
                                 "--config", str(config), "--output_dir", str(tmp_path)])
-    _, val_envs, agent = finetune.build(args)
+    _, _, val_envs, agent = finetune.build(args)
     agent.env = val_envs["val_unseen"]
     agent.rollout()  # warm-up
     forward, fuse_map = agent._forward, agent._build_fuse_map
@@ -221,3 +221,54 @@ def test_small_train_steps_match_cpu_on_card(tmp_path, monkeypatch):
                                rtol=1e-4, atol=0)
     for a, b in zip(trainers["cuda"].model.parameters(), cpu_model.parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_small_replay_update_matches_cpu_on_card(monkeypatch):
+    """A small float32 DAgger replay update (dropout on) on the card and on
+    the CPU from the same parameters, bundle and dropout seeds: the card's
+    kernels (dropout forward and backward) and the CPU's plain version mask
+    alike, so loss and gradient norm agree to float32 summation order (rtol
+    1e-4) and the updated parameters within atol 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from vln_bevbert_tpu.configs import FinetuneConfig, ModelConfig, ShapeConfig
+    from vln_bevbert_tpu.data.synthetic import synthetic_replay_bundle
+    from vln_bevbert_tpu_torch.nav.agent import make_replay_agent
+    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
+
+    cfg = FinetuneConfig(
+        model=ModelConfig(hidden_size=64, num_attention_heads=2, intermediate_size=128,
+                          num_l_layers=1, num_pano_layers=1, num_x_layers=1,
+                          image_feat_size=32, bev_grid_feat_size=24, dtype="float32"),
+        shapes=ShapeConfig(max_txt_len=32, max_pano_len=12, max_gmap_len=16,
+                           max_local_len=6, max_objects=0),
+        batch_size=2, max_action_len=5, learning_rate=1e-4,
+    )
+    agents = {d: make_replay_agent(cfg, cfg.batch_size, device=d) for d in ("cpu", "cuda")}
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(6)
+        for p in agents["cpu"].model.parameters():  # no all-zero biases
+            p.add_(torch.randn(p.shape, generator=g) * 0.02)
+    agents["cuda"].model.load_state_dict(agents["cpu"].model.state_dict())
+
+    draw, gens = drop_mod.draw_seeds, {}
+
+    def shared_seeds(rows, generator, device):  # one CPU stream per device
+        g = gens.setdefault(torch.device(device).type, torch.Generator().manual_seed(5))
+        return draw(rows, g, "cpu").to(device)
+
+    monkeypatch.setattr(drop_mod, "draw_seeds", shared_seeds)
+    rb = synthetic_replay_bundle(np.random.default_rng(3), cfg, cfg.batch_size)
+    before = drop_mod.dropout_apply.launches
+    for agent in agents.values():
+        agent.learn_from_bundle(rb)
+    assert drop_mod.dropout_apply.launches > before
+    cpu, card = agents["cpu"], agents["cuda"]
+    torch.testing.assert_close(
+        torch.tensor(card.logs["IL_loss"] + card.logs["grad_norm"]),
+        torch.tensor(cpu.logs["IL_loss"] + cpu.logs["grad_norm"]), rtol=1e-4, atol=0)
+    for a, b in zip(card.model.parameters(), cpu.model.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=1e-4)

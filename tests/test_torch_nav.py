@@ -106,8 +106,8 @@ def test_teacher_rollout_follows_ground_truth(tmp_path):
     by_id = {t["instr_id"]: sum(t["path"], []) for t in trajs}
     for item in agent.env.batch:
         assert by_id[item["instr_id"]][: len(item["path"])] == item["path"]
-    with pytest.raises(NotImplementedError):
-        agent.rollout(feedback="sample", train=True)
+    with pytest.raises(ValueError, match="feedback"):
+        agent.rollout(feedback="beam")
 
 
 def _tiny_config(tmp_path):
@@ -208,8 +208,9 @@ def test_cli_cuda_device_raises_without_cuda(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["--synthetic", "--test", "--device", "cuda",
                   "--output_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="--test"):
-        cli.main(["--synthetic", "--device", "cpu", "--output_dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="object-grounding"):
+        cli.main(["--synthetic", "--dataset", "soon", "--device", "cpu",
+                  "--output_dir", str(tmp_path)])
 
 
 def test_synthetic_world_matches_jax_cli_draws(tmp_path):

@@ -76,8 +76,8 @@ def test_cli_cuda_device_raises_without_cuda(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.build(cli.parse_args(["--synthetic", "--device", "cuda",
                                   "--output_dir", str(tmp_path)]))
-    with pytest.raises(NotImplementedError, match="--resume"):
-        cli.build(cli.parse_args(["--synthetic", "--device", "cpu", "--resume", "x",
+    with pytest.raises(NotImplementedError, match="--init_bert"):
+        cli.build(cli.parse_args(["--synthetic", "--device", "cpu", "--init_bert",
                                   "--output_dir", str(tmp_path)]))
 
 

@@ -1,15 +1,22 @@
-"""Discrete-environment evaluation CLI (port of the ``--test`` path of
-``vln_bevbert_tpu/cli/finetune.py``).
+"""Discrete-environment fine-tuning CLI (port of
+``vln_bevbert_tpu/cli/finetune.py``): DAgger training with evaluation every
+``log_every`` iterations, best-checkpoint selection on sr+spl of
+``val_unseen``, and submission-format prediction dumps.
 
-    python -m vln_bevbert_tpu_torch.cli.finetune --synthetic --test
+    python -m vln_bevbert_tpu_torch.cli.finetune --synthetic --iters 3 --log_every 3
+    python -m vln_bevbert_tpu_torch.cli.finetune --synthetic --pretrain_ckpt runs/pretrain/ckpt_24
+    python -m vln_bevbert_tpu_torch.cli.finetune --synthetic --test --pretrain_ckpt runs/finetune/ckpt_best
     python -m vln_bevbert_tpu_torch.cli.finetune --data_root datasets/R2R --test
 
 Arguments are the JAX CLI's (``parse_args`` is reused) plus ``--device``
 (default ``cuda``; there is no CPU fallback: a CUDA device that is missing
 raises). ``--synthetic`` builds the JAX CLI's synthetic world in memory, with
-``DictFeatureDB`` stores and no HDF5. Parameters are random, from a seeded
-generator. Training, object-grounding datasets (reverie, soon) and
-checkpoint loading are not ported yet.
+``DictFeatureDB`` stores and no HDF5; ``--data_root`` reads HDF5 stores
+through ``NumpyCastFeatureDB``. Parameters are random, from a seeded
+generator, or transferred from ``--pretrain_ckpt``: a torch checkpoint of
+the port's pretraining (``ckpt_<step>``) or fine-tuning (``ckpt_best``,
+``ckpt_latest``). Object-grounding datasets (reverie, soon) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import argparse
 import json
 import os
 import tempfile
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +43,9 @@ from vln_bevbert_tpu.nav.env import R2RNavBatch
 from vln_bevbert_tpu.utils.logging import MetricLogger
 
 from ..nav.agent import GMapNavAgent
+from ..parallel.train_step import load_checkpoint
+
+Envs = Tuple[R2RNavBatch, Dict[str, R2RNavBatch], Optional[R2RNavBatch]]
 
 
 def parse_args(argv=None):
@@ -72,9 +82,11 @@ def synthetic_feature_dbs(rng: np.random.Generator, scan_viewpoints,
                 depth_db=DictFeatureDB(depths), sem_db=DictFeatureDB(sems))
 
 
-def build_synthetic_envs(cfg: FinetuneConfig, args) -> Dict[str, R2RNavBatch]:
-    """The JAX CLI's synthetic world (3 scans x 16 nodes, 16 items per eval
-    split), with the features in memory."""
+def build_synthetic_envs(cfg: FinetuneConfig, args) -> Envs:
+    """The JAX CLI's synthetic world (3 scans x 16 nodes, 64 train items, 16
+    items per eval split, 64 aug items with ``--aug_path``), with the
+    features in memory. Returns (train env, eval envs by split, aug env or
+    None)."""
     rng = np.random.default_rng(args.seed)
     with tempfile.TemporaryDirectory() as conn:
         write_synthetic_connectivity(conn, rng, n_scans=3, n_nodes=16)
@@ -87,15 +99,23 @@ def build_synthetic_envs(cfg: FinetuneConfig, args) -> Dict[str, R2RNavBatch]:
         grid_hw=cfg.shapes.grid_hw, num_views=cfg.shapes.num_views,
     )
     del dbs["sem_db"]  # navigation reads no semantics
-    make_synthetic_annotations(graphs, rng, n_items=64)  # the train split's draws
+    train_annos = make_synthetic_annotations(graphs, rng, n_items=64)
     splits = args.val_splits.split(",") if args.val_splits else ["val_unseen"]
     val_annos = {s: make_synthetic_annotations(graphs, rng, n_items=16) for s in splits}
-    return {
-        name: R2RNavBatch(annos, graphs, cands, batch_size=cfg.batch_size,
-                          image_feat_size=cfg.model.image_feat_size,
-                          seed=args.seed + 1 + i, name=name, **dbs)
-        for i, (name, annos) in enumerate(val_annos.items())
-    }
+
+    def make(annos, name, seed):
+        return R2RNavBatch(annos, graphs, cands, batch_size=cfg.batch_size,
+                           image_feat_size=cfg.model.image_feat_size, seed=seed,
+                           name=name, **dbs)
+
+    aug_env = None
+    if args.aug_path:
+        aug_annos = make_synthetic_annotations(
+            graphs, np.random.default_rng(args.seed + 41), n_items=64)
+        aug_env = make(aug_annos, "aug", args.seed + 2)
+    val_envs = {name: make(annos, name, args.seed + 1 + i)
+                for i, (name, annos) in enumerate(val_annos.items())}
+    return make(train_annos, "train", args.seed), val_envs, aug_env
 
 
 class NumpyCastFeatureDB:
@@ -119,19 +139,21 @@ class NumpyCastFeatureDB:
         return key in self.db
 
 
-def build_envs(cfg: FinetuneConfig, args) -> Dict[str, R2RNavBatch]:
-    """The JAX CLI's eval envs for ``--data_root``, reading through
-    ``NumpyCastFeatureDB``; the envs of a split share their stores."""
-    _, val_envs, _ = jax_cli.build_envs(cfg, args)
+def build_envs(cfg: FinetuneConfig, args) -> Envs:
+    """The JAX CLI's envs for ``--data_root``, reading through
+    ``NumpyCastFeatureDB``; envs that shared a store share its reader."""
+    train_env, val_envs, aug_env = jax_cli.build_envs(cfg, args)
     readers: Dict[int, NumpyCastFeatureDB] = {}
-    for env in val_envs.values():
+    for env in (train_env, aug_env, *val_envs.values()):
+        if env is None:
+            continue
         for name in ("view_db", "grid_db", "depth_db"):
             db = getattr(env.env, name)
             if db is not None:
                 if id(db) not in readers:
                     readers[id(db)] = NumpyCastFeatureDB(db)
                 setattr(env.env, name, readers[id(db)])
-    return val_envs
+    return train_env, val_envs, aug_env
 
 
 def resolve_device(name: str) -> torch.device:
@@ -141,21 +163,14 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def build(args):
-    """The config, the eval envs by split, and an agent with random
-    parameters on ``args.device``."""
-    if not args.test:
-        raise NotImplementedError("training is not ported yet: pass --test")
-    if args.dataset in ("reverie", "soon"):
-        raise NotImplementedError("object-grounding datasets are not ported yet")
-    if args.pretrain_ckpt:
-        raise NotImplementedError("checkpoint loading is not ported yet")
-    device = resolve_device(args.device)
-    # bf16 GEMMs accumulate in float32 end to end, as the JAX einsums do
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-
-    overrides = {"dataset": args.dataset, "seed": args.seed,
-                 "output_dir": args.output_dir}
+def make_config(args) -> FinetuneConfig:
+    """The JAX CLI's config: file, then overrides, then the dataset's
+    settings (``vln_bevbert_tpu/cli/finetune.py:258-275``)."""
+    overrides = {"dataset": args.dataset, "seed": args.seed, "output_dir": args.output_dir}
+    if args.iters:
+        overrides["iters"] = args.iters
+    if args.log_every:
+        overrides["log_every"] = args.log_every
     if args.batch_size:
         overrides["batch_size"] = args.batch_size
     cfg = load_config(FinetuneConfig, args.config, **overrides)
@@ -163,39 +178,101 @@ def build(args):
         cfg.model.lang_bert_name = "xlm-roberta-base"
         cfg.model.vocab_size = 250002
         cfg.expert_policy = "ndtw"
+        cfg.ml_weight = 0.8
     if args.expert_policy:
         cfg.expert_policy = args.expert_policy
     if args.act_visited_nodes:
         cfg.act_visited_nodes = True
+    return cfg
 
+
+def build(args):
+    """(config, training envs, eval envs by split, agent on ``args.device``).
+
+    The training envs are [train] or, with ``--aug_path``, [train, aug],
+    taken in turn by iteration parity. The agent acts in the train env; its
+    parameters are random from the seed or, with ``--pretrain_ckpt``,
+    transferred from that checkpoint (``agent.transferred`` counts the
+    entries taken)."""
+    if args.dataset in ("reverie", "soon"):
+        raise NotImplementedError("object-grounding datasets are not ported yet")
+    device = resolve_device(args.device)
+    # bf16 GEMMs accumulate in float32 end to end, as the JAX einsums do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = make_config(args)
     if args.synthetic or not args.data_root:
-        val_envs = build_synthetic_envs(cfg, args)
+        train_env, val_envs, aug_env = build_synthetic_envs(cfg, args)
     else:
-        val_envs = build_envs(cfg, args)
-    agent = GMapNavAgent(cfg, next(iter(val_envs.values())), seed=cfg.seed,
-                         device=device)
-    agent.init_params()
-    return cfg, val_envs, agent
+        train_env, val_envs, aug_env = build_envs(cfg, args)
+    agent = GMapNavAgent(cfg, train_env, seed=cfg.seed, device=device)
+    pretrained = None
+    if args.pretrain_ckpt:
+        pretrained = load_checkpoint(args.pretrain_ckpt, device)["params"]
+    agent.init_params(pretrained=pretrained)
+    train_envs = [train_env] if aug_env is None else [train_env, aug_env]
+    return cfg, train_envs, val_envs, agent
+
+
+def write_predictions(path: str, preds: List[dict]) -> None:
+    """R2R leaderboard format: (viewpoint, heading, elevation) triples."""
+    with open(path, "w") as f:
+        json.dump([
+            {"instr_id": p["instr_id"],
+             "trajectory": [[vp, 0.0, 0.0] for vp in sum(p["trajectory"], [])]}
+            for p in preds
+        ], f)
 
 
 def main(argv=None):
-    """Evaluate every split; returns {split: metrics}."""
-    cfg, val_envs, agent = build(parse_args(argv))
+    """Evaluate (``--test``) or train with evaluation every ``log_every``
+    iterations; returns {split: metrics} of the last evaluation."""
+    args = parse_args(argv)
+    cfg, train_envs, val_envs, agent = build(args)
     os.makedirs(cfg.output_dir, exist_ok=True)
     logger = MetricLogger(cfg.output_dir)
-    results = {}
-    for tag, env in val_envs.items():
-        agent.env = env
-        preds = agent.test()
-        avg = env.eval_metrics(preds)[0] if env.gt_trajs else {}
-        logger.log(0, {f"{tag}/{k}": v for k, v in avg.items()})
-        with open(os.path.join(cfg.output_dir, f"preds_{tag}_0.json"), "w") as f:
-            json.dump([
-                {"instr_id": p["instr_id"],
-                 "trajectory": [[vp, 0.0, 0.0] for vp in sum(p["trajectory"], [])]}
-                for p in preds
-            ], f)
-        results[tag] = avg
+    if agent.transferred is not None:
+        logger.log(0, {"pretrain/transferred": agent.transferred,
+                       "pretrain/params": len(agent.model.state_dict())})
+
+    def evaluate_all(step: int) -> Dict[str, dict]:
+        results = {}
+        for tag, env in val_envs.items():
+            agent.env = env
+            preds = agent.test()
+            avg = env.eval_metrics(preds)[0] if env.gt_trajs else {}
+            if avg:
+                logger.log(step, {f"{tag}/{k}": v for k, v in avg.items()})
+            write_predictions(os.path.join(cfg.output_dir, f"preds_{tag}_{step}.json"), preds)
+            results[tag] = avg
+        agent.env = train_envs[0]
+        return results
+
+    if args.test:
+        return evaluate_all(0)
+
+    # best-checkpoint selection stays on val_unseen
+    best_split = "val_unseen" if "val_unseen" in val_envs else next(iter(val_envs))
+    best = {"score": -1.0}
+    results = evaluate_all(0) if args.eval_first else {}
+    done = 0
+    while done < cfg.iters:
+        n = min(cfg.log_every, cfg.iters - done)
+        losses = []
+        for i in range(n):
+            # gt/aug alternate by the global iteration's parity
+            agent.env = train_envs[(done + i) % len(train_envs)]
+            losses += agent.train_iters(1, feedback=args.feedback)
+        agent.env = train_envs[0]
+        done += n
+        logger.log(done, {"train/IL_loss": float(sum(losses) / max(len(losses), 1))})
+        results = evaluate_all(done)
+        avg = results[best_split]
+        score = avg.get("sr", 0.0) + avg.get("spl", 0.0)
+        if score > best["score"]:
+            best = {"score": score, "step": done, **avg}
+            agent.save_ckpt(os.path.join(cfg.output_dir, "ckpt_best"))
+    agent.save_ckpt(os.path.join(cfg.output_dir, "ckpt_latest"))
+    logger.log(done, {f"best/{k}": v for k, v in best.items() if k != "step"})
     return results
 
 

@@ -9,8 +9,10 @@ Arguments are the JAX CLI's (``parse_args`` is reused) plus ``--device``
 fallback). ``--synthetic`` (the default without ``--data_root``, as in the
 JAX CLI) builds the JAX CLI's synthetic world (4 scans x 20 nodes, 256 items)
 in memory, with ``DictFeatureDB`` stores and no HDF5.
-Parameters are random, from ``--seed``. Real data (``--data_root``), object
-datasets, ``--resume`` and ``--init_bert`` are not ported yet.
+Parameters are random, from ``--seed``, or restored with ``--resume <ckpt>``
+(training then runs on to ``--num_steps``). The run ends by saving
+``<output_dir>/ckpt_<step>``. Real data (``--data_root``), object datasets
+and ``--init_bert`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -69,14 +71,12 @@ def build_synthetic_db(cfg: PretrainConfig, seed: int = 0) -> TextPathData:
 
 
 def build(args) -> PretrainTrainer:
-    """A trainer with random parameters on ``args.device`` over the synthetic
-    world's loader."""
+    """A trainer on ``args.device`` over the synthetic world's loader, with
+    random parameters or those of ``--resume``."""
     if args.data_root and not args.synthetic:
         raise NotImplementedError("--data_root is not ported yet: pass --synthetic")
-    if args.dataset not in ("r2r", "r4r") or args.resume or args.init_bert:
-        raise NotImplementedError(
-            "object datasets, --resume and --init_bert are not ported yet"
-        )
+    if args.dataset not in ("r2r", "r4r") or args.init_bert:
+        raise NotImplementedError("object datasets and --init_bert are not ported yet")
     device = resolve_device(args.device)
     # bf16 GEMMs accumulate in float32 end to end, as the JAX einsums do
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -93,12 +93,19 @@ def build(args) -> PretrainTrainer:
         cfg.tasks, cfg.mix_ratio = jax_cli.parse_task_ratio(args.tasks)
     loader = PretrainLoader(build_synthetic_db(cfg, args.seed), cfg, seed=cfg.seed,
                             num_workers=cfg.num_workers)
-    return PretrainTrainer(cfg, loader, device)
+    trainer = PretrainTrainer(cfg, loader, device)
+    if args.resume:
+        trainer.restore(args.resume)
+    return trainer
 
 
 def main(argv=None):
-    """Train ``--num_steps`` steps; returns the meters by "<task>/<metric>"."""
-    return build(parse_args(argv)).train()
+    """Train up to ``--num_steps`` steps and save the checkpoint; returns the
+    meters by "<task>/<metric>"."""
+    trainer = build(parse_args(argv))
+    meters = trainer.train()
+    trainer.save(trainer.state.step)
+    return meters
 
 
 if __name__ == "__main__":

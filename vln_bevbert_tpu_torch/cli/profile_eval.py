@@ -70,9 +70,11 @@ def device_busy_us(events) -> float:
     return busy
 
 
-def host_table(stats: pstats.Stats, steps: int, top: int) -> str:
+def host_table(stats: pstats.Stats, steps: int, top: int, per: str = "step") -> str:
+    """The ``top`` host functions by own time, in ms per ``per`` (``steps``
+    of them were profiled)."""
     rows = sorted(stats.stats.items(), key=lambda kv: kv[1][2], reverse=True)
-    lines = [f"{'own ms/step':>12} {'cum ms/step':>12} {'calls':>8}  function"]
+    lines = [f"{'own ms/' + per:>12} {'cum ms/' + per:>12} {'calls':>8}  function"]
     for (path, line, func), (_, calls, own, cum, _) in rows[:top]:
         where = f"{os.path.basename(os.path.dirname(path))}/{os.path.basename(path)}:{line}"
         lines.append(f"{1e3 * own / steps:12.3f} {1e3 * cum / steps:12.3f} {calls:8d}  "
@@ -87,7 +89,7 @@ def main(argv=None):
     own.add_argument("--out", default=None, help="directory for full tables + trace")
     ours, rest = own.parse_known_args(argv)
     args = finetune.parse_args(["--synthetic", "--test", *rest])
-    _, val_envs, agent = finetune.build(args)
+    _, _, val_envs, agent = finetune.build(args)
     agent.env = next(iter(val_envs.values()))
     agent.env.reset_epoch(shuffle=False)
     counter = count_steps(agent)

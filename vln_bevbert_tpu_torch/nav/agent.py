@@ -1,24 +1,33 @@
-"""Navigation agent for discrete environments: the greedy-eval subset
-(port of ``vln_bevbert_tpu/nav/agent.py``).
+"""DAgger navigation agent for discrete environments (port of
+``vln_bevbert_tpu/nav/agent.py``), rollout-then-replay:
 
-Each rollout step runs the panorama encoder, the device BEV lift, the device
-neighbourhood gather + egocentric splat (the CUDA splat kernel on the card)
-and the navigation model on the device, and the graph bookkeeping, the
-variable building and the policy's node-embedding contraction on the host.
-The host work runs while the panorama forward is in flight: uploads go
-through pinned memory without waiting for the device, and the first host
-read of ``pano_embeds`` is the step's sync point.
+1. *Rollout*: each step runs the panorama encoder, the device BEV lift, the
+   device neighbourhood gather + egocentric splat (the CUDA splat kernel on
+   the card) and the navigation model on the device, in eval mode, and the
+   graph bookkeeping, the variable building and the policy's node-embedding
+   contraction on the host. The host work runs while the panorama forward is
+   in flight: uploads go through pinned memory without waiting for the
+   device, and the first host read of ``pano_embeds`` is the step's sync
+   point. A training rollout records every step (``StepRecord``).
+2. *Replay* (``_learn`` -> ``learn_from_bundle``): the recorded episode
+   again, in training mode (dropout through the CUDA dropout kernel on the
+   card): the language once, the panorama encoder over all steps jointly,
+   then per step the node embeddings as a device contraction of those pano
+   tokens and the navigation forward, one backward through the whole
+   episode, the float32 global-norm clip and AdamW.
 
 The host helpers (``_language_variable`` ... ``_make_equiv_action``) repeat
-the JAX agent's, which cannot be imported without JAX. Replay training
-(``_learn``), sampling feedbacks, object grounding and checkpoints are not
-ported yet.
+the JAX agent's, which cannot be imported without JAX. Object grounding
+(REVERIE/SOON), the teacher-recollection store, the mesh-sharded replay and
+the scan-block bench probes are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, List, Optional
+from dataclasses import dataclass
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -34,12 +43,47 @@ from vln_bevbert_tpu.nav.eval_utils import compute_dtw_metrics
 from vln_bevbert_tpu.nav.graph_map import GraphMap
 
 from ..models.bert import init_params
+from ..models.glocal import cross_entropy
 from ..models.nav import GlocalTextPathNavCMT
+from ..models.surgery import count_transferred, transfer_pretrained
 from ..ops.bev import BevProjector
+from ..ops.dropout import set_dropout_generator
+from ..parallel.optim import finetune_optim
+from ..parallel.train_step import TrainState, load_checkpoint, save_checkpoint
 from ..utils.device import to_device
-from ..utils.rng import make_generator
+from ..utils.rng import make_generator, train_generator
 
 IGNORE_ID = -100
+FEEDBACKS = ("argmax", "teacher", "sample", "expl_sample")
+# the supervised and acted-on head per fusion mode
+LOGITS_KEY = {"local": "local_logits", "global": "global_logits", "avg": "fused_logits"}
+
+
+@dataclass
+class StepRecord:
+    """What the replay needs of one training-rollout step: host arrays, and
+    the step's BEV features as the device tensor the splat produced (no
+    gradient flows into them). The object slots are not ported yet."""
+
+    active: np.ndarray                 # (B,) bool
+    view_fts: np.ndarray               # (B, V, Dimg)
+    loc_fts: np.ndarray                # (B, V, A+3)
+    nav_types: np.ndarray              # (B, V)
+    view_lens: np.ndarray              # (B,)
+    gmap_agg: np.ndarray               # (B, N, T*V)
+    gmap_step_ids: np.ndarray          # (B, N)
+    gmap_pos_fts: np.ndarray           # (B, N, A+3)
+    gmap_masks: np.ndarray             # (B, N)
+    gmap_visited_masks: np.ndarray     # (B, N)
+    gmap_pair_dists: np.ndarray        # (B, N, N)
+    targets: np.ndarray                # (B,), IGNORE_ID once ended
+    bev_fts: Optional[torch.Tensor] = None       # (B, C, Dgrid) on the device
+    bev_nav_masks: Optional[np.ndarray] = None   # (B, C)
+    bev_cand_idxs: Optional[np.ndarray] = None   # (B, K)
+    local_masks: Optional[np.ndarray] = None     # (B, K)
+    fuse_map: Optional[np.ndarray] = None        # (B, N, K)
+    bev_pos_fts: Optional[np.ndarray] = None     # (B, C, A+3+3)
+    step_idx: int = 0
 
 
 class DevicePcStore:
@@ -102,11 +146,35 @@ class GMapNavAgent:
         )
         self.polar = bev_polar_pos(cfg.model.bev_dim).reshape(-1, 3)
         self.np_rng = np.random.default_rng(seed)
+        # dropout in the replay draws its per-row seeds from here
+        set_dropout_generator(self.model, train_generator(seed, self.device))
+        self._state: Optional[TrainState] = None
+        self.transferred: Optional[int] = None
+        self.logs: Dict[str, List[float]] = {"IL_loss": [], "grad_norm": [], "entropy": []}
 
     # ------------------------------------------------------------------ init
-    def init_params(self, generator: Optional[torch.Generator] = None):
-        """Random parameters from a seeded generator on the agent's device."""
+    def init_params(self, generator: Optional[torch.Generator] = None,
+                    pretrained: Optional[Mapping[str, torch.Tensor]] = None) -> Optional[int]:
+        """Random parameters from a seeded generator on the agent's device;
+        with ``pretrained`` (a state dict, e.g. a pretraining model's), every
+        entry of it whose name and shape the navigation model shares replaces
+        the fresh value. Returns how many entries were transferred, or None
+        (also kept as ``self.transferred``)."""
         init_params(self.model, generator or make_generator(self.seed, self.device))
+        self.transferred = None
+        if pretrained is not None:
+            fresh = self.model.state_dict()
+            self.model.load_state_dict(transfer_pretrained(pretrained, fresh))
+            self.transferred = count_transferred(pretrained, fresh)
+        return self.transferred
+
+    @property
+    def train_state(self) -> TrainState:
+        """Gradient buffers and the fine-tuning AdamW state, made at first use
+        (an eval-only agent holds none)."""
+        if self._state is None:
+            self._state = TrainState(self.model, finetune_optim(self.cfg), decay_all=True)
+        return self._state
 
     # ---------------------------------------------------------------- device
     def _upload(self, x) -> torch.Tensor:
@@ -388,14 +456,24 @@ class GMapNavAgent:
         return a
 
     # --------------------------------------------------------------- rollout
-    @torch.inference_mode()
     def rollout(self, feedback: str = "argmax", train: bool = False):
-        """One batch of episodes. ``feedback`` is 'argmax' (greedy eval) or
-        'teacher' (follow the expert). Returns (trajectories, None)."""
-        if train:
-            raise NotImplementedError("replay training is not ported yet")
-        if feedback not in ("argmax", "teacher"):
-            raise ValueError(f"feedback {feedback!r}: only argmax/teacher are ported")
+        """One batch of episodes. ``feedback``: 'argmax' (greedy), 'teacher'
+        (follow the expert), 'sample' (draw from the policy's softmax),
+        'expl_sample' (argmax, exploring w.p. ``1 - expl_max_ratio``). With
+        ``train`` every step is recorded and one replay update follows.
+        Returns (trajectories, the update's loss or None)."""
+        if feedback not in FEEDBACKS:
+            raise ValueError(f"unknown feedback {feedback!r}")
+        # a training rollout records the splat's BEV features for the
+        # replay's graph: inference tensors cannot be saved for backward
+        with torch.no_grad() if train else torch.inference_mode():
+            traj, lang, records = self._rollout(feedback, train)
+        loss = None
+        if train and records:
+            loss = self._learn(lang, records)
+        return traj, loss
+
+    def _rollout(self, feedback: str, train: bool):
         cfg = self.cfg
         obs = self.env.reset()
         B = len(obs)
@@ -415,6 +493,7 @@ class GMapNavAgent:
         just_ended = np.zeros(B, bool)
         pano_store = {"view_lens": {}, "embeds": {}}
         pc_store = self._make_pc_store(B)
+        records: List[StepRecord] = []
 
         for t in range(T):
             for i, gmap in enumerate(gmaps):
@@ -480,10 +559,9 @@ class GMapNavAgent:
                 imitation_learning=(feedback == "teacher"), t=t, traj=traj,
             )
 
-            logits_key = {"local": "local_logits", "global": "global_logits"}.get(
-                cfg.fusion, "fused_logits"
-            )
-            nav_logits = nav_outs[logits_key].float().cpu().numpy()
+            # float32 logits, then the JAX agent's numpy ops: equal logits
+            # give equal probabilities and equal sampled actions
+            nav_logits = nav_outs[LOGITS_KEY.get(cfg.fusion, "fused_logits")].float().cpu().numpy()
             nav_probs = np.exp(nav_logits - nav_logits.max(-1, keepdims=True))
             nav_probs /= nav_probs.sum(-1, keepdims=True)
 
@@ -491,11 +569,25 @@ class GMapNavAgent:
                 if not ended[i]:
                     gmap.node_stop_scores[obs[i]["viewpoint"]] = float(nav_probs[i, 0])
 
-            if feedback == "teacher":
-                a_t = targets
+            if train:
+                records.append(StepRecord(
+                    active=~ended.copy(),
+                    view_fts=pano_in["view_fts"], loc_fts=pano_in["loc_fts"],
+                    nav_types=pano_in["nav_types"], view_lens=pano_in["view_lens"],
+                    gmap_agg=nav_g["gmap_agg"], gmap_step_ids=nav_g["gmap_step_ids"],
+                    gmap_pos_fts=nav_g["gmap_pos_fts"], gmap_masks=nav_g["gmap_masks"],
+                    gmap_visited_masks=nav_g["gmap_visited_masks"],
+                    gmap_pair_dists=nav_g["gmap_pair_dists"],
+                    targets=np.where(ended, IGNORE_ID, targets),
+                    bev_fts=nav_b["bev_fts"], bev_nav_masks=nav_b["bev_nav_masks"],
+                    bev_cand_idxs=nav_b["bev_cand_idxs"], local_masks=nav_b["local_masks"],
+                    fuse_map=fuse_map, bev_pos_fts=nav_b["bev_pos_fts"], step_idx=t,
+                ))
+
+            a_t = self._pick_actions(feedback, targets, nav_logits, nav_probs, nav_g, nav_b)
+            if feedback in ("teacher", "sample"):
                 a_t_stop = [ob["viewpoint"] == ob["gt_path"][-1] for ob in obs]
             else:
-                a_t = nav_logits.argmax(-1)
                 a_t_stop = a_t == 0
 
             actions: List[Optional[str]] = []
@@ -533,7 +625,29 @@ class GMapNavAgent:
             ended |= np.array([a is None for a in actions])
             if ended.all():
                 break
-        return traj, None
+        return traj, lang, records
+
+    def _pick_actions(self, feedback, targets, nav_logits, nav_probs, nav_g, nav_b):
+        """The step's action index per sample; draws from ``np_rng`` in the
+        JAX agent's order."""
+        if feedback == "teacher":
+            return targets
+        a_t = nav_logits.argmax(-1)
+        if feedback == "sample":
+            a_t = np.array([self.np_rng.choice(len(p), p=p) for p in nav_probs])
+            with np.errstate(divide="ignore", invalid="ignore"):
+                ent = -np.nansum(np.where(nav_probs > 0, nav_probs * np.log(nav_probs), 0.0), -1)
+            self.logs["entropy"].append(float(ent.sum()))
+        elif feedback == "expl_sample":
+            if self.cfg.fusion == "local":
+                actionable = np.asarray(nav_b["bev_nav_masks"], bool)
+            else:
+                actionable = nav_g["gmap_masks"] & ~nav_g["gmap_visited_masks"]
+            explore = self.np_rng.random(len(a_t)) > self.cfg.expl_max_ratio
+            for i in range(len(a_t)):
+                if explore[i] and actionable[i].any():
+                    a_t[i] = self.np_rng.choice(np.arange(actionable.shape[1])[actionable[i]])
+        return a_t
 
     def _policy_node_embeds(self, gmap_agg, pano_store, B):
         """Host float32 contraction of the stored pano tokens."""
@@ -558,6 +672,131 @@ class GMapNavAgent:
             viewidx = cands.get(act, [12])[0]
             self.env.teleport(i, act, (viewidx % 12) * math.radians(30.0))
 
+    # ----------------------------------------------------------------- learn
+    def _learn(self, lang, records: List[StepRecord]) -> float:
+        """Stack the records to T = ``max_action_len`` steps, padding with
+        zeros and IGNORE_ID targets (the JAX agent's bundle), and replay them.
+        The BEV features stay on the device."""
+        T = self.cfg.max_action_len
+        pad = T - len(records)
+
+        def stack(attr):
+            arrs = [np.asarray(getattr(r, attr)) for r in records]
+            return np.stack(arrs + [np.zeros_like(arrs[0])] * pad)
+
+        keys = ["view_fts", "loc_fts", "nav_types", "view_lens", "gmap_agg",
+                "gmap_step_ids", "gmap_pos_fts", "gmap_masks", "gmap_pair_dists",
+                "gmap_visited_masks"]
+        if self.cfg.model.use_bev:
+            keys += ["bev_nav_masks", "bev_cand_idxs", "local_masks", "fuse_map",
+                     "bev_pos_fts"]
+        rb: Dict[str, Any] = {k: stack(k) for k in keys}
+        if self.cfg.model.use_bev:
+            bev = [r.bev_fts for r in records]
+            rb["bev_fts"] = torch.stack(bev + [torch.zeros_like(bev[0])] * pad)
+        tgt = [r.targets for r in records]
+        rb["targets"] = np.stack(tgt + [np.full_like(tgt[0], IGNORE_ID)] * pad)
+        rb["txt_ids"] = lang["txt_ids"]
+        rb["txt_masks"] = lang["txt_masks"]
+        rb["step_idx"] = np.arange(T, dtype=np.int32)
+        return self.learn_from_bundle(rb)
+
+    def _episode_loss(self, rb: Mapping[str, Any]) -> torch.Tensor:
+        """The episode's imitation loss, differentiable in the parameters, in
+        the model's current mode (the replay runs it in training mode).
+
+        ``rb`` holds step-leading (T, B, ...) arrays (``txt_*`` are (B, L)).
+        The panorama encoder runs over all T*B step-rows at once; then each
+        step's node embeddings are the float32 contraction of the recorded
+        aggregation matrix with those tokens on the device, so the gradient
+        of a later step reaches the earlier steps' panoramas. Per step a
+        sum-reduction cross-entropy with IGNORE_ID on the fusion-selected
+        head; the total is scaled by ``ml_weight / B``."""
+        cfg = self.cfg
+        use_bev = cfg.model.use_bev
+        dev = {k: self._upload(v) for k, v in rb.items()}
+        T, B = dev["view_fts"].shape[:2]
+        txt_masks = dev["txt_masks"]
+        txt_embeds = self.model("language", {"txt_ids": dev["txt_ids"], "txt_masks": txt_masks})
+        pano_embeds, pano_masks = self.model("panorama", {
+            k: dev[k].reshape(T * B, *dev[k].shape[2:])
+            for k in ("view_fts", "loc_fts", "nav_types", "view_lens")
+        })
+        P, D = pano_embeds.shape[1:]
+        tokens = (pano_embeds * pano_masks[..., None]).reshape(T, B, P, D)
+        tokens = tokens.transpose(0, 1).reshape(B, T * P, D).float()
+        logits_key = LOGITS_KEY[cfg.fusion] if use_bev else "global_logits"
+        targets = np.asarray(rb["targets"])
+        total = torch.zeros((), device=self.device)
+        for t in range(T):
+            # a step whose targets are all IGNORE_ID (the padding after an
+            # episode's last step) adds exactly zero to the loss and the
+            # gradient: the JAX scan runs it, the port skips it
+            if (targets[t] == IGNORE_ID).all():
+                continue
+            nav_in = {
+                "txt_embeds": txt_embeds, "txt_masks": txt_masks,
+                "gmap_img_embeds": torch.matmul(dev["gmap_agg"][t].float(), tokens),
+                **{k: dev[k][t] for k in ("gmap_step_ids", "gmap_pos_fts", "gmap_masks",
+                                          "gmap_pair_dists", "gmap_visited_masks")},
+            }
+            if use_bev:
+                nav_in.update({k: dev[k][t] for k in ("bev_fts", "bev_pos_fts", "bev_nav_masks",
+                                                       "bev_cand_idxs", "local_masks",
+                                                       "fuse_map")})
+                nav_in["bev_masks"] = torch.ones(dev["bev_fts"].shape[1:3], dtype=torch.bool,
+                                                 device=self.device)
+            outs = self.model("navigation", nav_in)
+            total = total + cross_entropy(outs[logits_key], dev["targets"][t])[0].sum()
+        return total * cfg.ml_weight / B
+
+    @contextlib.contextmanager
+    def _training(self):
+        self.model.train()
+        try:
+            yield
+        finally:
+            self.model.eval()
+
+    def learn_from_bundle(self, rb: Mapping[str, Any]) -> float:
+        """One replay update from a bundle (``_learn``'s, or any in its
+        layout, e.g. ``vln_bevbert_tpu.data.synthetic.synthetic_replay_bundle``):
+        the episode loss with dropout on, its backward, the float32
+        global-norm clip and AdamW. Reads back once, as the JAX agent reads
+        its loss: the loss and the gradient norm, appended to ``logs``."""
+        state = self.train_state
+        with self._training():
+            loss = self._episode_loss(rb)
+        loss.backward()
+        gnorm = state.apply_gradients()
+        loss_val, gnorm_val = torch.stack([loss.detach(), gnorm]).tolist()
+        self.logs["IL_loss"].append(loss_val)
+        self.logs["grad_norm"].append(gnorm_val)
+        return loss_val
+
+    def train_iters(self, n_iters: int, feedback: str = "sample") -> List[float]:
+        """``n_iters`` training rollouts, each followed by its replay update;
+        'dagger' runs a teacher-forced and a sampled rollout per iteration."""
+        losses = []
+        for _ in range(n_iters):
+            runs = ("teacher", "sample") if feedback == "dagger" else (feedback,)
+            for fb in runs:
+                _, loss = self.rollout(feedback=fb, train=True)
+                if loss is not None:
+                    losses.append(loss)
+        return losses
+
+    # ----------------------------------------------------------- checkpoints
+    def save_ckpt(self, path: str) -> str:
+        """Parameters and the AdamW state (bf16 mu, f32 nu, count), one torch file."""
+        return save_checkpoint(path, self.model, self.train_state)
+
+    def restore_ckpt(self, path: str, with_opt: bool = True) -> None:
+        ckpt = load_checkpoint(path, self.device)
+        self.model.load_state_dict(ckpt["params"])
+        if with_opt:
+            self.train_state.load_state_dict(ckpt["opt_state"])
+
     # ------------------------------------------------------------------ test
     def test(self, max_batches: Optional[int] = None):
         """Greedy evaluation over the dataset until it wraps."""
@@ -579,3 +818,19 @@ class GMapNavAgent:
             {"instr_id": k, "trajectory": v["path"], "pred_objid": v.get("pred_objid")}
             for k, v in results.items()
         ]
+
+
+class _EnvStub:
+    """The env surface a replay-only agent needs: none beyond its batch."""
+
+    def __init__(self, batch_size: int):
+        self.batch_size = batch_size
+
+
+def make_replay_agent(cfg: FinetuneConfig, batch_size: int, seed: int = 0,
+                      device="cpu") -> GMapNavAgent:
+    """An env-less agent with random parameters, for replay updates from
+    prepared bundles."""
+    agent = GMapNavAgent(cfg, _EnvStub(batch_size), seed=seed, device=device)
+    agent.init_params()
+    return agent

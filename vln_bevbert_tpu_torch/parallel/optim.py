@@ -19,6 +19,11 @@ moment in float32:
 The step count and the learning rate live on the host, so an update queues
 device work and reads nothing back. The optimizer family beyond ``adamw`` is
 not ported yet.
+
+Fine-tuning builds its optimizer in the agent rather than from an
+``OptimConfig`` (JAX ``nav/agent.py:225-232``); ``finetune_optim`` states it
+as one: a constant learning rate, optax's default betas and weight decay on
+every parameter.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from typing import Callable, Dict, List, Sequence
 import torch
 from torch import nn
 
-from vln_bevbert_tpu.configs import OptimConfig
+from vln_bevbert_tpu.configs import FinetuneConfig, OptimConfig
 
 from ..convert import flax_paths
 
@@ -36,8 +41,10 @@ from ..convert import flax_paths
 def lr_schedule(cfg: OptimConfig) -> Callable[[int], float]:
     """step -> learning rate: "linear" warmup from 0 then linear decay to 0
     at ``num_train_steps`` (optax.join_schedules of two linear schedules),
-    or "noam"."""
+    "noam", or "constant"."""
     lr, warmup, total = cfg.learning_rate, cfg.warmup_steps, cfg.num_train_steps
+    if cfg.lr_schedule == "constant":
+        return lambda step: lr
     if cfg.lr_schedule == "linear":
         decay_steps = max(total - warmup, 1)
 
@@ -55,6 +62,17 @@ def lr_schedule(cfg: OptimConfig) -> Callable[[int], float]:
 
         return noam
     raise ValueError(cfg.lr_schedule)
+
+
+def finetune_optim(cfg: FinetuneConfig) -> OptimConfig:
+    """The fine-tuning optimizer, ``clip_by_global_norm(cfg.grad_norm)`` then
+    ``optax.adamw(cfg.learning_rate, weight_decay=cfg.weight_decay,
+    mu_dtype=bfloat16)``: a constant learning rate and optax's defaults,
+    betas (0.9, 0.999) and eps 1e-8, not pretraining's betas. optax's
+    ``mask=None`` decays every parameter: pair it with ``decay_all=True``."""
+    return OptimConfig(learning_rate=cfg.learning_rate, betas=(0.9, 0.999),
+                       weight_decay=cfg.weight_decay, grad_norm=cfg.grad_norm,
+                       lr_schedule="constant", mu_dtype="bfloat16")
 
 
 def decay_mask(module: nn.Module) -> Dict[str, bool]:

@@ -12,6 +12,10 @@ package's scan over a block of steps is a loop of steps here.
 A step queues its device work and reads nothing back: the learning rate and
 step count live on the host, the dropout seeds come from a generator on the
 device, and batches are uploaded through pinned memory.
+
+``TrainState`` also serves the fine-tuning agent's replay update;
+``save_checkpoint``/``load_checkpoint`` write and read one torch file with
+the parameters and the optimizer state of either.
 """
 
 from __future__ import annotations
@@ -38,22 +42,37 @@ Batch = Dict[str, Any]
 
 class TrainState:
     """A module's parameters with persistent gradient buffers, AdamW state
-    and the global-norm clip."""
+    and the global-norm clip. Weight decay follows ``decay_mask``, or reaches
+    every parameter with ``decay_all`` (optax's ``mask=None``)."""
 
-    def __init__(self, model: nn.Module, cfg: OptimConfig):
+    def __init__(self, model: nn.Module, cfg: OptimConfig, decay_all: bool = False):
         names, params = zip(*model.named_parameters())
-        mask = decay_mask(model)
+        mask = None if decay_all else decay_mask(model)
+        self.names = list(names)
         self.params = list(params)
         for p in self.params:
             # zeros, not None: a parameter the task's forward does not reach
             # still gets its moment decay and weight decay, as in optax
             p.grad = torch.zeros_like(p)
-        self.tx = AdamW(self.params, [mask[n] for n in names], cfg)
+        self.tx = AdamW(self.params, [mask is None or mask[n] for n in names], cfg)
         self.clip_norm = float(cfg.grad_norm)
 
     @property
     def step(self) -> int:
         return self.tx.count
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The optimizer state by parameter name: ``mu`` (its storage dtype),
+        ``nu`` (float32) and the update ``count``."""
+        return {"mu": dict(zip(self.names, self.tx.mu)),
+                "nu": dict(zip(self.names, self.tx.nu)), "count": self.tx.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        for name, mu, nu in zip(self.names, self.tx.mu, self.tx.nu):
+            mu.copy_(sd["mu"][name])
+            nu.copy_(sd["nu"][name])
+        self.tx.count = int(sd["count"])
 
     def apply_gradients(self) -> torch.Tensor:
         """Clip by the global norm in the step body (one float32 norm pass
@@ -66,6 +85,18 @@ class TrainState:
         self.tx.update(grads)
         torch._foreach_zero_(grads)
         return gnorm
+
+
+def save_checkpoint(path: str, model: nn.Module, state: TrainState, **extra) -> str:
+    """One torch file: the module's ``state_dict`` under ``params``, the
+    optimizer state under ``opt_state``, and ``extra`` entries."""
+    torch.save({"params": model.state_dict(), "opt_state": state.state_dict(), **extra}, path)
+    return path
+
+
+def load_checkpoint(path: str, device) -> Dict[str, Any]:
+    """A file written by ``save_checkpoint``, its tensors on ``device``."""
+    return torch.load(path, map_location=torch.device(device), weights_only=True)
 
 
 def build_projector(cfg: ModelConfig, shapes: ShapeConfig, device=None) -> BevProjector:

@@ -1,7 +1,8 @@
 """The pretraining loop (port of the step loop of
 ``vln_bevbert_tpu/pretrain/trainer.py``): the MetaLoader task schedule of
 ``PretrainLoader``, one train step per batch, running meters and
-``MetricLogger`` lines. Validation and checkpoints are not ported yet.
+``MetricLogger`` lines, and checkpoints (parameters, optimizer state and
+step in one torch file ``ckpt_<step>``). Validation is not ported yet.
 
 The loop reads each step's metrics back only after it has queued the next
 step, so the card never waits for the host's readback.
@@ -9,6 +10,7 @@ step, so the card never waits for the host's readback.
 
 from __future__ import annotations
 
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Optional
@@ -19,7 +21,13 @@ from vln_bevbert_tpu.configs import PretrainConfig
 from vln_bevbert_tpu.data.loader import PretrainLoader
 from vln_bevbert_tpu.utils.logging import MetricLogger, RunningMeter
 
-from ..parallel.train_step import init_pretrain_state, make_pretrain_step, upload
+from ..parallel.train_step import (
+    init_pretrain_state,
+    load_checkpoint,
+    make_pretrain_step,
+    save_checkpoint,
+    upload,
+)
 
 
 class PretrainTrainer:
@@ -28,10 +36,34 @@ class PretrainTrainer:
         self.cfg = cfg
         self.train_loader = train_loader
         self.device = torch.device(device)
-        self.logger = MetricLogger(output_dir or cfg.output_dir)
+        self.output_dir = output_dir or cfg.output_dir
+        self.logger = MetricLogger(self.output_dir)
         self.model, self.projector, self.state = init_pretrain_state(cfg, cfg.seed,
                                                                      self.device)
         self.step_fn = make_pretrain_step(self.model, self.projector)
+
+    # ------------------------------------------------------------ checkpoints
+    def save(self, step: int) -> str:
+        """Parameters, optimizer state and step as ``<output_dir>/ckpt_<step>``."""
+        path = os.path.join(self.output_dir, f"ckpt_{step}")
+        return save_checkpoint(path, self.model, self.state, step=self.state.step)
+
+    def restore(self, path: str) -> None:
+        """Parameters and optimizer state, whose update count is the step."""
+        ckpt = load_checkpoint(path, self.device)
+        self.model.load_state_dict(ckpt["params"])
+        self.state.load_state_dict(ckpt["opt_state"])
+
+    def auto_resume(self) -> Optional[str]:
+        """Restore the newest ``ckpt_*`` of the output directory, if any;
+        returns its path."""
+        ckpts = [os.path.join(self.output_dir, f) for f in os.listdir(self.output_dir)
+                 if f.startswith("ckpt_")]
+        if not ckpts:
+            return None
+        newest = max(ckpts, key=os.path.getmtime)
+        self.restore(newest)
+        return newest
 
     def train(self, num_steps: Optional[int] = None) -> Dict[str, float]:
         """Train until ``num_steps`` updates (default
