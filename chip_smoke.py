@@ -7,14 +7,23 @@ weights, through the hand-written CUDA kernels, in phases; each phase prints
 one line and a failing phase raises, so the script exits non-zero:
 
 1. device  - a CUDA card must be present; its name and power limit;
-2. build   - compile ``csrc/splat.cu`` and ``csrc/dropout.cu`` with nvcc for
-             sm_90a into ``build/``, one nvcc per source, started together;
-3. kernel  - the splat kernel against its plain PyTorch version on the card
-             at the navigation, pretraining and CE shapes and at edge cases;
-4. dropout - the dropout kernel against its plain version, bitwise, at the
+2. build   - compile ``csrc/ops.cpp`` (the ``torch.ops.bevbert`` operators),
+             ``csrc/splat.cu`` and ``csrc/dropout.cu`` with nvcc (sm_90a),
+             one nvcc per source, started together, and link them into one
+             library under ``build/``; seconds per source;
+3. kernel  - the fused splat kernel against its plain PyTorch version (the
+             gather, the payload concat, ``index_add_``) on the card at the
+             navigation (rows read in place from the rollout's point-cloud
+             store), pretraining (float16 features and semantic labels) and
+             CE shapes and at edge cases; per shape its time, its byte bound
+             and the share reached, the library calls ``index_add_`` and
+             one-hot ``torch.bmm``; the navigation BEV step's device time,
+             fused against the parent's gather, concat and splat;
+4. dropout - the dropout operator against its plain version, bitwise, at the
              pretraining step's and the replay update's largest sites and at
-             edge cases; P(keep); the
-             backward's mask; seed-only saved tensors;
+             edge cases, beside ``F.dropout``; P(keep); host us per launch;
+             the backward's mask; seed-only saved tensors; C++ launch counts
+             of the backward;
 5. slice   - the navigation eval (``cli.finetune --synthetic --test``); the
              splat kernel's launch count must equal the number of
              gather-and-splat calls, and the first step's BEV features and
@@ -22,10 +31,10 @@ one line and a failing phase raises, so the script exits non-zero:
 6. train   - the pretraining path (``cli.pretrain --synthetic --seed 16``),
              B=16, then its checkpoint; seed 16's schedule runs each of mlm,
              sap and masksem eight times in 24 steps; the kernels' launch
-             counts must equal
-             the dropout calls (forward and backward) and the ``prepare_bev``
-             calls; losses and gradient norms finite; ms/step per task,
-             samples/s weighted by the configured task mix, peak memory;
+             counts must equal the dropout calls (forward and backward) and
+             the ``prepare_bev`` calls; losses and gradient norms finite;
+             ms/step per task, samples/s weighted by the configured task mix,
+             peak memory;
 7. finetune - DAgger fine-tuning (``cli.finetune --synthetic --pretrain_ckpt
              <the train phase's checkpoint> --iters 3 --log_every 3``) at the
              ``FinetuneConfig()`` defaults, B=4: 6 training rollouts and 6
@@ -39,10 +48,11 @@ one line and a failing phase raises, so the script exits non-zero:
 8. small   - a small configuration evaluated on the card and on the CPU with
              the same parameters: equal trajectories, close logits.
 
-The second-to-last line is a JSON record of the kernels; the last line is
-``{"ok": true, "device": {...}}``. The port imports no JAX: the host modules
-it shares with ``vln_bevbert_tpu`` are JAX-free, and the run checks that no
-JAX module was loaded.
+Launch counts are the operators' own (C++, ``_build.launches``), set to 0
+just before each path and read just after it. The second-to-last line is a
+JSON record of the kernels; the last line is ``{"ok": true, "device": {...}}``.
+The port imports neither JAX nor the JAX package ``vln_bevbert_tpu``, and
+the run checks that none of their modules was loaded.
 """
 
 from __future__ import annotations
@@ -62,9 +72,11 @@ SPLAT = {"name": "splat_sums", "route": "cuda",
 DROPOUT = {"name": "seeded_dropout", "route": "cuda",
            "source": "vln_bevbert_tpu_torch/csrc/dropout.cu",
            "replaces": "vln_bevbert_tpu/ops/dropout.py:122"}
-# The count column is integer-valued and must match exactly; feature sums of a
-# bf16 payload accumulate in float32 in another order (atomics), hence:
+# The count and one-hot columns are integer-valued and must match exactly;
+# feature sums of bf16 values accumulate in float32 in another order
+# (atomics), hence:
 RTOL, ATOL = 1e-5, 1e-3
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 
 
 def phase(tag: str, **fields) -> None:
@@ -84,21 +96,33 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10) -> float:
-    """Mean device milliseconds per call by torch.profiler: the kernels' and
-    copies' own time, without the gaps in which the host is still launching
-    (which CUDA events around a short kernel measure instead)."""
+def device_ms_by_kernel(fn, iters: int = 10) -> dict:
+    """Mean device milliseconds per call of each kernel (and copy) that
+    ``fn`` runs, by torch.profiler: their own time, without the gaps in
+    which the host is still launching (which CUDA events around a short
+    kernel measure instead)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(r.end - r.start for r in spans) / 1e3 / iters
+    for _ in range(3):  # the tracer has returned a session without device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                r = e.time_range
+                by_name[e.name] = by_name.get(e.name, 0.0) + (r.end - r.start) / 1e3 / iters
+        if by_name:
+            return by_name
+    raise RuntimeError("torch.profiler recorded no device time in three sessions")
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Mean device milliseconds per call of all the kernels ``fn`` runs."""
+    return sum(device_ms_by_kernel(fn, iters).values())
 
 
 # ------------------------------------------------------------------ phases
@@ -116,74 +140,177 @@ def device_phase() -> str:
     return name
 
 
-def build_phase() -> None:
-    from concurrent.futures import ThreadPoolExecutor
+def host_us(fn, iters: int = 200) -> float:
+    """Host microseconds per call: the enqueue, without waiting for the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * secs / iters
 
+
+def bound_ms(n_bytes: int) -> float:
+    """The least time the card takes to move ``n_bytes`` of device memory."""
+    return 1e3 * n_bytes / HBM_BYTES_PER_S
+
+
+def build_phase() -> None:
     from vln_bevbert_tpu_torch import _build
 
-    names = ("splat", "dropout")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc process per source
-        built = dict(zip(names, pool.map(_build.build, names)))
+    path, logs = _build.build()
     secs = time.perf_counter() - t0
-    for name, (path, log) in built.items():
-        _build.load(name)
+    _build.load()
+    for source, (src_s, log) in logs.items():
         ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "smem" in ln]
-        phase("build", kernel=name, seconds=f"{secs:.2f}", library=path.name,
-              ptxas=repr(" | ".join(ptxas)))
+        phase("build", source=source, seconds=f"{src_s:.2f}", ptxas=repr(" | ".join(ptxas)))
+    phase("build", library=path.name, wall_seconds=f"{secs:.2f}", built=bool(logs))
 
 
-def random_splat_inputs(g, b, n, c, d, valid_frac=2 / 3):
-    """int32 cells (invalid -> -1) and a bf16 payload whose last column is 1."""
+def splat_case(g, b, t, p, s, c, f, num_sem, dtype):
+    """Inputs of the fused splat: a (B, T, P, F) store read through a (B, S)
+    step_sel of distinct steps (T > 1) or (B, S * P, F) rows (T == 1);
+    int32 cells, a third of them invalid (-1); labels when num_sem > 0."""
+    store = torch.randn(b, t, p, f, generator=g, device="cuda").to(dtype)
+    step_sel = None
+    if t > 1:
+        step_sel = torch.stack([torch.randperm(t, generator=g, device="cuda")[:s]
+                                for _ in range(b)]).int()
+    else:
+        store = store[:, 0]
+    n = s * p
     cell = torch.randint(0, c, (b, n), generator=g, device="cuda", dtype=torch.int32)
-    invalid = torch.rand(b, n, generator=g, device="cuda") > valid_frac
-    cell = torch.where(invalid, torch.full_like(cell, -1), cell)
-    payload = torch.randn(b, n, d, generator=g, device="cuda").to(torch.bfloat16)
-    payload[..., -1] = 1.0
-    return cell, payload
+    cell[torch.rand(b, n, generator=g, device="cuda") > 2 / 3] = -1
+    sem = (torch.randint(0, num_sem, (b, n), generator=g, device="cuda", dtype=torch.int32)
+           if num_sem else None)
+    return cell, store, dict(step_sel=step_sel, sem_labels=sem, num_sem=num_sem)
 
 
-def check_sums(label: str, out: torch.Tensor, ref: torch.Tensor) -> float:
-    if not torch.equal(out[..., -1], ref[..., -1]):
-        raise AssertionError(f"{label}: count column differs from the plain version")
+def check_sums(label: str, out: torch.Tensor, ref: torch.Tensor, f: int) -> float:
+    if not torch.equal(out[..., f:], ref[..., f:]):
+        raise AssertionError(f"{label}: count / one-hot columns differ from the plain version")
     torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL, msg=lambda m: f"{label}: {m}")
     return (out - ref).abs().max().item()
 
 
 def kernel_phase() -> dict:
+    from vln_bevbert_tpu_torch.nav.agent import gather_and_splat
     from vln_bevbert_tpu_torch.ops import bev as bev_mod
     from vln_bevbert_tpu_torch.ops.bev import BevProjector
-    from vln_bevbert_tpu_torch.ops.splat import splat_sums, splat_sums_ref
+    from vln_bevbert_tpu_torch.ops.splat import gather_rows, splat_sums, splat_sums_plain
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    shapes = {  # (B, N, C, D)
-        "nav": (4, 8 * 2352, 441, 769),       # gather_and_splat at the slice's shape
-        "pretrain": (16, 2352, 441, 809),     # feats + 40 sem + count
-        "ce": (8, 2352, 121, 769),            # the 11x11 continuous-env map
+    shapes = {  # (B, T, P, S, C, F, num_sem, feature dtype)
+        "nav": (4, 15, 2352, 8, 441, 768, 0, torch.bfloat16),     # gather_and_splat
+        "pretrain": (16, 1, 2352, 1, 441, 768, 40, torch.float16),  # prepare_bev
+        "ce": (8, 1, 2352, 1, 121, 768, 0, torch.bfloat16),       # the 11x11 CE map
     }
     record = {"max_abs_err": 0.0}
-    for label, (b, n, c, d) in shapes.items():
-        cell, payload = random_splat_inputs(g, b, n, c, d)
-        out, ref = splat_sums(cell, payload, c), splat_sums_ref(cell, payload, c)
-        err = check_sums(label, out, ref)
-        ms = cuda_ms(lambda: splat_sums(cell, payload, c), iters=20)
-        plain_ms = cuda_ms(lambda: splat_sums_ref(cell, payload, c), iters=5)
-        gbps = (cell.numel() * 4 + payload.numel() * 2 + b * c * d * 4) / ms / 1e6
-        phase("kernel", shape=label, B=b, N=n, C=c, D=d, max_abs_err=f"{err:.3e}",
-              ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", kernel_GBps=f"{gbps:.1f}")
+    for label, (b, t, p, s, c, f, num_sem, dtype) in shapes.items():
+        cell, store, kw = splat_case(g, b, t, p, s, c, f, num_sem, dtype)
+        out, ref = splat_sums(cell, store, c, **kw), splat_sums_plain(cell, store, c, **kw)
+        err = check_sums(label, out, ref, f)
+        ms = cuda_ms(lambda: splat_sums(cell, store, c, **kw), iters=20)
+        by_kernel = device_ms_by_kernel(lambda: splat_sums(cell, store, c, **kw))
+        dev_ms = sum(by_kernel.values())
+        part_us = {part: 1e3 * sum(v for k, v in by_kernel.items() if f"splat_{part}" in k)
+                   for part in ("hist", "scatter", "reduce")}
+        plain_ms = cuda_ms(lambda: splat_sums_plain(cell, store, c, **kw), iters=5)
+        # the library calls on the payload the parent built (not timed here)
+        rows = gather_rows(store, kw["step_sel"])
+        cols = [rows.to(torch.bfloat16)]
+        if num_sem:
+            cols.append(torch.nn.functional.one_hot(kw["sem_labels"].long(), num_sem)
+                        .to(torch.bfloat16))
+        cols.append(torch.ones(b, s * p, 1, dtype=torch.bfloat16, device="cuda"))
+        payload = torch.cat(cols, dim=-1)
+        d = payload.shape[-1]
+        valid = (cell >= 0) & (cell < c)
+        dump = torch.arange(b, device="cuda")[:, None] * c + cell.long()
+        index = torch.where(valid, dump, torch.full_like(dump, b * c)).reshape(-1)
+        acc = torch.zeros(b * c + 1, d, device="cuda")
+        source = payload.reshape(-1, d).float()
+        index_add_ms = cuda_ms(lambda: acc.index_add_(0, index, source), iters=10)
+        one_hot = (cell[:, None, :] == torch.arange(c, device="cuda", dtype=torch.int32)[:, None]
+                   ).to(torch.bfloat16)  # (B, C, N)
+        bmm_ms = cuda_ms(lambda: torch.bmm(one_hot, payload), iters=10)
+        # bytes the function must move: cells, labels, each valid point's
+        # feature row once, the step index, the (B, C, D) float32 sums
+        n_valid = int(valid.sum())
+        fixed = (cell.numel() * 4 + (cell.numel() * 4 if num_sem else 0)
+                 + (kw["step_sel"].numel() * 4 if t > 1 else 0) + b * c * d * 4)
+        bound = bound_ms(fixed + n_valid * f * store.element_size())
+        bound_all = bound_ms(fixed + cell.numel() * f * store.element_size())
+        # reference for random-row bandwidth: PyTorch's gather of the same
+        # valid rows (it reads them and writes them once)
+        flat = store.reshape(-1, f)
+        row_ids = torch.arange(flat.shape[0], device="cuda").reshape(*store.shape[:-1], 1)
+        valid_rows = gather_rows(row_ids, kw["step_sel"]).reshape(b, -1)[valid]
+        gather_us = 1e3 * cuda_ms(lambda: flat.index_select(0, valid_rows), iters=20)
+        del one_hot, payload, source, acc
+        phase("kernel", shape=label, B=b, N=s * p, C=c, D=d, feats=str(dtype).split(".")[-1],
+              valid_points=n_valid, max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}",
+              device_ms=f"{dev_ms:.4f}", bound_us=f"{1e3 * bound:.1f}",
+              bound_share=f"{bound / dev_ms:.1%}", bound_all_points_us=f"{1e3 * bound_all:.1f}",
+              bound_all_points_share=f"{bound_all / dev_ms:.1%}", plain_ms=f"{plain_ms:.4f}",
+              index_add_ms=f"{index_add_ms:.4f}", onehot_bmm_ms=f"{bmm_ms:.4f}",
+              **{f"{part}_us": f"{us:.2f}" for part, us in part_us.items()},
+              index_select_valid_rows_us=f"{gather_us:.2f}",
+              index_select_GBps=f"{2 * n_valid * f * store.element_size() / gather_us / 1e3:.0f}")
         record["max_abs_err"] = max(record["max_abs_err"], err)
+        record[label] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_all_points_ms": bound_all,
+                         "library_ms": index_add_ms, "onehot_bmm_ms": bmm_ms,
+                         "kernel_us": part_us, "index_select_us": gather_us}
         if label == "nav":
-            record.update(ms=ms, plain_ms=plain_ms)
+            record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_us=1e3 * bound,
+                          library_ms=index_add_ms, device_ms=dev_ms)
 
-    # edge cases: an all-invalid row, cells out of range, zero depth
-    cell, payload = random_splat_inputs(g, 3, 5000, 441, 769)
+    # the navigation BEV step: fused, against the parent's composition (the
+    # feature gather, the payload concat and the splat, by the plain pieces)
+    b, t, p, s, c, f = 4, 15, 2352, 8, 441, 768
+    proj = BevProjector(grid_hw=14, num_views=12, map_dim=21, map_res=0.5, device="cuda")
+    pc = torch.randn(b, t, p, 3, generator=g, device="cuda") * 4.0
+    valid_buf = torch.rand(b, t, p, generator=g, device="cuda") < 0.9
+    feat_buf = torch.randn(b, t, p, f, generator=g, device="cuda").bfloat16()
+    step_sel = torch.stack([torch.randperm(t, generator=g, device="cuda")[:s]
+                            for _ in range(b)]).int()
+    step_ok = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    step_ok[0, 5:] = False
+    T_w2c = torch.eye(4, device="cuda").expand(b, 4, 4).contiguous()
+    S_w2c = torch.zeros(b, 3, device="cuda")
+    args = (proj, pc, valid_buf, feat_buf, step_sel, step_ok, T_w2c, S_w2c)
+    fused = gather_and_splat(*args)
+    fused_ms = device_ms(lambda: gather_and_splat(*args))
+    bev_mod.splat_sums = splat_sums_plain
+    try:
+        parent = gather_and_splat(*args)
+        parent_ms = device_ms(lambda: gather_and_splat(*args))
+    finally:
+        bev_mod.splat_sums = splat_sums
+    torch.testing.assert_close(fused, parent, rtol=RTOL, atol=ATOL)
+    phase("kernel", step="nav_bev", device_ms_fused=f"{fused_ms:.4f}",
+          device_ms_parent_composition=f"{parent_ms:.4f}", speedup=f"{parent_ms / fused_ms:.2f}x")
+    record.update(nav_bev_device_ms=fused_ms, nav_bev_parent_device_ms=parent_ms)
+
+    # edges: an all-invalid row, cells out of range, a step_sel that repeats
+    # a step, float32 features, zero depth (through the projector)
+    cell, store, kw = splat_case(g, 3, 6, 700, 3, 441, 768, 0, torch.bfloat16)
+    kw["step_sel"] = torch.tensor([[2, 2, 5], [0, 1, 0], [4, 4, 4]], dtype=torch.int32,
+                                  device="cuda")
     cell[0] = -1
     cell[1, ::3] = 441 + 7
-    out = splat_sums(cell, payload, 441)
+    out = splat_sums(cell, store, 441, **kw)
     if out[0].abs().max().item() != 0.0:
         raise AssertionError("edge: an all-invalid row must splat to zeros")
-    record["max_abs_err"] = max(record["max_abs_err"],
-                                check_sums("edge", out, splat_sums_ref(cell, payload, 441)))
+    err = check_sums("edge", out, splat_sums_plain(cell, store, 441, **kw), 768)
+    cell, store, kw = splat_case(g, 2, 1, 3000, 1, 441, 768, 0, torch.float32)
+    err = max(err, check_sums("edge f32", splat_sums(cell, store, 441, **kw),
+                              splat_sums_plain(cell, store, 441, **kw), 768))
+    record["max_abs_err"] = max(record["max_abs_err"], err)
     proj = BevProjector(grid_hw=14, num_views=12, map_dim=21, map_res=0.5, device="cuda")
     depths = torch.rand(2, 12, 14, 14, generator=g, device="cuda") * 4.0
     depths[0] = 0.0
@@ -195,7 +322,7 @@ def kernel_phase() -> dict:
     sem = torch.randint(0, 40, (2, 12 * 196), generator=g, device="cuda")
     args = (depths, T_c2w, T_w2c, S_w2c, feats, sem)
     ours = proj.lift_splat(*args)
-    bev_mod.splat_sums = splat_sums_ref
+    bev_mod.splat_sums = splat_sums_plain
     try:
         plain = proj.lift_splat(*args)
     finally:
@@ -207,14 +334,18 @@ def kernel_phase() -> dict:
         if not torch.equal(a, b):
             raise AssertionError("edge: occupancy / semantics differ from the plain version")
     phase("kernel", shape="edges", all_invalid_row="ok", out_of_range_cells="ok",
-          zero_depth="ok", occupied_cells=int(ours[1][1].sum()))
+          repeated_step="ok", f32_feats="ok", zero_depth="ok",
+          occupied_cells=int(ours[1][1].sum()))
     return record
 
 
 def dropout_phase() -> dict:
     import math
 
-    from vln_bevbert_tpu_torch.ops.dropout import draw_seeds, dropout, dropout_apply, dropout_ref
+    import torch.nn.functional as F
+
+    from vln_bevbert_tpu_torch import _build
+    from vln_bevbert_tpu_torch.ops.dropout import draw_seeds, dropout, dropout_ref
 
     g = torch.Generator(device="cuda").manual_seed(0)
     shapes = {  # the pretraining step's largest sites: (shape, dtype, rate)
@@ -226,11 +357,11 @@ def dropout_phase() -> dict:
         "ft_attn_probs": ((4, 12, 441, 441), torch.bfloat16, 0.1),
         "ft_pano_hidden": ((60, 44, 768), torch.bfloat16, 0.1),
     }
-    record = {"max_abs_err": 0.0}
+    record = {"max_abs_err": 0.0, "sites": {}}
     for label, (shape, dtype, rate) in shapes.items():
         x = torch.randn(shape, generator=g, device="cuda").to(dtype)
         seeds = draw_seeds(shape[0], g, "cuda")
-        y, ref = dropout_apply(x, seeds, rate), dropout_ref(x, seeds, rate)
+        y, ref = dropout(x, seeds, rate), dropout_ref(x, seeds, rate)
         if not torch.equal(y, ref):
             raise AssertionError(f"dropout {label}: kernel differs from the plain version")
         err = (y.float() - ref.float()).abs().max().item()
@@ -238,51 +369,65 @@ def dropout_phase() -> dict:
         sd = math.sqrt(rate * (1 - rate) / x.numel())
         if abs(keep - (1 - rate)) > 5 * sd:
             raise AssertionError(f"dropout {label}: P(keep) {keep} vs {1 - rate}")
-        ms = cuda_ms(lambda: dropout_apply(x, seeds, rate), iters=20)
+        ms = cuda_ms(lambda: dropout(x, seeds, rate), iters=20)
+        lib_ms = cuda_ms(lambda: F.dropout(x, rate), iters=20)
         plain_ms = cuda_ms(lambda: dropout_ref(x, seeds, rate), iters=3, warmup=1)
-        dev_ms = device_ms(lambda: dropout_apply(x, seeds, rate))
-        gbps = 2 * x.numel() * x.element_size() / dev_ms / 1e6
+        dev_ms = device_ms(lambda: dropout(x, seeds, rate))
+        lib_dev_ms = device_ms(lambda: F.dropout(x, rate))
+        bound = bound_ms(2 * x.numel() * x.element_size() + seeds.numel() * 4)
+        row = {"ms": ms, "device_ms": dev_ms, "F_dropout_ms": lib_ms,
+               "F_dropout_device_ms": lib_dev_ms, "plain_ms": plain_ms, "bound_ms": bound}
+        extra = {}
+        if label in ("hidden", "ft_pano_hidden"):
+            row["host_us"] = host_us(lambda: dropout(x, seeds, rate))
+            row["F_dropout_host_us"] = host_us(lambda: F.dropout(x, rate))
+            extra = dict(host_us_per_launch=f"{row['host_us']:.2f}",
+                         F_dropout_host_us=f"{row['F_dropout_host_us']:.2f}")
         phase("dropout", site=label, shape=tuple(shape), dtype=str(dtype).split(".")[-1],
               rate=rate, bitwise="equal", keep=f"{keep:.6f}", ms=f"{ms:.4f}",
-              plain_ms=f"{plain_ms:.4f}", kernel_device_ms=f"{dev_ms:.4f}",
-              kernel_device_GBps=f"{gbps:.1f}")
+              F_dropout_ms=f"{lib_ms:.4f}", device_ms=f"{dev_ms:.4f}",
+              F_dropout_device_ms=f"{lib_dev_ms:.4f}", bound_us=f"{1e3 * bound:.1f}",
+              bound_share=f"{bound / dev_ms:.1%}", plain_ms=f"{plain_ms:.4f}", **extra)
         record["max_abs_err"] = max(record["max_abs_err"], err)
+        record["sites"][label] = row
         if label == "attn_probs":
-            record.update(ms=ms, plain_ms=plain_ms)
+            record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_us=1e3 * bound,
+                          library_ms=lib_ms, device_ms=dev_ms)
 
     # edges: rate 0, a row length not divisible by 4, a single row, a
     # misaligned start (the scalar path)
     x = torch.randn(1, 1000, generator=g, device="cuda").bfloat16()
     one = draw_seeds(1, g, "cuda")
-    if not torch.equal(dropout_apply(x, one, 0.0), x):
+    if not torch.equal(dropout(x, one, 0.0), x):
         raise AssertionError("dropout edge: rate 0 must be the identity")
     base = torch.randn(1 + 5 * 3 * 7, generator=g, device="cuda")
     cases = {"ragged_rows": base[1:].view(5, 3, 7).bfloat16().contiguous(),
              "misaligned": base[1:].view(5, 21), "single_row": x}
     for label, t in cases.items():
         seeds = draw_seeds(t.shape[0], g, "cuda")
-        if not torch.equal(dropout_apply(t, seeds, 0.3), dropout_ref(t, seeds, 0.3)):
+        if not torch.equal(dropout(t, seeds, 0.3), dropout_ref(t, seeds, 0.3)):
             raise AssertionError(f"dropout edge {label}: kernel differs from the plain version")
 
-    # autograd: the backward relaunches the kernel on dy with the saved seeds
+    # autograd: the C++ backward relaunches the kernel on dy with the saved
+    # seeds, and the C++ counter counts that launch
     x = torch.randn(16, 200, 768, generator=g, device="cuda").bfloat16().requires_grad_()
     seeds = draw_seeds(16, g, "cuda")
     packed = []
     with torch.autograd.graph.saved_tensors_hooks(lambda t: packed.append(t) or t,
                                                   lambda t: t):
         y = dropout(x, seeds, 0.1)
-    if len(packed) != 1 or packed[0] is not seeds:
+    if len(packed) != 1 or packed[0].data_ptr() != seeds.data_ptr():
         raise AssertionError(f"dropout: saved {len(packed)} tensors, expected the seeds only")
     dy = torch.randn_like(y)
-    before = dropout_apply.launches
+    before = _build.launches("dropout")
     y.backward(dy)
-    if dropout_apply.launches != before + 1:
+    if _build.launches("dropout") != before + 1:
         raise AssertionError("dropout: the backward did not launch the kernel")
     if not (torch.equal(x.grad, dropout_ref(dy, seeds, 0.1))
             and torch.equal(x.grad != 0, (y != 0) & (dy != 0))):
         raise AssertionError("dropout: the backward's mask differs from the forward's")
     phase("dropout", edges="rate0 ragged_rows misaligned single_row", backward_mask="equal",
-          saved="seeds only")
+          saved="seeds only", backward_launch="counted")
     return record
 
 
@@ -302,9 +447,9 @@ def train_phase(out_dir: str, steps: int = 24, seed: int = 16, min_each: int = 3
     save its checkpoint into ``out_dir`` as the CLI does. ``seed`` 16
     schedules every task at least ``min_each`` times in the first 24 steps
     (the MetaLoader draws tasks in blocks of 8)."""
+    from vln_bevbert_tpu_torch import _build
     from vln_bevbert_tpu_torch.cli import pretrain
     from vln_bevbert_tpu_torch.ops import dropout as drop_mod
-    from vln_bevbert_tpu_torch.ops.splat import splat_sums
     from vln_bevbert_tpu_torch.parallel import train_step as ts_mod
 
     seen = {"drop_fwd": 0, "drop_bwd": 0, "bev": 0, "steps": []}
@@ -340,13 +485,12 @@ def train_phase(out_dir: str, steps: int = 24, seed: int = 16, min_each: int = 3
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        drop_mod.dropout_apply.launches = splat_sums.launches = 0
+        _build.reset_launches()
         t0 = time.perf_counter()
         meters = trainer.train()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"dropout": drop_mod.dropout_apply.launches,
-                    "splat": splat_sums.launches}
+        launches = {"dropout": _build.launches("dropout"), "splat": _build.launches("splat")}
     finally:
         drop_mod.Dropout.forward, ts_mod.prepare_bev = forward, prepare
     peak = torch.cuda.max_memory_allocated()
@@ -393,10 +537,11 @@ def train_phase(out_dir: str, steps: int = 24, seed: int = 16, min_each: int = 3
 
 def slice_phase(device: str, extra_args: list) -> dict:
     """Run the CLI's synthetic eval, instrumented; returns its measurements."""
+    from vln_bevbert_tpu_torch import _build
     from vln_bevbert_tpu_torch.cli import finetune
     from vln_bevbert_tpu_torch.nav import agent as agent_mod
     from vln_bevbert_tpu_torch.ops import bev as bev_mod
-    from vln_bevbert_tpu_torch.ops.splat import splat_sums, splat_sums_ref
+    from vln_bevbert_tpu_torch.ops.splat import splat_sums, splat_sums_plain
 
     seen = {"gathers": 0, "rollouts": [], "steps": 0, "agent": None,
             "first_gather": None, "first_nav": None}
@@ -438,11 +583,11 @@ def slice_phase(device: str, extra_args: list) -> dict:
             if device == "cuda":
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-            splat_sums.launches = 0
+            _build.reset_launches()
             t0 = time.perf_counter()
             results = finetune.main(argv)
             wall = time.perf_counter() - t0
-            launches = splat_sums.launches
+            launches = _build.launches("splat")
             with open(f"{out_dir}/preds_val_unseen_0.json") as f:
                 n_preds = len(json.load(f))
     finally:
@@ -454,7 +599,7 @@ def slice_phase(device: str, extra_args: list) -> dict:
     # the first step again, with the plain splat on the same device buffers
     agent = seen["agent"]
     args, bev_kernel = seen["first_gather"]
-    bev_mod.splat_sums = splat_sums_ref
+    bev_mod.splat_sums = splat_sums_plain
     try:
         with torch.inference_mode():
             bev_plain = gather(*args)
@@ -502,10 +647,10 @@ def finetune_phase(pretrain_ckpt: str, pretrain_names: set, out_dir: str,
     through the CLI (``--synthetic --pretrain_ckpt <ckpt> --iters 3
     --log_every 3``: 6 training rollouts, 6 replay updates, one evaluation of
     val_unseen), instrumented; then ``--test --pretrain_ckpt ckpt_latest``."""
+    from vln_bevbert_tpu_torch import _build
     from vln_bevbert_tpu_torch.cli import finetune
     from vln_bevbert_tpu_torch.nav import agent as agent_mod
     from vln_bevbert_tpu_torch.ops import dropout as drop_mod
-    from vln_bevbert_tpu_torch.ops.splat import splat_sums
 
     seen = {"gathers": 0, "drop_fwd": 0, "drop_bwd": 0, "rollouts": [], "updates": [],
             "agent": None, "start": None}
@@ -550,13 +695,13 @@ def finetune_phase(pretrain_ckpt: str, pretrain_names: set, out_dir: str,
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        splat_sums.launches = drop_mod.dropout_apply.launches = 0
+        _build.reset_launches()
         t0 = time.perf_counter()
         results = finetune.main(argv + ["--pretrain_ckpt", pretrain_ckpt, "--iters", str(iters),
                                         "--log_every", str(iters)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"splat": splat_sums.launches, "dropout": drop_mod.dropout_apply.launches}
+        launches = {"splat": _build.launches("splat"), "dropout": _build.launches("dropout")}
         peak = torch.cuda.max_memory_allocated()
     finally:
         agent_mod.gather_and_splat, drop_mod.Dropout.forward = gather, drop_forward
@@ -728,14 +873,18 @@ def main() -> None:
 
     small_phase()
 
-    loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax"))
+    loaded = sorted(k for k in sys.modules if k.split(".")[0] in
+                    ("vln_bevbert_tpu", "jax", "jaxlib", "flax", "optax", "orbax"))
     if loaded:
-        raise AssertionError(f"JAX modules were imported: {loaded[:5]}")
+        raise AssertionError(f"JAX or JAX-package modules were imported: {loaded[:5]}")
+    # "launches" is the pretraining path's count; "ms", "bound_ms" and
+    # "library_ms" are at the navigation shape (splat) and the attention
+    # probabilities (dropout); every shape's numbers are nested beside them
     print(json.dumps({"kernels": [
-        {**SPLAT, "launches": train["launches"]["splat"], **splat_record,
+        {**SPLAT, "launches": train["launches"]["splat"], **splat_record, "bound_by": "bytes",
          "launches_eval": run["launches"], "launches_finetune": ft["launches"]["splat"]},
         {**DROPOUT, "launches": train["launches"]["dropout"], **drop_record,
-         "launches_finetune": ft["launches"]["dropout"]},
+         "bound_by": "bytes", "launches_finetune": ft["launches"]["dropout"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -10,32 +10,57 @@ import json
 import pytest
 import torch
 
+from vln_bevbert_tpu_torch import _build
 from vln_bevbert_tpu_torch.cli import finetune, pretrain
-from vln_bevbert_tpu_torch.ops.dropout import (
-    draw_seeds,
-    dropout,
-    dropout_apply,
-    dropout_ref,
-)
-from vln_bevbert_tpu_torch.ops.splat import splat_sums, splat_sums_ref
+from vln_bevbert_tpu_torch.ops.dropout import draw_seeds, dropout, dropout_ref
+from vln_bevbert_tpu_torch.ops.splat import splat_sums, splat_sums_plain
 from vln_bevbert_tpu_torch.parallel.train_step import upload
+
+# (B, T, P, S, C, F, num_sem, dtype): T > 1 reads a (B, T, P, F) store
+# through a (B, S) step_sel, T == 1 a (B, S * P, F) tensor
+SPLAT_CASES = {
+    "nav": (4, 15, 2352, 8, 441, 768, 0, torch.bfloat16),
+    "pretrain": (16, 1, 2352, 1, 441, 768, 40, torch.float16),
+    "ce": (8, 1, 2352, 1, 121, 768, 0, torch.bfloat16),
+    "f32_feats": (3, 1, 1000, 1, 441, 768, 0, torch.float32),
+    "repeated_step": (2, 4, 700, 3, 441, 768, 0, torch.bfloat16),
+}
 
 
 @pytest.mark.cuda
-def test_splat_kernel_matches_plain_on_card():
-    """Runs where there is a card (``pytest -m cuda``); skips elsewhere."""
+@pytest.mark.parametrize("case", list(SPLAT_CASES))
+def test_splat_kernel_matches_plain_on_card(case):
+    """The fused splat against its plain version (gather, concat,
+    ``index_add_``): count and one-hot columns exact, feature sums within
+    rtol 1e-5 and atol 1e-3 (float32 sums in another order). Every case has
+    an all-invalid row and cells out of range. Runs where there is a card
+    (``pytest -m cuda``); skips elsewhere."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    b, t, p, s, c, f, num_sem, dtype = SPLAT_CASES[case]
     g = torch.Generator(device="cuda").manual_seed(0)
-    cell = torch.randint(-1, 441, (4, 5000), generator=g, device="cuda", dtype=torch.int32)
-    payload = torch.randn(4, 5000, 769, generator=g, device="cuda").to(torch.bfloat16)
-    payload[..., -1] = 1.0                     # the count column
-    before = splat_sums.launches
-    out = splat_sums(cell, payload, 441)
-    assert splat_sums.launches == before + 1
-    ref = splat_sums_ref(cell, payload, 441)
-    torch.testing.assert_close(out[..., -1], ref[..., -1], atol=0, rtol=0)
+    store = torch.randn(b, t, p, f, generator=g, device="cuda").to(dtype)
+    if case == "repeated_step":
+        step_sel = torch.tensor([[1, 1, 3], [0, 2, 0]], dtype=torch.int32, device="cuda")
+    elif t > 1:
+        step_sel = torch.stack([torch.randperm(t, generator=g, device="cuda")[:s]
+                                for _ in range(b)]).int()
+    else:
+        step_sel, store = None, store[:, 0]
+    n = s * p
+    cell = torch.randint(-1, c + 3, (b, n), generator=g, device="cuda", dtype=torch.int32)
+    cell[0] = -1
+    sem = (torch.randint(0, num_sem, (b, n), generator=g, device="cuda", dtype=torch.int32)
+           if num_sem else None)
+    kw = dict(step_sel=step_sel, sem_labels=sem, num_sem=num_sem)
+    before = _build.launches("splat")
+    out = splat_sums(cell, store, c, **kw)
+    assert _build.launches("splat") == before + 1
+    ref = splat_sums_plain(cell, store, c, **kw)
+    assert out.shape == ref.shape == (b, c, f + num_sem + 1)
+    torch.testing.assert_close(out[..., f:], ref[..., f:], atol=0, rtol=0)
     torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-5)
+    assert not out[0].any()
 
 
 @pytest.mark.cuda
@@ -43,17 +68,19 @@ def test_splat_wrapper_rejects_bad_input_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cell = torch.zeros(2, 8, dtype=torch.int32, device="cuda")
-    payload = torch.ones(2, 8, 3, dtype=torch.bfloat16, device="cuda")
+    feats = torch.ones(2, 8, 16, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(TypeError):
-        splat_sums(cell.long(), payload, 4)
+        splat_sums(cell.long(), feats, 4)
     with pytest.raises(TypeError):
-        splat_sums(cell, payload.float(), 4)
+        splat_sums(cell, feats.int(), 4)
     with pytest.raises(ValueError, match="contiguous"):
-        splat_sums(cell, payload.transpose(0, 1).contiguous().transpose(0, 1), 4)
+        splat_sums(cell, feats.transpose(0, 1).contiguous().transpose(0, 1), 4)
     with pytest.raises(ValueError, match="range"):
-        splat_sums(cell, payload, 5000)
+        splat_sums(cell, feats, 5000)
+    with pytest.raises(ValueError, match="aligned"):
+        splat_sums(cell, feats[..., :12].contiguous(), 4)
     with pytest.raises(ValueError, match="CUDA"):
-        splat_sums(cell, payload.cpu(), 4)
+        splat_sums(cell, feats.cpu(), 4)
 
 
 @pytest.mark.cuda
@@ -122,9 +149,9 @@ def test_dropout_kernel_matches_plain_bitwise_on_card(shape, dtype, rate, offset
     base = torch.randn(offset + torch.Size(shape).numel(), generator=g, device="cuda")
     x = base.to(dtype)[offset:].view(shape)
     seeds = draw_seeds(shape[0], g, "cuda")
-    before = dropout_apply.launches
-    y = dropout_apply(x, seeds, rate)
-    assert dropout_apply.launches == before + 1
+    before = _build.launches("dropout")
+    y = dropout(x, seeds, rate)
+    assert _build.launches("dropout") == before + 1
     assert torch.equal(y, dropout_ref(x, seeds, rate))
     if rate == 0.0:
         assert torch.equal(y, x)
@@ -142,10 +169,10 @@ def test_dropout_backward_relaunches_the_kernel_on_card():
                                                   lambda t: t):
         y = dropout(x, seeds, 0.1)
     assert len(packed) == 1 and packed[0] is seeds
-    before = dropout_apply.launches
+    before = _build.launches("dropout")
     dy = torch.randn_like(y)
     y.backward(dy)
-    assert dropout_apply.launches == before + 1
+    assert _build.launches("dropout") == before + 1  # counted in C++, backward too
     assert torch.equal(x.grad, dropout_ref(dy, seeds, 0.1))
     assert torch.equal(x.grad != 0, (y != 0) & (dy != 0))  # the forward's mask
 
@@ -262,10 +289,10 @@ def test_small_replay_update_matches_cpu_on_card(monkeypatch):
 
     monkeypatch.setattr(drop_mod, "draw_seeds", shared_seeds)
     rb = synthetic_replay_bundle(np.random.default_rng(3), cfg, cfg.batch_size)
-    before = drop_mod.dropout_apply.launches
+    before = _build.launches("dropout")
     for agent in agents.values():
         agent.learn_from_bundle(rb)
-    assert drop_mod.dropout_apply.launches > before
+    assert _build.launches("dropout") > before
     cpu, card = agents["cpu"], agents["cuda"]
     torch.testing.assert_close(
         torch.tensor(card.logs["IL_loss"] + card.logs["grad_norm"]),

@@ -15,11 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from vln_bevbert_tpu_torch import _build
 from vln_bevbert_tpu_torch.ops.dropout import (
     Dropout,
     draw_seeds,
     dropout,
-    dropout_apply,
     dropout_ref,
     philox_bits,
     set_dropout_generator,
@@ -134,12 +134,12 @@ def test_dropout_module_routes_and_draws_from_its_generator():
     with pytest.raises(RuntimeError, match="generator"):
         drop(x)
     set_dropout_generator(drop, train_generator(7))
-    before = dropout_apply.launches
+    before = _build.launches("dropout")
     a = drop(x)
     set_dropout_generator(drop, train_generator(7))
     assert torch.equal(drop(x), a)                       # same seed, same masks
     assert not torch.equal(drop(x), a)                   # the stream advances
-    assert dropout_apply.launches == before              # CPU: the plain version
+    assert _build.launches("dropout") == before          # CPU: the plain version
     kept = a != 0
     torch.testing.assert_close(a[kept], x[kept] * (1 / 0.6))
     v = drop(torch.ones(4000))                           # rank 1: bernoulli
@@ -150,9 +150,9 @@ def test_dropout_apply_rejects_mixed_devices():
     x = torch.randn(2, 8)
     seeds = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        dropout_apply(x.to("meta"), seeds.to("meta"), 0.1)
+        dropout(x.to("meta"), seeds.to("meta"), 0.1)
     with pytest.raises(ValueError, match="CUDA"):
-        dropout_apply(x, seeds.to("meta"), 0.1)
+        dropout(x, seeds.to("meta"), 0.1)
 
 
 def test_train_generator_differs_from_the_init_stream():

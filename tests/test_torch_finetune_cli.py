@@ -27,7 +27,7 @@ from vln_bevbert_tpu_torch.cli import pretrain
 from vln_bevbert_tpu_torch.parallel.train_step import load_checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-JAX_MODULES = ("jax", "jaxlib", "flax", "optax", "orbax")
+JAX_MODULES = ("vln_bevbert_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
 
 
 def run_main(module: str, argv: list) -> dict:

@@ -125,7 +125,7 @@ def test_cli_runs_cpu_slice_without_jax(tmp_path):
         "from vln_bevbert_tpu_torch.cli import finetune\n"
         "res = finetune.main(sys.argv[1:])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
+        "('vln_bevbert_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
         "print(json.dumps({'bad': bad, 'res': res}))\n"
     )
     env = {**os.environ, "PYTHONPATH": REPO}
@@ -145,12 +145,13 @@ def test_cli_runs_cpu_slice_without_jax(tmp_path):
 
 
 def test_cli_data_root_reads_hdf5_without_jax(tmp_path):
-    """``--data_root``: the port evaluates from HDF5 stores whose float16
-    rows it casts with numpy, in a process that never imports JAX and leaves
-    the JAX package's float16 converter unset."""
+    """``--data_root``: the port evaluates from HDF5 stores through its own
+    ``H5FeatureDB``, which casts float16 rows with numpy, in a process that
+    loads neither JAX nor the JAX package."""
     import h5py
 
-    from vln_bevbert_tpu.data.feature_db import H5FeatureDB, write_synthetic_features
+    from vln_bevbert_tpu.data.feature_db import write_synthetic_features
+    from vln_bevbert_tpu_torch.data.feature_db import H5FeatureDB
 
     root = tmp_path / "data"
     rng = np.random.default_rng(0)
@@ -170,7 +171,7 @@ def test_cli_data_root_reads_hdf5_without_jax(tmp_path):
             for i, it in enumerate(items)
         ]))
 
-    depth = cli.NumpyCastFeatureDB(H5FeatureDB(paths["depth"]))
+    depth = H5FeatureDB(paths["depth"])
     scan, vp = "scan00", graphs["scan00"].node_ids[0]
     with h5py.File(paths["depth"], "r") as f:
         want = f[f"{scan}_{vp}"][...]
@@ -178,15 +179,15 @@ def test_cli_data_root_reads_hdf5_without_jax(tmp_path):
     got = depth.get(scan, vp)
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got, want.astype(np.float32))
+    depth.close()
 
     code = (
         "import json, sys\n"
-        "from vln_bevbert_tpu.data import feature_db\n"
         "from vln_bevbert_tpu_torch.cli import finetune\n"
         "res = finetune.main(sys.argv[1:])\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax'))\n"
-        "print(json.dumps({'bad': bad, 'res': res,\n"
-        "                  'converter': feature_db._F16_CONVERTER is None}))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('vln_bevbert_tpu', 'jax', 'jaxlib', 'flax'))\n"
+        "print(json.dumps({'bad': bad, 'res': res}))\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code, "--data_root", str(root), "--test",
@@ -197,7 +198,7 @@ def test_cli_data_root_reads_hdf5_without_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["bad"] == [] and out["converter"]
+    assert out["bad"] == []
     assert 0.0 <= out["res"]["val_unseen"]["sr"] <= 100.0
     preds = json.loads((tmp_path / "out" / "preds_val_unseen_0.json").read_text())
     assert len(preds) == 4

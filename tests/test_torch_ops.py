@@ -20,11 +20,12 @@ from vln_bevbert_tpu.nav.agent import gather_and_splat as jax_gather_and_splat
 from vln_bevbert_tpu.ops import masking as jmask
 from vln_bevbert_tpu.ops.bev import BevProjector as JaxProjector
 from vln_bevbert_tpu.ops.pallas_splat import splat_sums as jax_splat_sums
+from vln_bevbert_tpu_torch import _build
 from vln_bevbert_tpu_torch.nav.agent import gather_and_splat
 from vln_bevbert_tpu_torch.ops import masking as tmask
 from vln_bevbert_tpu_torch.ops.bev import BevProjector
 from vln_bevbert_tpu_torch.ops.dropout import Dropout, set_dropout_generator
-from vln_bevbert_tpu_torch.ops.splat import splat_sums, splat_sums_ref
+from vln_bevbert_tpu_torch.ops.splat import splat_sums, splat_sums_plain, splat_sums_ref
 from vln_bevbert_tpu_torch.utils.rng import make_generator
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -57,7 +58,7 @@ def test_masking_matches_jax(rng):
 def test_splat_sums_ref_matches_pallas_and_einsum(rng, b, n, c, d):
     cell = rng.integers(-1, c, size=(b, n)).astype(np.int32)  # -1: invalid
     payload = bf16_payload(rng, (b, n, d))
-    ours = splat_sums(T(cell), T(payload).to(torch.bfloat16), c).numpy()
+    ours = splat_sums_ref(T(cell), T(payload).to(torch.bfloat16), c).numpy()
     np.testing.assert_allclose(
         ours, np.asarray(jax_splat_sums(cell, payload, c)), **TOL
     )
@@ -71,7 +72,7 @@ def test_splat_sums_edge_cases(rng):
     cell = rng.integers(0, c, size=(b, n)).astype(np.int32)
     cell[0] = -1                    # an all-invalid row
     cell[1, ::3] = c + 4            # cells out of range match no cell
-    out = splat_sums(T(cell), T(payload).to(torch.bfloat16), c).numpy()
+    out = splat_sums_ref(T(cell), T(payload).to(torch.bfloat16), c).numpy()
     np.testing.assert_array_equal(out[0], 0.0)
     np.testing.assert_allclose(out, np.asarray(jax_splat_sums(cell, payload, c)), **TOL)
     np.testing.assert_allclose(
@@ -81,13 +82,44 @@ def test_splat_sums_edge_cases(rng):
 
 def test_splat_sums_wrapper_routes_by_device(rng):
     cell = T(rng.integers(0, 4, size=(1, 8)).astype(np.int32))
-    payload = torch.ones(1, 8, 2, dtype=torch.bfloat16)
-    before = splat_sums.launches
-    out = splat_sums(cell, payload, 4)       # CPU: the plain version
-    assert splat_sums.launches == before      # ... which is no kernel launch
-    torch.testing.assert_close(out, splat_sums_ref(cell, payload, 4))
+    feats = torch.ones(1, 8, 8, dtype=torch.bfloat16)
+    before = _build.launches("splat")
+    out = splat_sums(cell, feats, 4)           # CPU: the plain version
+    assert _build.launches("splat") == before   # ... which is no kernel launch
+    torch.testing.assert_close(out, splat_sums_plain(cell, feats, 4))
     with pytest.raises(ValueError, match="CUDA"):
-        splat_sums(cell.to("meta"), payload.to("meta"), 4)
+        splat_sums(cell.to("meta"), feats.to("meta"), 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("by_step,num_sem", [(False, 0), (False, 5), (True, 0), (True, 3)])
+def test_fused_splat_plain_equals_the_payload_splat(rng, dtype, by_step, num_sem):
+    """The kernel's plain version (rows read through ``step_sel``, the
+    one-hot and the count column added) equals ``splat_sums_ref`` of the
+    concatenated bf16 payload the parent built: counts exactly, sums to
+    float32 order. A step_sel that repeats a step reads its rows twice."""
+    B, T_, P, D, S, C = 2, 4, 6, 16, 3, 9
+    if by_step:
+        store = T(rng.normal(size=(B, T_, P, D)).astype(np.float32)).to(dtype)
+        step_sel = T(np.array([[2, 0, 2], [3, 1, 0]], np.int32))
+        rows = store[torch.arange(B)[:, None], step_sel.long()].reshape(B, S * P, D)
+    else:
+        store = T(rng.normal(size=(B, S * P, D)).astype(np.float32)).to(dtype)
+        step_sel, rows = None, store
+    cell = T(rng.integers(-1, C + 2, size=(B, S * P)).astype(np.int32))  # -1, out of range
+    cell[1] = -1                                                          # an all-invalid row
+    sem = T(rng.integers(0, max(num_sem, 1), size=(B, S * P)).astype(np.int32)) if num_sem else None
+    cols = [rows.to(torch.bfloat16)]
+    if num_sem:
+        cols.append(torch.nn.functional.one_hot(sem.long(), num_sem).to(torch.bfloat16))
+    cols.append(torch.ones(B, S * P, 1, dtype=torch.bfloat16))
+    want = splat_sums_ref(cell, torch.cat(cols, -1), C)
+    got = splat_sums(cell, store, C, step_sel=step_sel, sem_labels=sem, num_sem=num_sem)
+    assert got.shape == (B, C, D + num_sem + 1) and got.dtype == torch.float32
+    torch.testing.assert_close(got[..., D:], want[..., D:], atol=0, rtol=0)
+    torch.testing.assert_close(got, want, **TOL)
+    assert not got[1].any()
+    assert torch.equal(got[..., -1].sum(-1), ((cell >= 0) & (cell < C)).sum(-1).float())
 
 
 # ---------------------------------------------------------------------- bev

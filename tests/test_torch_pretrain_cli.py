@@ -44,7 +44,7 @@ def test_cli_trains_every_task_on_cpu_without_jax(tmp_path):
         "meters = trainer.train()\n"
         "rates = sorted({m.rate for m in trainer.model.modules() if hasattr(m, 'rate')})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
+        "('vln_bevbert_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
         "print(json.dumps({'bad': bad, 'meters': meters, 'step': trainer.state.step,\n"
         "                  'training': trainer.model.training, 'rates': rates}))\n"
     )

@@ -8,13 +8,13 @@
     python -m vln_bevbert_tpu_torch.cli.finetune --synthetic --test --pretrain_ckpt runs/finetune/ckpt_best
     python -m vln_bevbert_tpu_torch.cli.finetune --data_root datasets/R2R --test
 
-Arguments are the JAX CLI's (``parse_args`` is reused) plus ``--device``
-(default ``cuda``; there is no CPU fallback: a CUDA device that is missing
-raises). ``--synthetic`` builds the JAX CLI's synthetic world in memory, with
-``DictFeatureDB`` stores and no HDF5; ``--data_root`` reads HDF5 stores
-through ``NumpyCastFeatureDB``. Parameters are random, from a seeded
-generator, or transferred from ``--pretrain_ckpt``: a torch checkpoint of
-the port's pretraining (``ckpt_<step>``) or fine-tuning (``ckpt_best``,
+Arguments are the JAX CLI's plus ``--device`` (default ``cuda``; there is no
+CPU fallback: a CUDA device that is missing raises). ``--synthetic`` builds
+the JAX CLI's synthetic world in memory, with ``DictFeatureDB`` stores and no
+HDF5; ``--data_root`` reads HDF5 stores through ``H5FeatureDB``, whose
+float16 rows numpy casts. Parameters are random, from a seeded generator, or
+transferred from ``--pretrain_ckpt``: a torch checkpoint of the port's
+pretraining (``ckpt_<step>``) or fine-tuning (``ckpt_best``,
 ``ckpt_latest``). Object-grounding datasets (reverie, soon) are not ported
 yet.
 """
@@ -30,32 +30,68 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from vln_bevbert_tpu.cli import finetune as jax_cli
-from vln_bevbert_tpu.configs import FinetuneConfig, load_config
-from vln_bevbert_tpu.data.feature_db import DictFeatureDB, H5FeatureDB
-from vln_bevbert_tpu.data.loader import make_synthetic_annotations
-from vln_bevbert_tpu.data.nav_graph import (
+from ..configs import FinetuneConfig, load_config
+from ..data.annotations import construct_instrs
+from ..data.feature_db import DictFeatureDB, H5FeatureDB
+from ..data.loader import make_synthetic_annotations
+from ..data.nav_graph import (
     build_scanvp_cands,
     load_nav_graphs,
     write_synthetic_connectivity,
 )
-from vln_bevbert_tpu.nav.env import R2RNavBatch
-from vln_bevbert_tpu.utils.logging import MetricLogger
-
 from ..nav.agent import GMapNavAgent
+from ..nav.env import R2RNavBatch
 from ..parallel.train_step import load_checkpoint
+from ..utils.logging import MetricLogger
 
 Envs = Tuple[R2RNavBatch, Dict[str, R2RNavBatch], Optional[R2RNavBatch]]
 
 
 def parse_args(argv=None):
-    own = argparse.ArgumentParser(add_help=False)
-    own.add_argument("--device", default="cuda",
-                     help="torch device for the model and the kernels")
-    ours, rest = own.parse_known_args(argv)
-    args = jax_cli.parse_args(rest)
-    args.device = ours.device
-    return args
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--device", default="cuda",
+                   help="torch device for the model and the kernels")
+    p.add_argument("--config", default=None)
+    p.add_argument("--data_root", default=None)
+    p.add_argument("--dataset", default="r2r",
+                   choices=["r2r", "r4r", "rxr", "reverie", "soon"])
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--output_dir", default="runs/finetune")
+    p.add_argument("--iters", type=int, default=None)
+    p.add_argument("--log_every", type=int, default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--act_visited_nodes", action="store_true",
+                   help="only the current node counts visited "
+                        "(ref parser.py --act_visited_nodes)")
+    p.add_argument("--eval_first", action="store_true",
+                   help="evaluate before training (ref parser.py --eval_first)")
+    p.add_argument("--expert_policy", default=None, choices=["spl", "ndtw"],
+                   help="teacher policy (ref ft_r2r.bash:30 spl, ft_rxr.bash:30 ndtw)")
+    p.add_argument("--feedback", default="dagger",
+                   choices=["dagger", "teacher", "sample", "expl_sample"])
+    p.add_argument("--pretrain_ckpt", default=None,
+                   help="torch checkpoint of the port's pretraining or fine-tuning")
+    p.add_argument("--test", action="store_true", help="evaluate only")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--aug_path", default=None,
+                   help="augmented-instruction annotations (jsonl; synthetic "
+                        "mode synthesises a set when 'synth' is passed) — "
+                        "training alternates gt/aug envs 1:1 per iteration "
+                        "(ref main_nav.py:160-174 prevalent_aug schedule)")
+    p.add_argument("--val_splits", default=None,
+                   help="comma-separated eval splits; defaults to the "
+                        "reference's val_train_seen,val_seen,val_unseen for "
+                        "real data (main_nav.py:71-75) and val_unseen for "
+                        "synthetic runs. Missing split files are skipped with "
+                        "a warning. Best-ckpt selection stays on val_unseen.")
+    p.add_argument("--submit", action="store_true",
+                   help="also build the leaderboard test split(s) as eval "
+                        "envs and dump predictions for them "
+                        "(ref main_nav.py:77-81)")
+    p.add_argument("--tokenizer", default="bert", choices=["bert", "xlm"],
+                   help="annotation tokenizer variant (selects REVERIE "
+                        "_enc vs _enc_xlmr files, ref reverie/data_utils.py:57-63)")
+    return p.parse_args(argv)
 
 
 def synthetic_feature_dbs(rng: np.random.Generator, scan_viewpoints,
@@ -118,42 +154,70 @@ def build_synthetic_envs(cfg: FinetuneConfig, args) -> Envs:
     return make(train_annos, "train", args.seed), val_envs, aug_env
 
 
-class NumpyCastFeatureDB:
-    """An HDF5 feature store whose rows are cast by numpy.
-
-    ``H5FeatureDB`` casts float16 rows to float32 through JAX, so the reader
-    wrapped here keeps the stored dtype and ``get`` casts to ``db.dtype``."""
-
-    def __init__(self, db: H5FeatureDB):
-        import h5py
-
-        with h5py.File(db.path, "r") as f:
-            stored = f[next(iter(f.keys()))].dtype
-        self.dtype = np.dtype(db.dtype)
-        self.db = H5FeatureDB(db.path, dtype=stored, max_cache=db.max_cache)
-
-    def get(self, scan: str, viewpoint: str) -> np.ndarray:
-        return self.db.get(scan, viewpoint).astype(self.dtype, copy=False)
-
-    def __contains__(self, key: str) -> bool:
-        return key in self.db
-
-
 def build_envs(cfg: FinetuneConfig, args) -> Envs:
-    """The JAX CLI's envs for ``--data_root``, reading through
-    ``NumpyCastFeatureDB``; envs that shared a store share its reader."""
-    train_env, val_envs, aug_env = jax_cli.build_envs(cfg, args)
-    readers: Dict[int, NumpyCastFeatureDB] = {}
-    for env in (train_env, aug_env, *val_envs.values()):
-        if env is None:
-            continue
-        for name in ("view_db", "grid_db", "depth_db"):
-            db = getattr(env.env, name)
-            if db is not None:
-                if id(db) not in readers:
-                    readers[id(db)] = NumpyCastFeatureDB(db)
-                setattr(env.env, name, readers[id(db)])
-    return train_env, val_envs, aug_env
+    """The JAX CLI's envs for ``--data_root`` (R2R-style datasets): the
+    connectivity graphs, annotations in the native or the published formats
+    (``data/annotations.py``), and HDF5 feature stores that every env
+    shares. Returns (train env, eval envs by split, aug env or None)."""
+    graphs = load_nav_graphs(os.path.join(args.data_root, "connectivity"))
+    cands_file = os.path.join(args.data_root, "scanvp_candview_relangles.json")
+    if os.path.exists(cands_file):
+        with open(cands_file) as f:
+            cands = json.load(f)
+    else:
+        cands = build_scanvp_cands(graphs)
+
+    def load_annos(split):
+        return construct_instrs(
+            args.data_root, args.dataset, [split], tokenizer=args.tokenizer,
+            is_test=args.test, rng=np.random.default_rng(args.seed),
+        )
+
+    train_annos = load_annos("train")
+    val_splits = (args.val_splits.split(",") if args.val_splits
+                  else ["val_train_seen", "val_seen", "val_unseen"])
+    if args.submit:
+        # leaderboard splits (ref main_nav.py:77-81)
+        val_splits += (["test_challenge_public", "test_standard_public"]
+                       if args.dataset == "rxr" else ["test"])
+    val_annos = {}
+    for s in val_splits:
+        try:
+            annos = load_annos(s)
+            if args.dataset == "rxr" and not args.test:
+                # rxr val is large; the reference evaluates every 8th item
+                # during training (main_nav.py:86-89)
+                annos = annos[::8]
+            if annos:
+                val_annos[s] = annos
+            else:
+                print(f"[finetune] skipping empty eval split {s}")
+        except FileNotFoundError as e:
+            print(f"[finetune] skipping eval split {s}: {e}")
+    if not val_annos:
+        raise FileNotFoundError(
+            f"none of the eval splits {val_splits} found under {args.data_root}")
+    aug_annos = None
+    if args.aug_path:
+        # explicit path: construct_instrs sniffs reference vs native shape
+        aug_annos = construct_instrs(args.data_root, args.dataset, [args.aug_path],
+                                     tokenizer=args.tokenizer, is_test=args.test)
+    dbs = dict(
+        view_db=H5FeatureDB(os.path.join(args.data_root, "view_fts.hdf5")),
+        grid_db=H5FeatureDB(os.path.join(args.data_root, "grid_fts.hdf5"),
+                            dtype=np.float16),
+        depth_db=H5FeatureDB(os.path.join(args.data_root, "depth.hdf5")),
+    )
+
+    def make(annos, name, seed):
+        return R2RNavBatch(annos, graphs, cands, batch_size=cfg.batch_size,
+                           image_feat_size=cfg.model.image_feat_size, seed=seed,
+                           name=name, **dbs)
+
+    aug_env = make(aug_annos, "aug", args.seed + 2) if aug_annos else None
+    val_envs = {name: make(annos, name, args.seed + 1 + i)
+                for i, (name, annos) in enumerate(val_annos.items())}
+    return make(train_annos, "train", args.seed), val_envs, aug_env
 
 
 def resolve_device(name: str) -> torch.device:

@@ -4,11 +4,11 @@
     python -m vln_bevbert_tpu_torch.cli.pretrain --synthetic --device cuda \\
         --num_steps 24 --batch_size 16 --tasks mlm.5.sap.5.masksem.1 --seed 0
 
-Arguments are the JAX CLI's (``parse_args`` is reused) plus ``--device``
-(default ``cuda``; a CUDA device that is missing raises, there is no CPU
-fallback). ``--synthetic`` (the default without ``--data_root``, as in the
-JAX CLI) builds the JAX CLI's synthetic world (4 scans x 20 nodes, 256 items)
-in memory, with ``DictFeatureDB`` stores and no HDF5.
+Arguments are the JAX CLI's plus ``--device`` (default ``cuda``; a CUDA
+device that is missing raises, there is no CPU fallback). ``--synthetic``
+(the default without ``--data_root``, as in the JAX CLI) builds the JAX
+CLI's synthetic world (4 scans x 20 nodes, 256 items) in memory, with
+``DictFeatureDB`` stores and no HDF5.
 Parameters are random, from ``--seed``, or restored with ``--resume <ckpt>``
 (training then runs on to ``--num_steps``). The run ends by saving
 ``<output_dir>/ckpt_<step>``. Real data (``--data_root``), object datasets
@@ -24,28 +24,55 @@ import tempfile
 import numpy as np
 import torch
 
-from vln_bevbert_tpu.cli import pretrain as jax_cli
-from vln_bevbert_tpu.configs import PretrainConfig, load_config
-from vln_bevbert_tpu.data.loader import PretrainLoader, make_synthetic_annotations
-from vln_bevbert_tpu.data.nav_graph import (
+from ..configs import PretrainConfig, load_config
+from ..data.loader import PretrainLoader, make_synthetic_annotations
+from ..data.nav_graph import (
     build_scanvp_cands,
     load_nav_graphs,
     write_synthetic_connectivity,
 )
-from vln_bevbert_tpu.data.pathdata import TextPathData
-
+from ..data.pathdata import TextPathData
 from ..pretrain.trainer import PretrainTrainer
 from .finetune import resolve_device, synthetic_feature_dbs
 
 
 def parse_args(argv=None):
-    own = argparse.ArgumentParser(add_help=False)
-    own.add_argument("--device", default="cuda",
-                     help="torch device for the model and the kernels")
-    ours, rest = own.parse_known_args(argv)
-    args = jax_cli.parse_args(rest)
-    args.device = ours.device
-    return args
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--device", default="cuda",
+                   help="torch device for the model and the kernels")
+    p.add_argument("--config", default=None, help="JSON config overrides")
+    p.add_argument("--data_root", default=None)
+    p.add_argument("--dataset", default="r2r", choices=["r2r", "r4r", "reverie", "soon"])
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--output_dir", default="runs/pretrain")
+    p.add_argument("--num_steps", type=int, default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--tasks", default=None, help="e.g. mlm.5.sap.5.masksem.1")
+    p.add_argument("--train_files", default=None,
+                   help="comma-separated trajectory annotation files "
+                        "(jsonl/json), overriding the data_root layout — "
+                        "the reference's train_traj_files lists "
+                        "(config/*_pretrain.json)")
+    p.add_argument("--val_files", default=None,
+                   help="like --train_files for the validation split")
+    p.add_argument("--resume", default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--num_workers", type=int, default=None,
+                   help="forked batch-builder processes (default: config)")
+    p.add_argument("--init_bert", action="store_true",
+                   help="initialise the language stack from HF bert-base")
+    return p.parse_args(argv)
+
+
+def parse_task_ratio(spec: str):
+    """'mlm.5.sap.5.masksem.1' -> (('mlm','sap','masksem'), (5.,5.,1.))
+    (ref task-ratio DSL, pretrain_src/utils/misc.py:27-37)."""
+    parts = spec.split(".")
+    tasks, ratios = [], []
+    for i in range(0, len(parts), 2):
+        tasks.append(parts[i])
+        ratios.append(float(parts[i + 1]))
+    return tuple(tasks), tuple(ratios)
 
 
 def build_synthetic_db(cfg: PretrainConfig, seed: int = 0) -> TextPathData:
@@ -90,7 +117,7 @@ def build(args) -> PretrainTrainer:
         overrides["optim.num_train_steps"] = args.num_steps
     cfg = load_config(PretrainConfig, args.config, **overrides)
     if args.tasks:
-        cfg.tasks, cfg.mix_ratio = jax_cli.parse_task_ratio(args.tasks)
+        cfg.tasks, cfg.mix_ratio = parse_task_ratio(args.tasks)
     loader = PretrainLoader(build_synthetic_db(cfg, args.seed), cfg, seed=cfg.seed,
                             num_workers=cfg.num_workers)
     trainer = PretrainTrainer(cfg, loader, device)

@@ -50,6 +50,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from .. import _build
 from ..ops import dropout as drop_mod
 from ..parallel.train_step import upload
 from . import pretrain
@@ -115,7 +116,7 @@ def site_ab(trainer) -> list:
         eager.rate = rate
         row = {"site": name, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
                "rate": rate}
-        for label, fn in (("kernel", lambda: drop_mod.dropout_apply(x, seeds, rate)),
+        for label, fn in (("kernel", lambda: drop_mod.dropout(x, seeds, rate)),
                           ("eager", lambda: eager_dropout_forward(eager, x)),
                           ("F.dropout", lambda: torch.nn.functional.dropout(x, rate))):
             row[f"{label}_device_ms"] = per_call_ms(fn, device)
@@ -151,11 +152,11 @@ def train_arm(trainer, steps: int, eager: bool) -> dict:
         if cuda:
             torch.cuda.synchronize(trainer.device)
             torch.cuda.reset_peak_memory_stats(trainer.device)
-        launches = drop_mod.dropout_apply.launches
+        launches = _build.launches("dropout")
         trainer.train(trainer.state.step + steps)
         if cuda:
             torch.cuda.synchronize(trainer.device)
-        launches = drop_mod.dropout_apply.launches - launches
+        launches = _build.launches("dropout") - launches
     finally:
         trainer.step_fn, drop_mod.Dropout.forward = step_fn, forward
     per_task, first = {}, set()

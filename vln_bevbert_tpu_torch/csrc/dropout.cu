@@ -27,12 +27,14 @@
 // aligned, scalar accesses otherwise. The grid strides over
 // (row, group) pairs.
 //
-// Plain C entry point, loaded with ctypes; launches on the caller's stream
-// and returns cudaGetLastError().
+// Launched through ops.cpp's torch.ops.bevbert.seeded_dropout on PyTorch's
+// current stream (kernels.h:launch_dropout).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "kernels.h"
 
 namespace {
 
@@ -105,42 +107,35 @@ dropout_kernel(const T* __restrict__ x, T* __restrict__ y,
 }
 
 template <typename T>
-void launch(const void* x, void* y, const void* seeds, long long rows,
-            long long row_len, uint32_t thresh, float scale, int vec, int grid,
+void launch(const void* x, void* y, const int32_t* seeds, long long rows,
+            long long row_len, uint32_t thresh, float scale, bool vec, int grid,
             cudaStream_t stream) {
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(seeds);
   if (vec) {
     dropout_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-        (const T*)x, (T*)y, (const uint32_t*)seeds, rows, row_len, thresh, scale);
+        (const T*)x, (T*)y, s, rows, row_len, thresh, scale);
   } else {
     dropout_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-        (const T*)x, (T*)y, (const uint32_t*)seeds, rows, row_len, thresh, scale);
+        (const T*)x, (T*)y, s, rows, row_len, thresh, scale);
   }
 }
 
 }  // namespace
 
-extern "C" {
+namespace bevbert {
 
-// x, y: (rows, row_len) contiguous, float32 (dtype 0) or bfloat16 (dtype 1);
-// seeds: rows uint32 (int32 storage). vec != 0 requires row_len % 4 == 0 and
-// x, y aligned to 4 elements. grid: blocks of 256 threads, grid-strided.
-int bevbert_dropout(const void* x, void* y, const void* seeds, long long rows,
-                    long long row_len, unsigned int thresh, float scale,
-                    int dtype, int vec, int grid, void* stream) {
+cudaError_t launch_dropout(const void* x, void* y, const int32_t* seeds,
+                           long long rows, long long row_len, uint32_t thresh,
+                           float scale, int dtype, bool vec, int grid,
+                           cudaStream_t stream) {
   if (dtype == 0) {
-    launch<float>(x, y, seeds, rows, row_len, thresh, scale, vec, grid,
-                  (cudaStream_t)stream);
+    launch<float>(x, y, seeds, rows, row_len, thresh, scale, vec, grid, stream);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(x, y, seeds, rows, row_len, thresh, scale, vec, grid,
-                          (cudaStream_t)stream);
+    launch<__nv_bfloat16>(x, y, seeds, rows, row_len, thresh, scale, vec, grid, stream);
   } else {
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
 }
 
-const char* bevbert_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
-
-}  // extern "C"
+}  // namespace bevbert

@@ -30,8 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vln_bevbert_tpu.configs import ModelConfig
-
+from ..configs import ModelConfig
 from ..ops.dropout import Dropout
 
 

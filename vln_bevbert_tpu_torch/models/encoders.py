@@ -11,8 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from vln_bevbert_tpu.configs import ModelConfig
-
+from ..configs import ModelConfig
 from ..ops.dropout import Dropout
 from ..ops.masking import attn_bias
 from .bert import BertLayer, BertXLayer, Dense, Embed, LayerNorm, PanoEncoderLayer, _dt

@@ -13,8 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from vln_bevbert_tpu.configs import ModelConfig
-
+from ..configs import ModelConfig
 from ..ops.dropout import Dropout
 from ..ops.masking import attn_bias, masked_fill_neg
 from .bert import BertEmbeddings, MlmHead, TwoLayerHead, _dt

@@ -10,8 +10,7 @@ from typing import Any, Dict
 
 from torch import nn
 
-from vln_bevbert_tpu.configs import ModelConfig
-
+from ..configs import ModelConfig
 from ..ops.masking import masked_fill_neg
 from .bert import TwoLayerHead
 from .glocal import GlocalTextPathCMT, sap_logits

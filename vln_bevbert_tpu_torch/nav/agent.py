@@ -17,7 +17,7 @@
    episode, the float32 global-norm clip and AdamW.
 
 The host helpers (``_language_variable`` ... ``_make_equiv_action``) repeat
-the JAX agent's, which cannot be imported without JAX. Object grounding
+the JAX agent's: the port imports nothing of the JAX package. Object grounding
 (REVERIE/SOON), the teacher-recollection store, the mesh-sharded replay and
 the scan-block bench probes are not ported yet.
 """
@@ -32,16 +32,12 @@ from typing import Any, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
-from vln_bevbert_tpu.configs import FinetuneConfig
-from vln_bevbert_tpu.geometry import (
+from ..configs import FinetuneConfig
+from ..geometry import (
     bev_polar_pos,
     se3_from_xyzhe,
     world_to_ego_cells_stop_centre,
 )
-from vln_bevbert_tpu.nav.env import R2RNavBatch
-from vln_bevbert_tpu.nav.eval_utils import compute_dtw_metrics
-from vln_bevbert_tpu.nav.graph_map import GraphMap
-
 from ..models.bert import init_params
 from ..models.glocal import cross_entropy
 from ..models.nav import GlocalTextPathNavCMT
@@ -52,6 +48,9 @@ from ..parallel.optim import finetune_optim
 from ..parallel.train_step import TrainState, load_checkpoint, save_checkpoint
 from ..utils.device import to_device
 from ..utils.rng import make_generator, train_generator
+from .env import R2RNavBatch
+from .eval_utils import compute_dtw_metrics
+from .graph_map import GraphMap
 
 IGNORE_ID = -100
 FEEDBACKS = ("argmax", "teacher", "sample", "expl_sample")
@@ -111,18 +110,19 @@ def gather_and_splat(projector: BevProjector, pc_buf, valid_buf, feat_buf,
                      step_sel, step_ok, T_w2c, S_w2c):
     """Device-side neighbourhood gather + egocentric splat.
 
-    pc_buf (B, T, P, 3); step_sel (B, S) step indices per sample; step_ok
-    (B, S) slot validity. Returns bev features (B, cells, C) float32."""
+    pc_buf (B, T, P, 3); step_sel (B, S) int32 step indices per sample;
+    step_ok (B, S) slot validity. Only the points' positions and validity
+    are gathered here; the splat reads the (B, T, P, C) features in place
+    through ``step_sel``. Returns bev features (B, cells, C) float32."""
     b, s = step_sel.shape
     rows = torch.arange(b, device=step_sel.device)[:, None]
     sel = step_sel.long()
     pc = pc_buf[rows, sel]          # (B, S, P, 3)
     valid = valid_buf[rows, sel] & step_ok[:, :, None]
-    feats = feat_buf[rows, sel]     # (B, S, P, C)
     p = pc.shape[2]
     cell, geo_ok = projector.ego_cells(pc.reshape(b, s * p, 3), T_w2c, S_w2c)
     bev, _, _, _ = projector.splat(
-        cell, valid.reshape(b, s * p) & geo_ok, feats.reshape(b, s * p, -1)
+        cell, valid.reshape(b, s * p) & geo_ok, feat_buf, step_sel=step_sel
     )
     return bev
 

@@ -2,9 +2,10 @@
 
 Port of ``vln_bevbert_tpu/ops/bev.py``. The lift (pixel -> camera ray ->
 world point) is an einsum over precomputed per-pixel ray scales; the splat
-builds the ``[features | semantic one-hot | ones]`` payload and hands it to
-``ops/splat.py:splat_sums`` (the CUDA kernel on the card), which replaces the
-JAX package's one-hot contraction / Pallas kernel.
+hands the cells, the feature rows where they lie and the semantic labels to
+``ops/splat.py:splat_sums`` (the CUDA kernel on the card), which sums the
+``[features | semantic one-hot | ones]`` payload of the JAX package's
+one-hot contraction / Pallas kernel without building it.
 """
 
 from __future__ import annotations
@@ -14,10 +15,8 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from vln_bevbert_tpu.geometry import pixel_ray_scales
-
+from ..geometry import pixel_ray_scales
 from .splat import splat_sums
 
 
@@ -96,23 +95,20 @@ class BevProjector:
         valid: torch.Tensor,
         feats: torch.Tensor,
         sem_labels: Optional[torch.Tensor] = None,
+        step_sel: Optional[torch.Tensor] = None,
     ):
         """Masked scatter-mean of point features into grid cells.
 
-        cell (B, N) int32; valid (B, N) bool; feats (B, N, C); sem_labels
-        optional (B, N) int. Returns (bev (B, cells, C) f32, occupancy
-        (B, cells) bool, sem (B, cells, num_sem) presence in {0, 1} or None,
-        sem_mask (B, cells) or None)."""
-        b, n, c = feats.shape
+        cell (B, N) int32; valid (B, N) bool; feats (B, N, C), or (B, T, P, C)
+        read through ``step_sel`` (B, S) with N = S * P (``splat_sums``);
+        sem_labels optional (B, N) int. Returns (bev (B, cells, C) f32,
+        occupancy (B, cells) bool, sem (B, cells, num_sem) presence in {0, 1}
+        or None, sem_mask (B, cells) or None)."""
+        c = feats.shape[-1]
         # poisoned cell: invalid points get -1 and land in no cell
         cell_eff = torch.where(valid, cell, torch.full_like(cell, -1)).to(torch.int32)
-        cols = [feats.to(torch.bfloat16)]
-        if sem_labels is not None:
-            cols.append(F.one_hot(sem_labels.long(), self.num_sem).to(torch.bfloat16))
-        cols.append(torch.ones(b, n, 1, dtype=torch.bfloat16, device=feats.device))
-        payload = torch.cat(cols, dim=-1)
-
-        sums = splat_sums(cell_eff.contiguous(), payload, self.num_cells)
+        sums = splat_sums(cell_eff.contiguous(), feats, self.num_cells, step_sel=step_sel,
+                          sem_labels=sem_labels, num_sem=self.num_sem)
         counts = sums[:, :, -1]
         bev = sums[:, :, :c] / counts.clamp_min(1.0)[:, :, None]
         occupancy = counts > 0

@@ -14,25 +14,28 @@ computes the same function with int64 tensor arithmetic, bit for bit.
 
 ``Dropout`` in training mode draws its seeds with ``torch.randint`` from the
 generator it was handed (a CUDA generator for CUDA tensors: no host sync) and
-calls ``dropout``. ``dropout_apply`` takes the plain version only for tensors
-that lie on the CPU; for CUDA tensors it launches the kernel or raises. The
-mask stream differs from JAX's; only its distribution is part of parity.
+calls ``dropout``. On CUDA tensors ``dropout`` calls the operator
+``torch.ops.bevbert.seeded_dropout`` (``csrc/ops.cpp``), whose C++ autograd
+saves only the seeds and relaunches the kernel on ``dy``; its checks and
+launch run in C++, so a call costs one operator dispatch. CPU tensors take
+the plain version, through a Python ``autograd.Function`` when a gradient is
+needed. The mask stream differs from JAX's; only its distribution is part of
+parity.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
 
+from .. import _build
+
 _U32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-_THREADS = 256  # csrc/dropout.cu:kThreads
 
 
 def threshold_and_scale(rate: float) -> tuple[int, float]:
@@ -82,102 +85,37 @@ def dropout_ref(x: torch.Tensor, seeds: torch.Tensor, rate: float) -> torch.Tens
                                                                 device=x.device))
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.bevbert_dropout.argtypes = [p, p, p, ll, ll, ctypes.c_uint, ctypes.c_float,
-                                    i, i, i, p]
-    lib.bevbert_dropout.restype = i
-    lib.bevbert_cuda_error_string.argtypes = [i]
-    lib.bevbert_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    from .._build import load
-
-    return _bind(load("dropout"))
-
-
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-@functools.cache
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def dropout_apply(x: torch.Tensor, seeds: torch.Tensor, rate: float) -> torch.Tensor:
-    """x (R, ...) float32 or bfloat16; seeds (R,) int32 holding uint32 bits.
-
-    CPU tensors take ``dropout_ref``; CUDA tensors launch ``csrc/dropout.cu``
-    or raise."""
-    if x.device.type == "cpu" and seeds.device.type == "cpu":
-        return dropout_ref(x, seeds, rate)
-    if x.device.type != "cuda" or seeds.device != x.device:
-        raise ValueError(
-            f"dropout: x on {x.device}, seeds on {seeds.device}; both must be on "
-            "one CUDA device (or both on the CPU)"
-        )
-    if x.dtype not in _DTYPES or seeds.dtype != torch.int32:
-        raise TypeError(
-            f"dropout: need float32 or bfloat16 x and int32 seeds, got {x.dtype} "
-            f"and {seeds.dtype}"
-        )
-    if x.dim() < 1 or seeds.shape != x.shape[:1]:
-        raise ValueError(
-            f"dropout: need one seed per row of x, got x {tuple(x.shape)} and "
-            f"seeds {tuple(seeds.shape)}"
-        )
-    if not (x.is_contiguous() and seeds.is_contiguous()):
-        raise ValueError("dropout: x and seeds must be contiguous")
-    thresh, scale = threshold_and_scale(rate)
-    lib = _library()
-    y = torch.empty_like(x)
-    rows, row_len = x.shape[0], math.prod(x.shape[1:])
-    if rows == 0 or row_len == 0:
-        return y
-    vec_bytes = 4 * x.element_size()
-    vec = row_len % 4 == 0 and x.data_ptr() % vec_bytes == 0 and y.data_ptr() % vec_bytes == 0
-    work = rows * -(-row_len // 4)
-    grid = max(1, min(-(-work // _THREADS), 32 * _sm_count(x.device.index)))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.bevbert_dropout(x.data_ptr(), y.data_ptr(), seeds.data_ptr(), rows,
-                                  row_len, thresh, scale, _DTYPES[x.dtype], int(vec),
-                                  grid, stream)
-    if err != 0:
-        raise RuntimeError(
-            "dropout kernel launch failed: " + lib.bevbert_cuda_error_string(err).decode()
-        )
-    dropout_apply.launches += 1
-    return y
-
-
-dropout_apply.launches = 0  # kernel launches; chip_smoke.py resets and reads it
-
-
 class _SeededDropout(torch.autograd.Function):
-    """dy -> the same kernel on dy with the same seeds; saves only the seeds."""
+    """The CPU route: dy -> the plain version on dy with the same seeds;
+    saves only the seeds."""
 
     @staticmethod
     def forward(ctx, x, seeds, rate):
         ctx.rate = rate
         ctx.save_for_backward(seeds)
-        return dropout_apply(x, seeds, rate)
+        return dropout_ref(x, seeds, rate)
 
     @staticmethod
     def backward(ctx, dy):
         (seeds,) = ctx.saved_tensors
-        return dropout_apply(dy.contiguous(), seeds, ctx.rate), None, None
+        return dropout_ref(dy.contiguous(), seeds, ctx.rate), None, None
 
 
 def dropout(x: torch.Tensor, seeds: torch.Tensor, rate: float) -> torch.Tensor:
-    """Seeded dropout of a contiguous ``x``, differentiable in ``x``; an input
-    that needs no gradient records no backward and saves nothing."""
+    """Seeded dropout of a contiguous ``x`` (R, ...) float32 or bfloat16 with
+    ``seeds`` (R,) int32 holding uint32 bits, differentiable in ``x``; an
+    input that needs no gradient records no backward and saves nothing. CUDA
+    tensors launch ``csrc/dropout.cu`` through the operator or raise."""
+    if x.device.type == "cuda":
+        return _build.load().seeded_dropout(x, seeds, rate)
+    if x.device.type != "cpu" or seeds.device.type != "cpu":
+        raise ValueError(
+            f"dropout: x on {x.device}, seeds on {seeds.device}; both must be on "
+            "one CUDA device (or both on the CPU)"
+        )
     if x.requires_grad and torch.is_grad_enabled():
         return _SeededDropout.apply(x, seeds, rate)
-    return dropout_apply(x, seeds, rate)
+    return dropout_ref(x, seeds, rate)
 
 
 def draw_seeds(rows: int, generator: torch.Generator, device) -> torch.Tensor:

@@ -1,24 +1,34 @@
-"""BEV splat sums: the CUDA kernel ``csrc/splat.cu`` and its plain version.
+"""BEV splat sums: the CUDA kernel ``csrc/splat.cu`` and its plain versions.
 
 Port of ``vln_bevbert_tpu/ops/pallas_splat.py:splat_sums``: per batch row,
 ``out[c, d] = sum_n [cell[n] == c] * payload[n, d]``, with invalid points
-carrying cell -1. The TPU kernel contracts a VMEM one-hot on the MXU; the
-Hopper kernel computes the same sums as a scatter (see the source's note).
+carrying cell -1, for the payload ``[bf16(feats) | one_hot(sem) | 1]`` that
+``ops/bev.py`` splats. The TPU kernel contracts a VMEM one-hot on the MXU;
+the Hopper kernel sorts the points by cell and sums runs in registers,
+reading each feature row where it lies (see the source's note), so the
+payload never exists on the card.
 
-``splat_sums`` takes the plain version only for tensors that lie on the CPU.
-For CUDA tensors it launches the kernel or raises.
+- ``splat_sums_ref(cell, payload, C)``: the plain segment sum of a payload,
+  an f32 ``index_add_``; the JAX function's counterpart.
+- ``splat_sums_plain(cell, feats, C, ...)``: the kernel's plain version:
+  gather the feature rows, build the payload, ``splat_sums_ref``.
+- ``splat_sums(cell, feats, C, ...)``: the same function. CPU tensors take
+  ``splat_sums_plain``; CUDA tensors launch the kernel through the operator
+  ``torch.ops.bevbert.splat_sums`` (``csrc/ops.cpp``) or raise.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
+
+from .. import _build
 
 
 def splat_sums_ref(cell: torch.Tensor, payload: torch.Tensor, num_cells: int) -> torch.Tensor:
-    """Plain version: an f32 ``index_add_`` segment sum on any device.
+    """Plain segment sum: an f32 ``index_add_`` on any device.
 
     cell (B, N) int, payload (B, N, D) -> (B, num_cells, D) float32. Points
     whose cell lies outside [0, num_cells) add nothing."""
@@ -34,83 +44,51 @@ def splat_sums_ref(cell: torch.Tensor, payload: torch.Tensor, num_cells: int) ->
     return out[:dump].reshape(b, num_cells, d)
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bevbert_splat_sums.argtypes = [p, p, p, i, i, i, i, i, p]
-    lib.bevbert_splat_sums.restype = i
-    lib.bevbert_cuda_error_string.argtypes = [i]
-    lib.bevbert_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+def gather_rows(feats: torch.Tensor, step_sel: Optional[torch.Tensor]) -> torch.Tensor:
+    """The points' feature rows (B, N, F): with ``step_sel`` (B, S), point n
+    of row b is pixel n % P of step ``step_sel[b, n // P]`` of ``feats``
+    (B, T, P, F); without it ``feats`` (B, N, F) holds them already."""
+    if step_sel is None:
+        return feats
+    b, s = step_sel.shape
+    rows = torch.arange(b, device=feats.device)[:, None]
+    return feats[rows, step_sel.long()].reshape(b, s * feats.shape[2], feats.shape[3])
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    from .._build import load
-
-    return _bind(load("splat"))
-
-
-# Shared memory a block may use on Hopper (232,448 bytes of the SM's 256 KB).
-_MAX_SMEM = 232448
-_TILE_D = 64
-
-
-def _num_splits(batch: int, n_points: int, d: int, device: torch.device) -> int:
-    """Split the points so that the grid fills the card in one wave of two
-    blocks per SM (two ~113 KB shared-memory tiles fit on an SM)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = batch * -(-d // _TILE_D)
-    return max(1, min(-(-n_points // 1024), 2 * sms // tiles))
+def splat_sums_plain(cell: torch.Tensor, feats: torch.Tensor, num_cells: int,
+                     step_sel: Optional[torch.Tensor] = None,
+                     sem_labels: Optional[torch.Tensor] = None,
+                     num_sem: int = 0) -> torch.Tensor:
+    """Plain version of the kernel on any device: the gathered rows rounded
+    to bf16, the one-hot of ``sem_labels`` and a ones column, concatenated
+    and summed by ``splat_sums_ref``."""
+    feats = gather_rows(feats, step_sel)
+    cols = [feats.to(torch.bfloat16)]
+    if sem_labels is not None:
+        cols.append(F.one_hot(sem_labels.long(), num_sem).to(torch.bfloat16))
+    cols.append(torch.ones(*feats.shape[:2], 1, dtype=torch.bfloat16, device=feats.device))
+    return splat_sums_ref(cell, torch.cat(cols, dim=-1), num_cells)
 
 
-def splat_sums(cell: torch.Tensor, payload: torch.Tensor, num_cells: int) -> torch.Tensor:
-    """cell (B, N) int32 (invalid points = -1); payload (B, N, D) bfloat16.
+def splat_sums(cell: torch.Tensor, feats: torch.Tensor, num_cells: int,
+               step_sel: Optional[torch.Tensor] = None,
+               sem_labels: Optional[torch.Tensor] = None,
+               num_sem: int = 0) -> torch.Tensor:
+    """cell (B, N) int32, invalid points -1; feats (B, N, F), or (B, T, P, F)
+    with ``step_sel`` (B, S) int32 and N = S * P; optional ``sem_labels``
+    (B, N) int with ``num_sem`` classes.
 
-    Returns (B, num_cells, D) float32 per-cell sums. CPU tensors take
-    ``splat_sums_ref``; CUDA tensors launch ``csrc/splat.cu`` or raise."""
-    if cell.device.type == "cpu" and payload.device.type == "cpu":
-        return splat_sums_ref(cell, payload, num_cells)
-    if cell.device.type != "cuda" or payload.device != cell.device:
+    Returns (B, num_cells, F + num_sem + 1) float32: per cell the sums of
+    the bf16-rounded features, the label counts and the point count (a view
+    of a row-padded buffer on the card). CPU tensors take
+    ``splat_sums_plain``; CUDA tensors launch ``csrc/splat.cu`` or raise."""
+    if cell.device.type == "cpu" and feats.device.type == "cpu":
+        return splat_sums_plain(cell, feats, num_cells, step_sel, sem_labels, num_sem)
+    if cell.device.type != "cuda":
         raise ValueError(
-            f"splat_sums: cell on {cell.device}, payload on {payload.device}; "
-            "both must be on one CUDA device (or both on the CPU)"
+            f"splat_sums: cell on {cell.device}, feats on {feats.device}; both must be "
+            "on one CUDA device (or both on the CPU)"
         )
-    if cell.dtype != torch.int32 or payload.dtype != torch.bfloat16:
-        raise TypeError(
-            f"splat_sums: need int32 cell and bfloat16 payload, got "
-            f"{cell.dtype} and {payload.dtype}"
-        )
-    if cell.dim() != 2 or payload.dim() != 3 or payload.shape[:2] != cell.shape:
-        raise ValueError(
-            f"splat_sums: need cell (B, N) and payload (B, N, D), got "
-            f"{tuple(cell.shape)} and {tuple(payload.shape)}"
-        )
-    if not (cell.is_contiguous() and payload.is_contiguous()):
-        raise ValueError("splat_sums: cell and payload must be contiguous")
-    b, n = cell.shape
-    d = payload.shape[-1]
-    if num_cells < 1 or d < 1 or num_cells * _TILE_D * 4 > _MAX_SMEM:
-        raise ValueError(
-            f"splat_sums: {num_cells} cells x {d} channels is outside the "
-            f"kernel's range (1..{_MAX_SMEM // (_TILE_D * 4)} cells)"
-        )
-    lib = _library()
-    out = torch.zeros(b, num_cells, d, dtype=torch.float32, device=cell.device)
-    if b == 0 or n == 0:
-        return out
-    with torch.cuda.device(cell.device):
-        stream = torch.cuda.current_stream(cell.device).cuda_stream
-        err = lib.bevbert_splat_sums(
-            cell.data_ptr(), payload.data_ptr(), out.data_ptr(),
-            b, n, num_cells, d, _num_splits(b, n, d, cell.device), stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            "splat_sums kernel launch failed: "
-            + lib.bevbert_cuda_error_string(err).decode()
-        )
-    splat_sums.launches += 1
-    return out
-
-
-splat_sums.launches = 0  # kernel launches; chip_smoke.py resets and reads it
+    sem = None if sem_labels is None else sem_labels.to(torch.int32)
+    return _build.load().splat_sums(cell, feats, step_sel, sem, num_cells,
+                                    num_sem if sem is not None else 0)

@@ -33,8 +33,7 @@ from typing import Callable, Dict, List, Sequence
 import torch
 from torch import nn
 
-from vln_bevbert_tpu.configs import FinetuneConfig, OptimConfig
-
+from ..configs import FinetuneConfig, OptimConfig
 from ..convert import flax_paths
 
 

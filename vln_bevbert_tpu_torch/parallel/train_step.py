@@ -27,8 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vln_bevbert_tpu.configs import ModelConfig, OptimConfig, PretrainConfig, ShapeConfig
-
+from ..configs import ModelConfig, OptimConfig, PretrainConfig, ShapeConfig
 from ..models.bert import init_params
 from ..models.glocal import GlocalTextPathCMTPreTraining
 from ..ops.bev import BevProjector

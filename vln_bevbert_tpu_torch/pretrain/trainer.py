@@ -17,10 +17,8 @@ from typing import Dict, Optional
 
 import torch
 
-from vln_bevbert_tpu.configs import PretrainConfig
-from vln_bevbert_tpu.data.loader import PretrainLoader
-from vln_bevbert_tpu.utils.logging import MetricLogger, RunningMeter
-
+from ..configs import PretrainConfig
+from ..data.loader import PretrainLoader
 from ..parallel.train_step import (
     init_pretrain_state,
     load_checkpoint,
@@ -28,6 +26,7 @@ from ..parallel.train_step import (
     save_checkpoint,
     upload,
 )
+from ..utils.logging import MetricLogger, RunningMeter
 
 
 class PretrainTrainer:
