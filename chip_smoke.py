@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths at full bert-base width with random seeded
+Drives the port's paths (eval, pretraining, fine-tuning, and their object
+grounding variants) at full bert-base width with random seeded
 weights, through the hand-written CUDA kernels, in phases; each phase prints
 one line and a failing phase raises, so the script exits non-zero:
 
@@ -20,8 +21,9 @@ one line and a failing phase raises, so the script exits non-zero:
              one-hot ``torch.bmm``; the navigation BEV step's device time,
              fused against the parent's gather, concat and splat;
 4. dropout - the dropout operator against its plain version, bitwise, at the
-             pretraining step's and the replay update's largest sites and at
-             edge cases, beside ``F.dropout``; P(keep); host us per launch;
+             pretraining step's and the replay update's largest sites, at
+             object pretraining's object-feature and 64-slot panorama sites
+             and at edge cases, beside ``F.dropout``; P(keep); host us per launch;
              the backward's mask; seed-only saved tensors; C++ launch counts
              of the backward;
 5. slice   - the navigation eval (``cli.finetune --synthetic --test``); the
@@ -45,7 +47,21 @@ one line and a failing phase raises, so the script exits non-zero:
              and > 0, every parameter moved; ``--test --pretrain_ckpt
              ckpt_latest`` must predict the trained agent's trajectories; ms
              per replay update and per training-rollout step, peak memory;
-8. small   - a small configuration evaluated on the card and on the CPU with
+8. obj_train - object pretraining at ``configs/reverie_pretrain.json``'s
+             widths and mix (image and object features 768, object
+             probabilities 1000, 20 objects, B=16, mlm 5 / mrc 2 / sap 5 /
+             og 2 / masksem 1) through ``PretrainTrainer`` over the synthetic
+             REVERIE world with an ``ObjectDB``, seed 39 (each task 8 of 40
+             steps), then its checkpoint; the same launch, loss and timing
+             checks as ``train``, and og_acc in [0, 1];
+9. obj_finetune - REVERIE DAgger fine-tuning (``cli.finetune --synthetic
+             --dataset reverie``) from that checkpoint with a config of the
+             same model widths (every navigation parameter transfers,
+             ``og_head`` included), checked as ``finetune`` is, with SR, SPL,
+             RGS and RGSPL in [0, 100]; ``--test`` from ``ckpt_latest`` must
+             predict the same trajectories and ``predObjId``; then one SOON
+             evaluation (``--dataset soon --test``);
+10. small  - a small configuration evaluated on the card and on the CPU with
              the same parameters: equal trajectories, close logits.
 
 Launch counts are the operators' own (C++, ``_build.launches``), set to 0
@@ -77,6 +93,7 @@ DROPOUT = {"name": "seeded_dropout", "route": "cuda",
 # (atomics), hence:
 RTOL, ATOL = 1e-5, 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
+OG_SHIFT_INVARIANT = ("og_head.fc2.bias", "og_head.ln.bias")
 
 
 def phase(tag: str, **fields) -> None:
@@ -356,6 +373,11 @@ def dropout_phase() -> dict:
         # encoder over T*B = 60 step-rows of 44 view slots
         "ft_attn_probs": ((4, 12, 441, 441), torch.bfloat16, 0.1),
         "ft_pano_hidden": ((60, 44, 768), torch.bfloat16, 0.1),
+        # object pretraining's: the object features (B, T = 8 steps, 20
+        # objects, 768), and the panorama encoder over B*T step-rows of
+        # P = 44 views + 20 objects
+        "obj_feat": ((16, 8, 20, 768), torch.float32, 0.4),
+        "obj_pano_hidden": ((128, 64, 768), torch.bfloat16, 0.1),
     }
     record = {"max_abs_err": 0.0, "sites": {}}
     for label, (shape, dtype, rate) in shapes.items():
@@ -378,7 +400,7 @@ def dropout_phase() -> dict:
         row = {"ms": ms, "device_ms": dev_ms, "F_dropout_ms": lib_ms,
                "F_dropout_device_ms": lib_dev_ms, "plain_ms": plain_ms, "bound_ms": bound}
         extra = {}
-        if label in ("hidden", "ft_pano_hidden"):
+        if label in ("hidden", "ft_pano_hidden", "obj_pano_hidden"):
             row["host_us"] = host_us(lambda: dropout(x, seeds, rate))
             row["F_dropout_host_us"] = host_us(lambda: F.dropout(x, rate))
             extra = dict(host_us_per_launch=f"{row['host_us']:.2f}",
@@ -423,9 +445,15 @@ def dropout_phase() -> dict:
     y.backward(dy)
     if _build.launches("dropout") != before + 1:
         raise AssertionError("dropout: the backward did not launch the kernel")
-    if not (torch.equal(x.grad, dropout_ref(dy, seeds, 0.1))
-            and torch.equal(x.grad != 0, (y != 0) & (dy != 0))):
-        raise AssertionError("dropout: the backward's mask differs from the forward's")
+    # the kept elements, as the plain version draws them (x may hold zeros)
+    kept = dropout_ref(torch.ones_like(dy), seeds, 0.1) != 0
+    ref_grad = dropout_ref(dy, seeds, 0.1)
+    if not (torch.equal(x.grad, ref_grad) and torch.equal(y != 0, kept & (x != 0))
+            and torch.equal(x.grad != 0, kept & (dy != 0))):
+        raise AssertionError(
+            "dropout: the backward's mask differs from the forward's: "
+            f"{int((x.grad != ref_grad).sum())} elements differ from the plain version, "
+            f"{int((x.grad != 0).ne(kept & (dy != 0)).sum())} from the forward's mask")
     phase("dropout", edges="rate0 ragged_rows misaligned single_row", backward_mask="equal",
           saved="seeds only", backward_launch="counted")
     return record
@@ -442,13 +470,12 @@ def run_lengths(items):
     return out
 
 
-def train_phase(out_dir: str, steps: int = 24, seed: int = 16, min_each: int = 3) -> dict:
-    """Run the CLI's synthetic pretraining at full width, instrumented, and
-    save its checkpoint into ``out_dir`` as the CLI does. ``seed`` 16
-    schedules every task at least ``min_each`` times in the first 24 steps
-    (the MetaLoader draws tasks in blocks of 8)."""
+def run_trainer(trainer, label: str, min_each: int, build_s: float) -> dict:
+    """Train ``trainer`` to its configured step count, instrumented: the
+    kernels' launch counts against the dropout calls (forward and backward)
+    and the ``prepare_bev`` calls, CUDA events around every step, then save
+    its checkpoint. Every task of the mix must run ``min_each`` steps."""
     from vln_bevbert_tpu_torch import _build
-    from vln_bevbert_tpu_torch.cli import pretrain
     from vln_bevbert_tpu_torch.ops import dropout as drop_mod
     from vln_bevbert_tpu_torch.parallel import train_step as ts_mod
 
@@ -465,11 +492,6 @@ def train_phase(out_dir: str, steps: int = 24, seed: int = 16, min_each: int = 3
         seen["bev"] += "depths" in batch
         return prepare(projector, batch)
 
-    t0 = time.perf_counter()
-    trainer = pretrain.build(pretrain.parse_args([
-        "--synthetic", "--device", "cuda", "--num_steps", str(steps),
-        "--batch_size", "16", "--seed", str(seed), "--output_dir", out_dir]))
-    build_s = time.perf_counter() - t0
     step_fn = trainer.step_fn
 
     def timed_step(state, batch, task):
@@ -480,6 +502,8 @@ def train_phase(out_dir: str, steps: int = 24, seed: int = 16, min_each: int = 3
         seen["steps"].append((task, start, end, metrics))
         return metrics
 
+    cfg = trainer.cfg
+    steps = cfg.optim.num_train_steps
     drop_mod.Dropout.forward, ts_mod.prepare_bev = counted_forward, counted_prepare
     trainer.step_fn = timed_step
     try:
@@ -493,26 +517,26 @@ def train_phase(out_dir: str, steps: int = 24, seed: int = 16, min_each: int = 3
         launches = {"dropout": _build.launches("dropout"), "splat": _build.launches("splat")}
     finally:
         drop_mod.Dropout.forward, ts_mod.prepare_bev = forward, prepare
+        trainer.step_fn = step_fn
     peak = torch.cuda.max_memory_allocated()
     ckpt = trainer.save(trainer.state.step)
     n_params = sum(p.numel() for p in trainer.state.params)
 
-    cfg = trainer.cfg
     schedule = [t for t, *_ in seen["steps"]]
     mix = {t.split("_")[0]: r for t, r in zip(cfg.tasks, cfg.mix_ratio)}
     if len(schedule) != steps or any(schedule.count(t) < min_each for t in mix):
-        raise AssertionError(f"train: ran {schedule}; every task of {sorted(mix)} needs "
+        raise AssertionError(f"{label}: ran {schedule}; every task of {sorted(mix)} needs "
                              f"{min_each} of {steps} steps")
     if launches["splat"] != seen["bev"] or seen["bev"] != steps:
-        raise AssertionError(f"train: {launches['splat']} splat launches for "
+        raise AssertionError(f"{label}: {launches['splat']} splat launches for "
                              f"{seen['bev']} prepare_bev calls in {steps} steps")
     if launches["dropout"] != seen["drop_fwd"] + seen["drop_bwd"] or seen["drop_bwd"] == 0:
         raise AssertionError(
-            f"train: {launches['dropout']} dropout launches for {seen['drop_fwd']} "
+            f"{label}: {launches['dropout']} dropout launches for {seen['drop_fwd']} "
             f"forward and {seen['drop_bwd']} backward dropout calls")
     values = torch.stack([torch.stack([m["loss"], m["grad_norm"]]) for *_, m in seen["steps"]])
     if not torch.isfinite(values).all() or not (values[:, 1] > 0).all():
-        raise AssertionError(f"train: non-finite or zero loss / grad_norm {values.tolist()}")
+        raise AssertionError(f"{label}: non-finite or zero loss / grad_norm {values.tolist()}")
     per_task, first = {}, set()
     for task, start, end, _ in seen["steps"]:
         if task in first:
@@ -523,7 +547,7 @@ def train_phase(out_dir: str, steps: int = 24, seed: int = 16, min_each: int = 3
     mix_ms = sum(mix[t] * ms_per_task[t] for t in mix) / sum(mix.values())
     return {
         "ckpt": ckpt, "pretrain_names": set(trainer.model.state_dict()),
-        "seed": seed, "steps": steps, "schedule": schedule, "launches": launches,
+        "seed": cfg.seed, "steps": steps, "schedule": schedule, "launches": launches,
         "drop_fwd": seen["drop_fwd"], "drop_bwd": seen["drop_bwd"], "bev": seen["bev"],
         "ms_per_task": ms_per_task, "mix": mix,
         "samples_per_s": cfg.train_batch_size * 1e3 / mix_ms,
@@ -533,6 +557,74 @@ def train_phase(out_dir: str, steps: int = 24, seed: int = 16, min_each: int = 3
         "first_ms": {t: next(s.elapsed_time(e) for tt, s, e, _ in seen["steps"] if tt == t)
                      for t in per_task},
     }
+
+
+def train_phase(out_dir: str, steps: int = 24, seed: int = 16, min_each: int = 3) -> dict:
+    """Run the CLI's synthetic pretraining at full width, instrumented, and
+    save its checkpoint into ``out_dir`` as the CLI does. ``seed`` 16
+    schedules every task at least ``min_each`` times in the first 24 steps
+    (the MetaLoader draws tasks in blocks of 8)."""
+    from vln_bevbert_tpu_torch.cli import pretrain
+
+    t0 = time.perf_counter()
+    trainer = pretrain.build(pretrain.parse_args([
+        "--synthetic", "--device", "cuda", "--num_steps", str(steps),
+        "--batch_size", "16", "--seed", str(seed), "--output_dir", out_dir]))
+    return run_trainer(trainer, "train", min_each, time.perf_counter() - t0)
+
+
+REVERIE_PRETRAIN = "configs/reverie_pretrain.json"
+
+
+def obj_train_phase(out_dir: str, steps: int = 40, seed: int = 39, min_each: int = 8) -> dict:
+    """Object pretraining at the widths and mix of ``configs/reverie_pretrain.json``
+    (image and object features 768, object probabilities 1000, 20 objects,
+    B=16, mlm 5 / mrc 2 / sap 5 / og 2 / masksem 1), through the library as
+    the JAX package's object pretraining test runs it: ``PretrainTrainer``
+    over a ``TextPathData`` with an ``ObjectDB`` of the synthetic REVERIE
+    world (``make_synthetic_object_world``). ``seed`` 39 schedules each of
+    the five tasks in one block of 8 of the 40 steps."""
+    import numpy as np
+
+    from vln_bevbert_tpu_torch.cli.finetune import synthetic_feature_dbs
+    from vln_bevbert_tpu_torch.configs import PretrainConfig, load_config
+    from vln_bevbert_tpu_torch.data.loader import PretrainLoader, make_synthetic_object_world
+    from vln_bevbert_tpu_torch.data.nav_graph import (
+        build_scanvp_cands,
+        load_nav_graphs,
+        write_synthetic_connectivity,
+    )
+    from vln_bevbert_tpu_torch.data.pathdata import TextPathData
+    from vln_bevbert_tpu_torch.nav.obj_env import ObjectDB
+    from vln_bevbert_tpu_torch.pretrain.trainer import PretrainTrainer
+
+    t0 = time.perf_counter()
+    cfg = load_config(PretrainConfig, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                   REVERIE_PRETRAIN),
+                      seed=seed, output_dir=out_dir, **{"optim.num_train_steps": steps})
+    m, sh = cfg.model, cfg.shapes
+    rng = np.random.default_rng(seed)
+    with tempfile.TemporaryDirectory() as conn:
+        write_synthetic_connectivity(conn, rng, n_scans=4, n_nodes=20)
+        graphs = load_nav_graphs(conn)
+    dbs = synthetic_feature_dbs(rng, {s: g.node_ids for s, g in graphs.items()},
+                                image_feat_size=m.image_feat_size,
+                                grid_feat_size=m.bev_grid_feat_size, grid_hw=sh.grid_hw,
+                                num_views=sh.num_views, num_sem=m.num_sem_classes)
+    annos, obj_data, _ = make_synthetic_object_world(
+        graphs, rng, n_items=256, obj_feat_size=m.obj_feat_size, obj_prob_size=m.obj_prob_size)
+    db = TextPathData(annos, graphs, build_scanvp_cands(graphs), **dbs,
+                      obj_db=ObjectDB(obj_data), image_feat_size=m.image_feat_size,
+                      obj_feat_size=m.obj_feat_size, obj_prob_size=m.obj_prob_size,
+                      max_objects=sh.max_objects, max_txt_len=sh.max_txt_len,
+                      bev_dim=m.bev_dim, bev_res=m.bev_res, num_views=sh.num_views,
+                      dataset="reverie")
+    trainer = PretrainTrainer(cfg, PretrainLoader(db, cfg, seed=cfg.seed), "cuda")
+    run = run_trainer(trainer, "obj_train", min_each, time.perf_counter() - t0)
+    og_acc = run["meters"]["og/og_acc"]
+    if not 0.0 <= og_acc <= 1.0 or run["meters"]["mrc/mrc_n"] <= 0:
+        raise AssertionError(f"obj_train: og_acc {og_acc}, mrc_n {run['meters']['mrc/mrc_n']}")
+    return run
 
 
 def slice_phase(device: str, extra_args: list) -> dict:
@@ -642,11 +734,14 @@ def check_slice(run: dict, expect_kernel: bool) -> float:
 
 
 def finetune_phase(pretrain_ckpt: str, pretrain_names: set, out_dir: str,
-                   iters: int = 3) -> dict:
+                   iters: int = 3, extra: tuple = (), label: str = "finetune",
+                   metric_keys: tuple = ("sr", "spl", "nDTW")) -> dict:
     """DAgger fine-tuning at full width from the pretraining checkpoint,
     through the CLI (``--synthetic --pretrain_ckpt <ckpt> --iters 3
-    --log_every 3``: 6 training rollouts, 6 replay updates, one evaluation of
-    val_unseen), instrumented; then ``--test --pretrain_ckpt ckpt_latest``."""
+    --log_every 3`` and ``extra``: 6 training rollouts, 6 replay updates, one
+    evaluation of val_unseen), instrumented; then ``--test --pretrain_ckpt
+    ckpt_latest``, which must predict the same trajectories (and grounded
+    objects, ``predObjId``)."""
     from vln_bevbert_tpu_torch import _build
     from vln_bevbert_tpu_torch.cli import finetune
     from vln_bevbert_tpu_torch.nav import agent as agent_mod
@@ -689,7 +784,7 @@ def finetune_phase(pretrain_ckpt: str, pretrain_names: set, out_dir: str,
         seen["start"] = {n: p.detach().cpu().clone() for n, p in self.model.named_parameters()}
         return out
 
-    argv = ["--synthetic", "--device", "cuda", "--output_dir", out_dir]
+    argv = ["--synthetic", "--device", "cuda", "--output_dir", out_dir, *extra]
     agent_mod.gather_and_splat, drop_mod.Dropout.forward = counted_gather, counted_dropout
     cls._rollout, cls.learn_from_bundle, cls.init_params = timed_rollout, timed_learn, recorded_init
     try:
@@ -710,45 +805,50 @@ def finetune_phase(pretrain_ckpt: str, pretrain_names: set, out_dir: str,
 
     nav_names = set(agent.model.state_dict())
     if not nav_names <= pretrain_names or agent.transferred != len(nav_names):
-        raise AssertionError(f"finetune: {agent.transferred} entries transferred; the models "
+        raise AssertionError(f"{label}: {agent.transferred} entries transferred; the models "
                              f"share {len(nav_names & pretrain_names)} of {len(nav_names)}")
     feedbacks = [fb for fb, *_ in seen["rollouts"]]
     if feedbacks != ["teacher", "sample"] * iters or len(seen["updates"]) != 2 * iters:
-        raise AssertionError(f"finetune: rollouts {feedbacks}, {len(seen['updates'])} updates")
+        raise AssertionError(f"{label}: rollouts {feedbacks}, {len(seen['updates'])} updates")
     if launches["splat"] != seen["gathers"]:
-        raise AssertionError(f"finetune: {launches['splat']} splat launches for "
+        raise AssertionError(f"{label}: {launches['splat']} splat launches for "
                              f"{seen['gathers']} gather-and-splat calls")
     if launches["dropout"] != seen["drop_fwd"] + seen["drop_bwd"] or seen["drop_bwd"] == 0:
-        raise AssertionError(f"finetune: {launches['dropout']} dropout launches for "
+        raise AssertionError(f"{label}: {launches['dropout']} dropout launches for "
                              f"{seen['drop_fwd']} forward and {seen['drop_bwd']} backward calls")
     losses, norms = agent.logs["IL_loss"], agent.logs["grad_norm"]
     values = torch.tensor(losses + norms)
     if len(losses) != 2 * iters or not torch.isfinite(values).all() or not (values > 0).all():
-        raise AssertionError(f"finetune: IL_loss {losses}, grad_norm {norms}")
-    unchanged = [n for n, p in agent.model.named_parameters()
-                 if torch.equal(p.detach().cpu(), seen["start"][n])]
-    if unchanged:
-        raise AssertionError(f"finetune: {len(unchanged)} parameters unchanged: {unchanged[:3]}")
+        raise AssertionError(f"{label}: IL_loss {losses}, grad_norm {norms}")
+    # og_head's output bias and LayerNorm shift add alike to every object
+    # logit: the grounding softmax gives them a zero gradient, and weight
+    # decay keeps them at their initial zeros
+    params = dict(agent.model.named_parameters())
+    unchanged = [n for n, p in params.items() if torch.equal(p.detach().cpu(), seen["start"][n])]
+    if [n for n in unchanged if n not in OG_SHIFT_INVARIANT or params[n].any()]:
+        raise AssertionError(f"{label}: {len(unchanged)} parameters unchanged: {unchanged[:3]}")
     metrics = results["val_unseen"]
-    for key in ("sr", "spl", "nDTW"):
+    for key in metric_keys:
         if not 0.0 <= metrics[key] <= 100.0:
-            raise AssertionError(f"finetune: {key}={metrics[key]} outside [0, 100]")
+            raise AssertionError(f"{label}: {key}={metrics[key]} outside [0, 100]")
 
     # the saved agent, evaluated on its own, predicts what the trained one did
     for name in ("ckpt_best", "ckpt_latest"):
         if not os.path.isfile(os.path.join(out_dir, name)):
-            raise AssertionError(f"finetune: {name} was not written")
+            raise AssertionError(f"{label}: {name} was not written")
     test_dir = os.path.join(out_dir, "test")
     finetune.main(["--synthetic", "--device", "cuda", "--test", "--output_dir", test_dir,
-                   "--pretrain_ckpt", os.path.join(out_dir, "ckpt_latest")])
+                   "--pretrain_ckpt", os.path.join(out_dir, "ckpt_latest"), *extra])
 
     def by_id(path):
         with open(path) as f:
-            return {p["instr_id"]: p["trajectory"] for p in json.load(f)}
+            return {p["instr_id"]: (p["trajectory"], p.get("predObjId")) for p in json.load(f)}
 
     trained = by_id(os.path.join(out_dir, f"preds_val_unseen_{iters}.json"))
     if by_id(os.path.join(test_dir, "preds_val_unseen_0.json")) != trained or len(trained) != 16:
-        raise AssertionError("finetune: --test from ckpt_latest predicts other trajectories")
+        raise AssertionError(f"{label}: --test from ckpt_latest predicts other trajectories")
+    if agent.with_objects and any(obj is None for _, obj in trained.values()):
+        raise AssertionError(f"{label}: a prediction has no predObjId")
     rollouts, updates = seen["rollouts"], seen["updates"]
     return {
         "results": results, "wall_s": wall, "launches": launches, "gathers": seen["gathers"],
@@ -762,6 +862,42 @@ def finetune_phase(pretrain_ckpt: str, pretrain_names: set, out_dir: str,
         "ms_per_update": 1e3 * sum(updates[1:]) / len(updates[1:]),
         "first_update_ms": 1e3 * updates[0],
     }
+
+
+def obj_finetune_phase(pretrain_ckpt: str, pretrain_names: set, out_dir: str) -> dict:
+    """REVERIE DAgger fine-tuning (``cli.finetune --synthetic --dataset
+    reverie``) from the object pretraining checkpoint, with a ``--config``
+    that repeats its model widths so that every navigation parameter
+    transfers (``og_head`` and ``img_embeddings`` included); then ``--test``
+    from ``ckpt_latest``, and one SOON evaluation (``--dataset soon
+    --test``) of the same agent."""
+    from vln_bevbert_tpu_torch import _build
+    from vln_bevbert_tpu_torch.cli import finetune
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, REVERIE_PRETRAIN)) as f:
+        model = json.load(f)["model"]
+    config = out_dir + "_config.json"
+    with open(config, "w") as f:
+        json.dump({"model": model, "shapes": {"max_objects": 20}}, f)
+    ft = finetune_phase(pretrain_ckpt, pretrain_names, out_dir,
+                        extra=("--dataset", "reverie", "--config", config), label="obj_finetune",
+                        metric_keys=("sr", "spl", "rgs", "rgspl", "oracle_sr"))
+
+    soon_dir = os.path.join(out_dir, "soon")
+    _build.reset_launches()
+    soon = finetune.main(["--synthetic", "--device", "cuda", "--test", "--dataset", "soon",
+                          "--config", config, "--output_dir", soon_dir,
+                          "--pretrain_ckpt", os.path.join(out_dir, "ckpt_latest")])["val_unseen"]
+    soon_launches = _build.launches("splat")
+    with open(os.path.join(soon_dir, "preds_val_unseen_0.json")) as f:
+        dump = json.load(f)
+    if (soon_launches <= 0 or len(dump) != 16 or any("predObjId" not in p for p in dump)
+            or not all(0.0 <= soon[k] <= 100.0 for k in ("sr", "spl", "rgs", "rgspl"))):
+        raise AssertionError(f"obj_finetune: soon --test gave {soon}, {soon_launches} splat "
+                             f"launches, {len(dump)} predictions")
+    ft.update(soon=soon, soon_splat_launches=soon_launches)
+    return ft
 
 
 def small_phase() -> None:
@@ -871,6 +1007,48 @@ def main() -> None:
           test_from_ckpt_latest="equal")
     work.cleanup()
 
+    torch.cuda.empty_cache()
+    work = tempfile.TemporaryDirectory()
+    obj = obj_train_phase(os.path.join(work.name, "pretrain_reverie"))
+    phase("obj_train", config=REVERIE_PRETRAIN, seed=obj["seed"], steps=obj["steps"],
+          schedule=",".join(f"{t}x{n}" for t, n in run_lengths(obj["schedule"])),
+          prepare_bev_calls=obj["bev"], splat_launches=obj["launches"]["splat"],
+          dropout_forward_calls=obj["drop_fwd"], dropout_backward_calls=obj["drop_bwd"],
+          dropout_launches=obj["launches"]["dropout"],
+          **{f"ms_per_step_{t}": f"{ms:.2f}" for t, ms in obj["ms_per_task"].items()},
+          **{f"first_step_ms_{t}": f"{ms:.1f}" for t, ms in obj["first_ms"].items()},
+          mix=":".join(f"{t}{r:g}" for t, r in obj["mix"].items()),
+          samples_per_s_at_mix=f"{obj['samples_per_s']:.2f}",
+          wall_samples_per_s=f"{obj['wall_samples_per_s']:.2f}",
+          wall_s=f"{obj['wall_s']:.2f}", build_s=f"{obj['build_s']:.2f}",
+          peak_mem_MiB=f"{obj['peak_bytes'] / 2**20:.1f}", params=obj["n_params"],
+          og_acc=f"{obj['meters']['og/og_acc']:.4f}",
+          **{k.replace("/", "_"): f"{v:.4g}" for k, v in obj["meters"].items()
+             if k.endswith(("loss", "grad_norm"))}, ckpt=os.path.basename(obj["ckpt"]))
+
+    torch.cuda.empty_cache()
+    oft = obj_finetune_phase(obj["ckpt"], obj["pretrain_names"],
+                             os.path.join(work.name, "ft_reverie"))
+    m, soon = oft["results"]["val_unseen"], oft["soon"]
+    phase("obj_finetune", dataset="reverie", iters=3, feedback="dagger", train_rollouts=6,
+          updates=len(oft["losses"]), transferred=f"{oft['transferred']}/{oft['params']}",
+          gathers=oft["gathers"], splat_launches=oft["launches"]["splat"],
+          dropout_forward_calls=oft["drop_fwd"], dropout_backward_calls=oft["drop_bwd"],
+          dropout_launches=oft["launches"]["dropout"],
+          ms_per_replay_update=f"{oft['ms_per_update']:.2f}",
+          first_update_ms=f"{oft['first_update_ms']:.1f}",
+          train_rollout_steps=oft["rollout_steps"],
+          ms_per_train_rollout_step=f"{oft['ms_per_rollout_step']:.2f}",
+          ms_per_train_rollout_step_after_first=f"{oft['ms_per_rollout_step_after_first']:.2f}",
+          peak_mem_MiB=f"{oft['peak_bytes'] / 2**20:.1f}", wall_s=f"{oft['wall_s']:.2f}",
+          IL_loss=",".join(f"{v:.4g}" for v in oft["losses"]),
+          grad_norm=",".join(f"{v:.4g}" for v in oft["grad_norms"]),
+          **{k: f"{m[k]:.2f}" for k in ("sr", "spl", "rgs", "rgspl", "oracle_sr")},
+          test_from_ckpt_latest="equal", pred_obj_id="present",
+          **{f"soon_{k}": f"{soon[k]:.2f}" for k in ("sr", "spl", "rgs", "rgspl")},
+          soon_splat_launches=oft["soon_splat_launches"])
+    work.cleanup()
+
     small_phase()
 
     loaded = sorted(k for k in sys.modules if k.split(".")[0] in
@@ -882,9 +1060,13 @@ def main() -> None:
     # probabilities (dropout); every shape's numbers are nested beside them
     print(json.dumps({"kernels": [
         {**SPLAT, "launches": train["launches"]["splat"], **splat_record, "bound_by": "bytes",
-         "launches_eval": run["launches"], "launches_finetune": ft["launches"]["splat"]},
+         "launches_eval": run["launches"], "launches_finetune": ft["launches"]["splat"],
+         "launches_obj_pretrain": obj["launches"]["splat"],
+         "launches_obj_finetune": oft["launches"]["splat"]},
         {**DROPOUT, "launches": train["launches"]["dropout"], **drop_record,
-         "bound_by": "bytes", "launches_finetune": ft["launches"]["dropout"]},
+         "bound_by": "bytes", "launches_finetune": ft["launches"]["dropout"],
+         "launches_obj_pretrain": obj["launches"]["dropout"],
+         "launches_obj_finetune": oft["launches"]["dropout"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -250,15 +250,10 @@ def test_small_train_steps_match_cpu_on_card(tmp_path, monkeypatch):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.cuda
-def test_small_replay_update_matches_cpu_on_card(monkeypatch):
-    """A small float32 DAgger replay update (dropout on) on the card and on
-    the CPU from the same parameters, bundle and dropout seeds: the card's
-    kernels (dropout forward and backward) and the CPU's plain version mask
-    alike, so loss and gradient norm agree to float32 summation order (rtol
-    1e-4) and the updated parameters within atol 1e-4."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _replay_update_on_card_and_cpu(monkeypatch, obj_feat_size=0, max_objects=0):
+    """One replay update of a small float32 configuration on the card and on
+    the CPU from the same parameters, bundle and dropout seeds; returns the
+    two agents."""
     import numpy as np
 
     from vln_bevbert_tpu.configs import FinetuneConfig, ModelConfig, ShapeConfig
@@ -269,9 +264,10 @@ def test_small_replay_update_matches_cpu_on_card(monkeypatch):
     cfg = FinetuneConfig(
         model=ModelConfig(hidden_size=64, num_attention_heads=2, intermediate_size=128,
                           num_l_layers=1, num_pano_layers=1, num_x_layers=1,
-                          image_feat_size=32, bev_grid_feat_size=24, dtype="float32"),
+                          image_feat_size=32, bev_grid_feat_size=24, dtype="float32",
+                          obj_feat_size=obj_feat_size),
         shapes=ShapeConfig(max_txt_len=32, max_pano_len=12, max_gmap_len=16,
-                           max_local_len=6, max_objects=0),
+                           max_local_len=6, max_objects=max_objects),
         batch_size=2, max_action_len=5, learning_rate=1e-4,
     )
     agents = {d: make_replay_agent(cfg, cfg.batch_size, device=d) for d in ("cpu", "cuda")}
@@ -299,3 +295,27 @@ def test_small_replay_update_matches_cpu_on_card(monkeypatch):
         torch.tensor(cpu.logs["IL_loss"] + cpu.logs["grad_norm"]), rtol=1e-4, atol=0)
     for a, b in zip(card.model.parameters(), cpu.model.parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=1e-4)
+    return agents
+
+
+@pytest.mark.cuda
+def test_small_replay_update_matches_cpu_on_card(monkeypatch):
+    """A small float32 DAgger replay update (dropout on) on the card and on
+    the CPU from the same parameters, bundle and dropout seeds: the card's
+    kernels (dropout forward and backward) and the CPU's plain version mask
+    alike, so loss and gradient norm agree to float32 summation order (rtol
+    1e-4) and the updated parameters within atol 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _replay_update_on_card_and_cpu(monkeypatch)
+
+
+@pytest.mark.cuda
+def test_small_object_replay_update_matches_cpu_on_card(monkeypatch):
+    """The same with REVERIE object slots (their own ``obj_linear``, four
+    objects a panorama): the object tokens' dropout, the object cross-entropy
+    and ``og_head`` agree on the card and the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    agents = _replay_update_on_card_and_cpu(monkeypatch, obj_feat_size=40, max_objects=4)
+    assert agents["cuda"].model.og_head is not None

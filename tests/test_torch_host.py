@@ -5,8 +5,9 @@ originals, and the rule that the port loads nothing of the JAX package.
 The port keeps its own copy of these modules, so each copy is held to its
 original on the same seeds: configs by ``dataclasses.asdict``, the synthetic
 world's graphs, distances and candidates, ``R2RNavBatch`` observations and
-metrics, ``PretrainLoader`` batches, and DTW and the Floyd graph through the
-native engine and the Python fallback. Arrays must be equal; floats computed
+metrics, the REVERIE/SOON object envs' observations and metrics,
+``PretrainLoader`` batches with and without object stores, and DTW and the
+Floyd graph through the native engine and the Python fallback. Arrays must be equal; floats computed
 by the same code in the same order must be equal too.
 """
 
@@ -27,7 +28,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the copied modules; ``data.feature_db`` leaves out the XLA float16 cast
 COPIED = ("configs", "geometry", "data.nav_graph", "data.pathdata", "data.batching",
           "data.loader", "data.feature_db", "data.annotations", "nav.eval_utils", "native",
-          "nav.graph_map", "nav.env", "utils.logging")
+          "nav.graph_map", "nav.env", "nav.obj_env", "utils.logging")
 LEFT_OUT = {"data.feature_db": {"fast_cast"}}
 FORBIDDEN = ("vln_bevbert_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
 
@@ -158,6 +159,100 @@ def check_nav_env(tmp_path):
     assert_same(jenv.eval_metrics(preds), penv.eval_metrics(preds), "metrics")
 
 
+def object_world(pkg, tmp_path, obj_feat_size=6, obj_prob_size=5):
+    """A package's synthetic world with the JAX loader's object fixtures
+    (``make_synthetic_object_world``): (graphs, candidates, annotations,
+    object records, goal table)."""
+    loader = importlib.import_module(f"{pkg}.data.loader")
+    graphs, cands, _ = synthetic_world(pkg, tmp_path, n_items=1)
+    annos, obj_data, obj2vps = loader.make_synthetic_object_world(
+        graphs, np.random.default_rng(6), n_items=12, obj_feat_size=obj_feat_size,
+        obj_prob_size=obj_prob_size)
+    return graphs, cands, annos, obj_data, obj2vps
+
+
+def check_obj_env(tmp_path):
+    envs = {}
+    for pkg in ("vln_bevbert_tpu", "vln_bevbert_tpu_torch"):
+        graphs, cands, annos, obj_data, obj2vps = object_world(pkg, tmp_path)
+        obj_env = importlib.import_module(f"{pkg}.nav.obj_env")
+        dicts = feature_dicts(graphs)
+        envs[pkg] = obj_env.ReverieObjectNavBatch(
+            annos, graphs, cands, batch_size=3, image_feat_size=TINY.image_feat_size, seed=5,
+            obj_db=obj_env.ObjectDB(obj_data), obj2vps=obj2vps, max_objects=1,
+            multi_endpoints=True, **dbs_of(pkg, dicts, ("view_db", "grid_db", "depth_db")))
+    jenv, penv = envs["vln_bevbert_tpu"], envs["vln_bevbert_tpu_torch"]
+    for _ in range(3):  # resampled goals, then a move per slot
+        assert_same(jenv.reset(), penv.reset(), "reset obs")
+        assert_same(jenv.batch, penv.batch, "episodes")
+        for env in (jenv, penv):
+            for slot, ob in enumerate(env.get_obs()):
+                if ob["candidate"]:
+                    env.teleport(slot, ob["candidate"][0]["viewpointId"], ob["heading"])
+        assert_same(jenv.get_obs(), penv.get_obs(), "obs after a move")
+    preds = []
+    for i, (instr_id, (_, path, obj_id)) in enumerate(jenv.gt_trajs.items()):
+        path = path if i % 2 else path[:1] + path[:-1]
+        preds.append({"instr_id": instr_id, "trajectory": [[vp] for vp in path],
+                      "pred_objid": obj_id if i % 3 else "none"})
+    assert_same(jenv.eval_metrics(preds), penv.eval_metrics(preds), "metrics")
+    assert 0 < jenv.eval_metrics(preds)[0]["rgs"] < 100
+    soon = {}
+    for pkg, env in envs.items():
+        soon[pkg] = importlib.import_module(f"{pkg}.nav.obj_env").SoonObjectNavBatch.__new__(
+            importlib.import_module(f"{pkg}.nav.obj_env").SoonObjectNavBatch)
+        soon[pkg].graphs = env.graphs
+    g = next(iter(jenv.graphs.values()))
+    a, b = g.node_ids[0], g.node_ids[3]
+    corners = {"left_top": (0.3, 0.3), "right_top": (0.7, 0.3), "right_bottom": (0.7, -0.1),
+               "left_bottom": (0.3, -0.1)}
+    gt = {"scan": next(iter(jenv.graphs)), "path": g.path(a, b), "bboxes": {b: {
+        "heading": 0.5, "elevation": 0.1,
+        "target": {k: {"heading": h, "elevation": e} for k, (h, e) in corners.items()}}}}
+    for pred_path in ([[a]] + [[vp] for vp in g.path(a, b)], [[a]]):
+        for h, e in ((0.5, 0.1), (2.0, 0.1)):
+            assert_same(soon["vln_bevbert_tpu"].eval_soon_item(pred_path, h, e, gt),
+                        soon["vln_bevbert_tpu_torch"].eval_soon_item(pred_path, h, e, gt),
+                        "soon scores")
+    quad = [(0, 0), (2, 0), (2, 2), (0, 2)]
+    jmod, pmod = pair("nav.obj_env")
+    for pt in ((1, 1), (3, 1), (0, 0)):
+        for q in (quad, quad[::-1]):
+            assert jmod.point_in_convex_quad(pt, q) == pmod.point_in_convex_quad(pt, q)
+
+
+def check_obj_pretrain_loader(tmp_path):
+    """Object pretraining batches (mlm, mrc, sap, og, masksem) of the two
+    loaders over ``TextPathData`` with an ``ObjectDB``."""
+    batches = {}
+    for pkg in ("vln_bevbert_tpu", "vln_bevbert_tpu_torch"):
+        cfg_mod = importlib.import_module(f"{pkg}.configs")
+        pathdata = importlib.import_module(f"{pkg}.data.pathdata")
+        loader = importlib.import_module(f"{pkg}.data.loader")
+        obj_env = importlib.import_module(f"{pkg}.nav.obj_env")
+        cfg = cfg_mod.load_config(cfg_mod.PretrainConfig, config_file(tmp_path, pretrain_config),
+                                  train_batch_size=2, num_workers=0)
+        cfg.model.obj_feat_size, cfg.model.obj_prob_size, cfg.shapes.max_objects = 6, 5, 3
+        cfg.tasks, cfg.mix_ratio = ("mlm", "mrc", "sap", "og", "masksem"), (1, 1, 1, 1, 1)
+        graphs, cands, annos, obj_data, _ = object_world(pkg, tmp_path, 6, 5)
+        dicts = feature_dicts(graphs, feat=cfg.model.image_feat_size,
+                              grid=cfg.model.bev_grid_feat_size, hw=cfg.shapes.grid_hw,
+                              views=cfg.shapes.num_views)
+        db = pathdata.TextPathData(
+            annos, graphs, cands,
+            **dbs_of(pkg, dicts, ("view_db", "grid_db", "depth_db", "sem_db")),
+            obj_db=obj_env.ObjectDB(obj_data), image_feat_size=cfg.model.image_feat_size,
+            obj_feat_size=6, obj_prob_size=5, max_objects=3,
+            max_txt_len=cfg.shapes.max_txt_len, bev_dim=cfg.model.bev_dim,
+            bev_res=cfg.model.bev_res, num_views=cfg.shapes.num_views, dataset="reverie")
+        pl = loader.PretrainLoader(db, cfg, seed=11)
+        batches[pkg] = [pl.build_batch(step, task=t) for step, t in enumerate(cfg.tasks)]
+    for _, batch in batches["vln_bevbert_tpu"]:
+        assert batch["traj_obj_fts"].shape[2:] == (3, 6)
+    assert batches["vln_bevbert_tpu"][1][1]["obj_mrc_masks"].any()
+    assert_same(batches["vln_bevbert_tpu"], batches["vln_bevbert_tpu_torch"], "batches")
+
+
 def check_pretrain_loader(tmp_path):
     batches = {}
     for pkg in ("vln_bevbert_tpu", "vln_bevbert_tpu_torch"):
@@ -226,7 +321,8 @@ def check_dtw_and_floyd(tmp_path):
 
 CHECKS = {"configs": check_configs, "synthetic_world": check_synthetic_world,
           "nav_env": check_nav_env, "pretrain_loader": check_pretrain_loader,
-          "dtw_and_floyd": check_dtw_and_floyd}
+          "dtw_and_floyd": check_dtw_and_floyd, "obj_env": check_obj_env,
+          "obj_pretrain_loader": check_obj_pretrain_loader}
 
 
 @pytest.mark.parametrize("name", list(CHECKS))
@@ -244,9 +340,10 @@ def test_copied_module_keeps_the_originals_public_names(name):
 
 
 def test_port_loads_nothing_of_the_jax_package(tmp_path):
-    """Every module of the port and chip_smoke import, then the three CPU CLI
-    paths run (eval, pretraining, fine-tuning) at a tiny configuration, in
-    one process that loads no JAX module and no module of the JAX package."""
+    """Every module of the port and chip_smoke import, then the CPU CLI paths
+    run (eval, pretraining, fine-tuning, and REVERIE fine-tuning with its
+    object slots) at a tiny configuration, in one process that loads no JAX
+    module and no module of the JAX package."""
     from test_torch_finetune_cli import finetune_config
 
     code = (
@@ -264,9 +361,18 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
         "                     '--batch_size', '2', '--config', pt, '--output_dir', out + '/pt'])\n"
         "tr = finetune.main(['--synthetic', '--device', 'cpu', '--iters', '1', '--config', ft,\n"
         "                    '--output_dir', out + '/ft'])\n"
+        "rv_cfg = json.load(open(ft))\n"
+        "rv_cfg['shapes']['max_objects'] = 3\n"
+        "json.dump(rv_cfg, open(out + '/rv.json', 'w'))\n"
+        "rv = finetune.main(['--synthetic', '--dataset', 'reverie', '--device', 'cpu',\n"
+        "                    '--iters', '1', '--config', out + '/rv.json',\n"
+        "                    '--output_dir', out + '/rv'])\n"
+        "dump = json.load(open(out + '/rv/preds_val_unseen_1.json'))\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps({'bad': bad, 'names': names, 'sr': [ev['val_unseen']['sr'],\n"
-        "                  tr['val_unseen']['sr']], 'loss': list(pre)}))\n"
+        "                  tr['val_unseen']['sr'], rv['val_unseen']['sr'],\n"
+        "                  rv['val_unseen']['rgs'], rv['val_unseen']['rgspl']],\n"
+        "                  'loss': list(pre), 'pred_obj': all('predObjId' in p for p in dump)}))\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code, str(tmp_path), config_file(tmp_path, _tiny_config),
@@ -278,5 +384,6 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     assert {"vln_bevbert_tpu_torch._build", "vln_bevbert_tpu_torch.data.feature_db",
-            "vln_bevbert_tpu_torch.native", "vln_bevbert_tpu_torch.nav.env"} <= set(out["names"])
-    assert all(0.0 <= sr <= 100.0 for sr in out["sr"]) and out["loss"]
+            "vln_bevbert_tpu_torch.native", "vln_bevbert_tpu_torch.nav.env",
+            "vln_bevbert_tpu_torch.nav.obj_env"} <= set(out["names"])
+    assert all(0.0 <= sr <= 100.0 for sr in out["sr"]) and out["loss"] and out["pred_obj"]

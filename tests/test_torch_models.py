@@ -199,7 +199,9 @@ def test_local_bev_encoder_matches_flax(rng):
     nav = rng.uniform(size=(B, C)) < 0.2
     args = (txt, txt_masks, bev, pos, bmask, nav)
     params, (ref, _) = jax_init_apply(jenc.LocalBEVEncoder(TINY), *args)
-    close(port(tenc.LocalBEVEncoder(TINY), params)(*map(tt, args)), ref)
+    bev_out, obj_out = port(tenc.LocalBEVEncoder(TINY), params)(*map(tt, args))
+    close(bev_out, ref)
+    assert obj_out is None
 
 
 # -------------------------------------------------------- glocal / nav
@@ -210,9 +212,10 @@ def test_glocal_backbone_matches_flax():
     params = module.init(jax.random.key(0), batch)["params"]
     gmap_ref, bev_ref, _, _ = module.apply({"params": params}, batch)
     ours = port(GlocalTextPathCMT(TINY), jax.tree.map(np.asarray, params))
-    gmap, bev = ours({k: tt(v) for k, v in batch.items()})
+    gmap, bev, obj, obj_masks = ours({k: tt(v) for k, v in batch.items()})
     close(gmap, gmap_ref)
     close(bev, bev_ref)
+    assert obj is None and obj_masks is None
 
 
 def _merge(a, b):

@@ -209,9 +209,13 @@ def test_cli_cuda_device_raises_without_cuda(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["--synthetic", "--test", "--device", "cuda",
                   "--output_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="object-grounding"):
-        cli.main(["--synthetic", "--dataset", "soon", "--device", "cpu",
-                  "--output_dir", str(tmp_path)])
+    # the object-grounding datasets build their object envs and object slots
+    cfg, train_envs, val_envs, agent = cli.build(cli.parse_args([
+        "--synthetic", "--dataset", "soon", "--device", "cpu",
+        "--config", _tiny_config(tmp_path), "--output_dir", str(tmp_path)]))
+    assert [type(e).__name__ for e in train_envs] == ["SoonObjectNavBatch"]
+    assert type(val_envs["val_unseen"]).__name__ == "SoonObjectNavBatch"
+    assert cfg.model.obj_feat_size == 768 and agent.model.og_head is not None
 
 
 def test_synthetic_world_matches_jax_cli_draws(tmp_path):

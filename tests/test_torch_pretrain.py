@@ -13,6 +13,8 @@ rounding noise of the model's scale (measured: <= 1e-6 relative, and
 absolute errors <= 3e-8 where a gradient of 1.5e-8 sits beside 3e4).
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -86,8 +88,14 @@ def test_pretraining_tree_converts_both_ways_strictly(models):
         load_flax_params(GlocalTextPathNavCMT(TINY).bert, params["bert"])
     no_mlm = GlocalTextPathCMTPreTraining(TINY, ("sap", "masksem"))
     assert not any("lang_self_attn" in n for n, _ in no_mlm.named_parameters())
-    with pytest.raises(NotImplementedError, match="object tokens"):
+    # the object tasks build their heads once the config has object slots
+    with pytest.raises(ValueError, match="object tokens"):
         GlocalTextPathCMTPreTraining(TINY, ("mlm", "og"))
+    obj_cfg = dataclasses.replace(TINY, obj_feat_size=30, obj_prob_size=9)
+    names = {n for n, _ in GlocalTextPathCMTPreTraining(obj_cfg, ("mlm", "og", "mrc"))
+             .named_parameters()}
+    assert {"og_head.fc2.weight", "obj_classifier.fc2.weight",
+            "bert.img_embeddings.obj_linear.weight"} <= names
 
 
 def _close(ours, ref, **tol):

@@ -7,6 +7,7 @@
     python -m vln_bevbert_tpu_torch.cli.finetune --synthetic --pretrain_ckpt runs/pretrain/ckpt_24
     python -m vln_bevbert_tpu_torch.cli.finetune --synthetic --test --pretrain_ckpt runs/finetune/ckpt_best
     python -m vln_bevbert_tpu_torch.cli.finetune --data_root datasets/R2R --test
+    python -m vln_bevbert_tpu_torch.cli.finetune --synthetic --dataset reverie
 
 Arguments are the JAX CLI's plus ``--device`` (default ``cuda``; there is no
 CPU fallback: a CUDA device that is missing raises). ``--synthetic`` builds
@@ -15,8 +16,11 @@ HDF5; ``--data_root`` reads HDF5 stores through ``H5FeatureDB``, whose
 float16 rows numpy casts. Parameters are random, from a seeded generator, or
 transferred from ``--pretrain_ckpt``: a torch checkpoint of the port's
 pretraining (``ckpt_<step>``) or fine-tuning (``ckpt_best``,
-``ckpt_latest``). Object-grounding datasets (reverie, soon) are not ported
-yet.
+``ckpt_latest``). The object-grounding datasets (reverie, soon) add object
+slots to the model (``obj_feat_size`` 768 unless the config sets it) and
+object stores to the envs: synthetic ones in memory, or ``BBoxes.json`` and
+``obj2vps.json`` under ``--data_root``; their evaluations add RGS and RGSPL
+and their prediction dumps ``predObjId``.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ..data.nav_graph import (
 )
 from ..nav.agent import GMapNavAgent
 from ..nav.env import R2RNavBatch
+from ..nav.obj_env import ObjectDB, ReverieObjectNavBatch, SoonObjectNavBatch
 from ..parallel.train_step import load_checkpoint
 from ..utils.logging import MetricLogger
 
@@ -138,6 +143,10 @@ def build_synthetic_envs(cfg: FinetuneConfig, args) -> Envs:
     train_annos = make_synthetic_annotations(graphs, rng, n_items=64)
     splits = args.val_splits.split(",") if args.val_splits else ["val_unseen"]
     val_annos = {s: make_synthetic_annotations(graphs, rng, n_items=16) for s in splits}
+    if args.dataset in ("reverie", "soon"):
+        train_env, val_envs = _make_obj_envs(cfg, args, graphs, cands, dbs, train_annos,
+                                             val_annos)
+        return train_env, val_envs, None  # object datasets train on gt episodes only
 
     def make(annos, name, seed):
         return R2RNavBatch(annos, graphs, cands, batch_size=cfg.batch_size,
@@ -208,6 +217,10 @@ def build_envs(cfg: FinetuneConfig, args) -> Envs:
                             dtype=np.float16),
         depth_db=H5FeatureDB(os.path.join(args.data_root, "depth.hdf5")),
     )
+    if args.dataset in ("reverie", "soon"):
+        train_env, val_envs = _make_obj_envs(cfg, args, graphs, cands, dbs, train_annos,
+                                             val_annos)
+        return train_env, val_envs, None
 
     def make(annos, name, seed):
         return R2RNavBatch(annos, graphs, cands, batch_size=cfg.batch_size,
@@ -218,6 +231,55 @@ def build_envs(cfg: FinetuneConfig, args) -> Envs:
     val_envs = {name: make(annos, name, args.seed + 1 + i)
                 for i, (name, annos) in enumerate(val_annos.items())}
     return make(train_annos, "train", args.seed), val_envs, aug_env
+
+
+def _make_obj_envs(cfg: FinetuneConfig, args, graphs, cands, dbs, train_annos, val_annos):
+    """REVERIE/SOON envs: (train env, eval envs by split). Synthetic runs
+    draw two objects per viewpoint from ``seed + 17`` and make each item's
+    goal the first object of its last viewpoint (``objId``, ``end_vps``, in
+    place); ``--data_root`` reads ``BBoxes.json`` and ``obj2vps.json``. The
+    train env resamples episode goals among the target's viewpoints."""
+    m = cfg.model
+    if args.synthetic or not args.data_root:
+        rng = np.random.default_rng(args.seed + 17)
+        obj_data, obj2vps = {}, {}
+        oid = 0
+        for scan, g in graphs.items():
+            for vp in g.node_ids:
+                ids = [str(oid), str(oid + 1)]
+                oid += 2
+                obj_data[f"{scan}_{vp}"] = {
+                    "fts": rng.normal(size=(2, m.obj_feat_size + m.obj_prob_size)
+                                      ).astype(np.float32),
+                    "directions": rng.uniform(-1, 1, (2, 2)).astype(np.float32),
+                    "sizes": rng.uniform(20, 100, (2, 2)).astype(np.float32),
+                    "obj_ids": ids,
+                }
+                for i in ids:
+                    obj2vps[f"{scan}_{i}"] = [vp]
+        for annos in (train_annos, *val_annos.values()):
+            for a in annos:
+                scan, goal = a["scan"], a["path"][-1]
+                a["objId"] = obj_data[f"{scan}_{goal}"]["obj_ids"][0]
+                a["end_vps"] = [goal]
+    else:
+        with open(os.path.join(args.data_root, "BBoxes.json")) as f:
+            raw = json.load(f)
+        obj_data = raw["objects"] if "objects" in raw else raw
+        with open(os.path.join(args.data_root, "obj2vps.json")) as f:
+            obj2vps = json.load(f)
+    env_cls = SoonObjectNavBatch if args.dataset == "soon" else ReverieObjectNavBatch
+
+    def make(annos, name, seed):
+        return env_cls(annos, graphs, cands, batch_size=cfg.batch_size,
+                       image_feat_size=m.image_feat_size, seed=seed, name=name,
+                       obj_db=ObjectDB(obj_data), obj2vps=obj2vps,
+                       max_objects=cfg.shapes.max_objects,
+                       multi_endpoints=(name == "train"), **dbs)
+
+    val_envs = {name: make(annos, name, args.seed + 1 + i)
+                for i, (name, annos) in enumerate(val_annos.items())}
+    return make(train_annos, "train", args.seed), val_envs
 
 
 def resolve_device(name: str) -> torch.device:
@@ -247,6 +309,9 @@ def make_config(args) -> FinetuneConfig:
         cfg.expert_policy = args.expert_policy
     if args.act_visited_nodes:
         cfg.act_visited_nodes = True
+    if args.dataset in ("reverie", "soon"):
+        # object tokens and the OG head (the reference's obj_ft_dim 768)
+        cfg.model.obj_feat_size = cfg.model.obj_feat_size or 768
     return cfg
 
 
@@ -258,8 +323,6 @@ def build(args):
     parameters are random from the seed or, with ``--pretrain_ckpt``,
     transferred from that checkpoint (``agent.transferred`` counts the
     entries taken)."""
-    if args.dataset in ("reverie", "soon"):
-        raise NotImplementedError("object-grounding datasets are not ported yet")
     device = resolve_device(args.device)
     # bf16 GEMMs accumulate in float32 end to end, as the JAX einsums do
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -278,13 +341,18 @@ def build(args):
 
 
 def write_predictions(path: str, preds: List[dict]) -> None:
-    """R2R leaderboard format: (viewpoint, heading, elevation) triples."""
-    with open(path, "w") as f:
-        json.dump([
-            {"instr_id": p["instr_id"],
+    """R2R leaderboard format: (viewpoint, heading, elevation) triples;
+    REVERIE/SOON add the grounded object as ``predObjId``."""
+
+    def entry(p):
+        e = {"instr_id": p["instr_id"],
              "trajectory": [[vp, 0.0, 0.0] for vp in sum(p["trajectory"], [])]}
-            for p in preds
-        ], f)
+        if p.get("pred_objid") is not None:
+            e["predObjId"] = p["pred_objid"]
+        return e
+
+    with open(path, "w") as f:
+        json.dump([entry(p) for p in preds], f)
 
 
 def main(argv=None):

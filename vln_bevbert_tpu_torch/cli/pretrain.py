@@ -11,8 +11,13 @@ CLI's synthetic world (4 scans x 20 nodes, 256 items) in memory, with
 ``DictFeatureDB`` stores and no HDF5.
 Parameters are random, from ``--seed``, or restored with ``--resume <ckpt>``
 (training then runs on to ``--num_steps``). The run ends by saving
-``<output_dir>/ckpt_<step>``. Real data (``--data_root``), object datasets
-and ``--init_bert`` are not ported yet.
+``<output_dir>/ckpt_<step>``. ``--dataset reverie|soon`` gives the model
+object slots (``obj_feat_size`` 768, ``obj_prob_size`` 1000 unless the config
+sets them), as the JAX CLI does; its synthetic world has no object store, as
+the JAX CLI's has none, so object pretraining (mrc, og) runs through the
+library: ``PretrainTrainer`` over a ``TextPathData`` with
+``obj_db=ObjectDB(...)`` (``data.loader.make_synthetic_object_world``). Real
+data (``--data_root``) and ``--init_bert`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -102,8 +107,8 @@ def build(args) -> PretrainTrainer:
     random parameters or those of ``--resume``."""
     if args.data_root and not args.synthetic:
         raise NotImplementedError("--data_root is not ported yet: pass --synthetic")
-    if args.dataset not in ("r2r", "r4r") or args.init_bert:
-        raise NotImplementedError("object datasets and --init_bert are not ported yet")
+    if args.init_bert:
+        raise NotImplementedError("--init_bert is not ported yet")
     device = resolve_device(args.device)
     # bf16 GEMMs accumulate in float32 end to end, as the JAX einsums do
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -118,6 +123,9 @@ def build(args) -> PretrainTrainer:
     cfg = load_config(PretrainConfig, args.config, **overrides)
     if args.tasks:
         cfg.tasks, cfg.mix_ratio = parse_task_ratio(args.tasks)
+    if args.dataset in ("reverie", "soon") and cfg.model.obj_feat_size == 0:
+        cfg.model.obj_feat_size = 768
+        cfg.model.obj_prob_size = 1000
     loader = PretrainLoader(build_synthetic_db(cfg, args.seed), cfg, seed=cfg.seed,
                             num_workers=cfg.num_workers)
     trainer = PretrainTrainer(cfg, loader, device)

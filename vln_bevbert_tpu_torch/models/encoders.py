@@ -1,9 +1,10 @@
 """Modality encoders (port of ``vln_bevbert_tpu/models/encoders.py``):
 language, panorama, global topological map, local BEV map.
 
-Panorama tokens live in fixed view slots with a validity mask; global-map
-node features arrive pre-aggregated. The object slots of REVERIE/SOON and the
-CE depth embedding are not ported yet: a config that asks for them raises.
+Panorama tokens live in fixed slots with a validity mask, views [0:V) then
+the objects of REVERIE/SOON [V:V+O); global-map node features arrive
+pre-aggregated. The CE depth embedding is not ported yet: a config that asks
+for it raises.
 """
 
 from __future__ import annotations
@@ -46,23 +47,30 @@ class LanguageEncoder(nn.Module):
 
 
 class ImageEmbeddings(nn.Module):
-    """Panorama token embedding + pre-norm encoder over view slots [0:V).
+    """Panorama token embedding + pre-norm encoder over the slots
+    ``[view_0..view_{V-1} | obj_0..obj_{O-1}]``.
 
-    ``token_type_vis`` is the visual token-type vector (hidden,) from the
-    shared BertEmbeddings table (type id 1)."""
+    Object features take their own ``obj_linear``/``obj_ln`` only when their
+    width differs from the views'; otherwise they share ``img_linear``/
+    ``img_ln``, as the JAX module does. ``token_type_vis`` is the visual
+    token-type vector (hidden,) from the shared BertEmbeddings table (type
+    id 1)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.obj_feat_size > 0 or cfg.use_depth_embedding:
-            raise NotImplementedError(
-                "object tokens and the CE depth embedding are not ported yet"
-            )
+        if cfg.use_depth_embedding:
+            raise NotImplementedError("the CE depth embedding is not ported yet")
         self.dtype = _dt(cfg)
         hid = cfg.hidden_size
         self.img_linear = Dense(cfg, cfg.image_feat_size, hid, device)
         self.img_ln = LayerNorm(cfg, device=device)
         self.loc_linear = Dense(cfg, cfg.angle_feat_size + 3, hid, device)
         self.loc_ln = LayerNorm(cfg, device=device)
+        if cfg.obj_feat_size > 0 and cfg.obj_feat_size != cfg.image_feat_size:
+            self.obj_linear = Dense(cfg, cfg.obj_feat_size, hid, device)
+            self.obj_ln = LayerNorm(cfg, device=device)
+        else:
+            self.obj_linear = self.obj_ln = None
         # 0: non-navigable view, 1: navigable view, 2: object
         self.nav_type_embedding = Embed(cfg, 3, device)
         self.ln = LayerNorm(cfg, device=device)
@@ -71,20 +79,32 @@ class ImageEmbeddings(nn.Module):
                                        lambda: PanoEncoderLayer(cfg, device))
         self.pano_ln = LayerNorm(cfg, device=device)
 
-    def forward(self, view_fts, loc_fts, nav_types, view_lens, token_type_vis=None):
-        """view_fts (R, V, Dimg); loc_fts (R, V, A+3); nav_types (R, V) int;
-        view_lens (R,). Returns (tokens (R, V, D), masks (R, V) bool)."""
+    def forward(self, view_fts, loc_fts, nav_types, view_lens, token_type_vis=None,
+                obj_fts=None, obj_lens=None):
+        """view_fts (R, V, Dimg); loc_fts (R, P, A+3) and nav_types (R, P)
+        int over P = V + O slots; view_lens (R,); obj_fts (R, O, Dobj) and
+        obj_lens (R,) or None. Returns (tokens (R, P, D), masks (R, P) bool)."""
         dt = self.dtype
+        img = self.img_ln(self.img_linear(view_fts)).to(dt)
+        if obj_fts is not None:
+            if self.obj_linear is None:
+                obj = self.img_ln(self.img_linear(obj_fts)).to(dt)
+            else:
+                obj = self.obj_ln(self.obj_linear(obj_fts)).to(dt)
+            img = torch.cat([img, obj], dim=1)
         x = (
-            self.img_ln(self.img_linear(view_fts)).to(dt)
+            img
             + self.loc_ln(self.loc_linear(loc_fts)).to(dt)
             + self.nav_type_embedding(nav_types)
         )
         if token_type_vis is not None:
             x = x + token_type_vis.to(dt)[None, None, :]
         x = self.dropout(self.ln(x).to(dt))
+        num_view = view_fts.shape[1]
         slot = torch.arange(x.shape[1], device=x.device)[None, :]
         masks = slot < view_lens[:, None]
+        if obj_fts is not None:
+            masks = masks | ((slot >= num_view) & (slot - num_view < obj_lens[:, None]))
         bias = attn_bias(masks)
         for layer in self.pano_layers:
             x = layer(x, bias)
@@ -135,13 +155,14 @@ class GlobalMapEncoder(nn.Module):
 
 
 class LocalBEVEncoder(nn.Module):
-    """Metric-map encoder over bev_dim^2 cell tokens, cross-modal layers.
-    Returns the cell tokens (B, cells, D). ``lang2visn`` as in
-    ``GlobalMapEncoder``."""
+    """Metric-map encoder over bev_dim^2 cell tokens, with the object tokens
+    (if any) appended as extra keys and queries, cross-modal layers.
+    ``lang2visn`` as in ``GlobalMapEncoder``."""
 
     def __init__(self, cfg: ModelConfig, device=None, lang2visn: bool = False):
         super().__init__()
         self.dtype = _dt(cfg)
+        self.num_cells = cfg.num_bev_tokens
         hid = cfg.hidden_size
         self.fts_linear = Dense(cfg, cfg.bev_grid_feat_size, hid, device)
         self.fts_ln = LayerNorm(cfg, device=device)
@@ -160,11 +181,22 @@ class LocalBEVEncoder(nn.Module):
             + self.nav_type_embedding(bev_nav_masks.long())
         )
 
+    def with_objects(self, x, bev_masks, obj_embeds=None, obj_masks=None):
+        """The cell tokens and their key masks, with the object tokens and
+        masks appended when there are any."""
+        if obj_embeds is None:
+            return x, bev_masks
+        return (torch.cat([x, obj_embeds.to(self.dtype)], dim=1),
+                torch.cat([bev_masks, obj_masks], dim=1))
+
     def forward(self, txt_embeds, txt_masks, bev_fts, bev_pos_fts, bev_masks,
-                bev_nav_masks):
+                bev_nav_masks, obj_embeds=None, obj_masks=None):
+        """Returns (cell tokens (B, cells, D), object tokens (B, O, D) or None)."""
         x = self.input_embedding(bev_fts, bev_pos_fts, bev_nav_masks)
+        x, masks = self.with_objects(x, bev_masks, obj_embeds, obj_masks)
         lang_bias = attn_bias(txt_masks)
-        visn_bias = attn_bias(bev_masks)
+        visn_bias = attn_bias(masks)
         for layer in self.x_layers:
             x = layer(x, txt_embeds, lang_bias, visn_bias)
-        return x
+        obj_out = x[:, self.num_cells:] if obj_embeds is not None else None
+        return x[:, :self.num_cells], obj_out

@@ -2,8 +2,11 @@
 pretraining heads (port of ``vln_bevbert_tpu/models/glocal.py``).
 
 Batch keys are the JAX package's static-shape contract (see its module
-docstring), as torch tensors. Object tokens (REVERIE/SOON) and the tasks that
-need them (``mrc``, ``og``) are not ported yet.
+docstring), as torch tensors. A batch with ``traj_obj_fts``/``traj_obj_lens``
+(REVERIE/SOON) appends object slots to every step's panorama, P = V + O: they
+join the panorama encoder, the global-map node means (through ``gmap_agg``)
+and, at the last step, the local branch's keys; ``mrc`` and ``og`` supervise
+them.
 """
 
 from __future__ import annotations
@@ -50,34 +53,53 @@ class GlocalTextPathCMT(nn.Module):
         return self.lang_encoder(self.embeddings(txt_ids), txt_masks)
 
     def encode_pano(self, batch: Batch):
-        """Returns (pano_embeds (B, T, V, D), pano_masks (B, T, V))."""
+        """Returns (pano_embeds (B, T, P, D), pano_masks (B, T, P))."""
         vf = batch["traj_view_fts"]
         b, t = vf.shape[:2]
         flat = lambda x: x.reshape(b * t, *x.shape[2:])
+        obj_fts = batch.get("traj_obj_fts")
         x, masks = self.img_embeddings(
             flat(vf), flat(batch["traj_loc_fts"]), flat(batch["traj_nav_types"]),
-            flat(batch["traj_view_lens"]), token_type_vis=self.token_type_vis(),
+            flat(batch["traj_view_lens"]),
+            obj_fts=None if obj_fts is None else flat(obj_fts),
+            obj_lens=None if obj_fts is None else flat(batch["traj_obj_lens"]),
+            token_type_vis=self.token_type_vis(),
         )
-        v = x.shape[1]
-        return x.reshape(b, t, v, -1), masks.reshape(b, t, v)
+        p = x.shape[1]
+        return x.reshape(b, t, p, -1), masks.reshape(b, t, p)
+
+    def extract_obj_embeds(self, pano_embeds, batch: Batch):
+        """The last step's object slots [V:V+O) and their masks, or
+        (None, None) for a batch without objects."""
+        if batch.get("traj_obj_fts") is None:
+            return None, None
+        b = pano_embeds.shape[0]
+        rows = torch.arange(b, device=pano_embeds.device)
+        last = batch["traj_last_step"].long()
+        obj_embeds = pano_embeds[rows, last, batch["traj_view_fts"].shape[2]:]
+        obj_lens = batch["traj_obj_lens"][rows, last]
+        slot = torch.arange(obj_embeds.shape[1], device=obj_embeds.device)[None, :]
+        return obj_embeds, slot < obj_lens[:, None]
 
     def aggregate_gmap(self, pano_embeds, pano_masks, gmap_agg):
         """Node features = host-weighted sums of trajectory tokens.
-        pano_embeds (B, T, V, D); gmap_agg (B, N, T*V)."""
+        pano_embeds (B, T, P, D); gmap_agg (B, N, T*P)."""
         dt = _dt(self.cfg)
         b, t, v, d = pano_embeds.shape
         tokens = (pano_embeds * pano_masks[..., None]).reshape(b, t * v, d)
         out = torch.matmul(gmap_agg.to(dt).float(), tokens.float())
         return out.to(dt)
 
-    def encode_bev(self, txt_embeds, batch: Batch):
+    def encode_bev(self, txt_embeds, batch: Batch, obj_embeds=None, obj_masks=None):
+        """Returns (bev_embeds (B, cells, D), obj_embeds (B, O, D) or None)."""
         return self.local_encoder(
             txt_embeds, batch["txt_masks"], batch["bev_fts"], batch["bev_pos_fts"],
-            batch["bev_masks"], batch["bev_nav_masks"],
+            batch["bev_masks"], batch["bev_nav_masks"], obj_embeds, obj_masks,
         )
 
     def forward(self, batch: Batch, return_gmap_embeds: bool = True):
-        """Returns (gmap_embeds or None, bev_embeds or None)."""
+        """Returns (gmap_embeds or None, bev_embeds or None, obj_embeds or
+        None, obj_masks or None)."""
         txt_embeds = self.encode_text(batch["txt_ids"], batch["txt_masks"])
         pano_embeds, pano_masks = self.encode_pano(batch)
         gmap_embeds = None
@@ -88,10 +110,11 @@ class GlocalTextPathCMT(nn.Module):
                 batch["gmap_step_ids"], batch["gmap_pos_fts"],
                 batch["gmap_masks"], batch["gmap_pair_dists"],
             )
+        obj_embeds, obj_masks = self.extract_obj_embeds(pano_embeds, batch)
         bev_embeds = None
         if self.local_encoder is not None:
-            bev_embeds = self.encode_bev(txt_embeds, batch)
-        return gmap_embeds, bev_embeds
+            bev_embeds, obj_embeds = self.encode_bev(txt_embeds, batch, obj_embeds, obj_masks)
+        return gmap_embeds, bev_embeds, obj_embeds, obj_masks
 
     def forward_mlm(self, batch: Batch) -> torch.Tensor:
         """The language stream attends to each map branch through the
@@ -109,10 +132,12 @@ class GlocalTextPathCMT(nn.Module):
         for layer in self.global_encoder.x_layers:
             gmap_txt = layer.lang2visn(gmap_txt, gmap_inputs, gmap_bias, lang_bias)
 
-        bev_inputs = self.local_encoder.input_embedding(
-            batch["bev_fts"], batch["bev_pos_fts"], batch["bev_nav_masks"]
+        bev_inputs, bev_key_masks = self.local_encoder.with_objects(
+            self.local_encoder.input_embedding(
+                batch["bev_fts"], batch["bev_pos_fts"], batch["bev_nav_masks"]),
+            batch["bev_masks"], *self.extract_obj_embeds(pano_embeds, batch),
         )
-        bev_bias = attn_bias(batch["bev_masks"])
+        bev_bias = attn_bias(bev_key_masks)
         bev_txt = txt_embeds
         for layer in self.local_encoder.x_layers:
             bev_txt = layer.lang2visn(bev_txt, bev_inputs, bev_bias, lang_bias)
@@ -123,10 +148,14 @@ class GlocalTextPathCMT(nn.Module):
         'cattn' the full cross-modal local branch, 'sattn' self-attention
         only, 'embed' the input embeddings only."""
         if sem_pred_token == "cattn":
-            # the JAX forward also encodes the panoramas, for object tokens
-            # only; without them XLA drops that work, and so does the port
+            # the JAX forward also encodes the panoramas, which reach the
+            # cells only through the object tokens: without objects XLA drops
+            # that work, and so does the port
             txt_embeds = self.encode_text(batch["txt_ids"], batch["txt_masks"])
-            return self.encode_bev(txt_embeds, batch)
+            obj = (None, None)
+            if batch.get("traj_obj_fts") is not None:
+                obj = self.extract_obj_embeds(self.encode_pano(batch)[0], batch)
+            return self.encode_bev(txt_embeds, batch, *obj)[0]
         if sem_pred_token not in ("sattn", "embed"):
             raise ValueError(f"unknown sem_pred_token: {sem_pred_token}")
         x = self.local_encoder.input_embedding(
@@ -191,14 +220,15 @@ def _accuracy(logits, labels, valid, n) -> torch.Tensor:
 class GlocalTextPathCMTPreTraining(nn.Module):
     """Backbone + proxy-task heads + per-task losses. ``forward(batch, task)``
     returns (scalar loss, metrics dict of device tensors). Tasks: ``mlm``,
-    ``sap``, ``sem``, ``masksem``."""
+    ``mrc``, ``sap``, ``og``, ``sem``, ``masksem``; ``mrc`` and ``og`` need
+    batches with object slots."""
 
     def __init__(self, cfg: ModelConfig, tasks: Tuple[str, ...] = ("mlm", "sap", "masksem"),
                  sem_pred_token: str = "cattn", device=None):
         super().__init__()
         bases = {t.split("_")[0] for t in tasks}
-        if bases & {"mrc", "og"}:
-            raise NotImplementedError("mrc and og need object tokens, not ported yet")
+        if bases & {"mrc", "og"} and cfg.obj_feat_size <= 0:
+            raise ValueError("mrc and og need object tokens (obj_feat_size > 0)")
         if not cfg.use_bev:
             raise ValueError("pretraining needs the local BEV branch (use_bev=True)")
         if "mlm" in bases and not cfg.use_lang2visn_attn:
@@ -211,25 +241,31 @@ class GlocalTextPathCMTPreTraining(nn.Module):
         self.feat_dropout = Dropout(cfg.feat_dropout, site="feat")
         if "mlm" in bases:
             self.mlm_head = MlmHead(cfg, device)
+        if "mrc" in bases:
+            self.obj_classifier = TwoLayerHead(cfg, cfg.obj_prob_size, device=device)
         if "sap" in bases:
             self.global_sap_head = TwoLayerHead(cfg, 1, device=device)
             self.local_sap_head = TwoLayerHead(cfg, 1, device=device)
             self.sap_fuse_linear = (TwoLayerHead(cfg, 1, in_features=2 * hid, device=device)
                                     if cfg.glocal_fuse else None)
+        if "og" in bases:
+            self.og_head = TwoLayerHead(cfg, 1, device=device)
         if bases & {"sem", "masksem"}:
             self.local_sem_head = TwoLayerHead(cfg, cfg.num_sem_classes, device=device)
 
     def drop_feats(self, batch: Batch) -> Batch:
-        """Env-feature dropout on the view and BEV features."""
+        """Env-feature dropout on the view, object and BEV features."""
         out = dict(batch)
-        for key in ("traj_view_fts", "bev_fts"):
-            out[key] = self.feat_dropout(out[key])
+        for key in ("traj_view_fts", "traj_obj_fts", "bev_fts"):
+            if out.get(key) is not None:
+                out[key] = self.feat_dropout(out[key])
         return out
 
     def forward(self, batch: Batch, task: str):
         batch = self.drop_feats(batch)
-        fn = {"mlm": self.forward_mlm, "sap": self.forward_sap,
-              "sem": self.forward_sem, "masksem": self.forward_masksem}[task.split("_")[0]]
+        fn = {"mlm": self.forward_mlm, "mrc": self.forward_mrc, "sap": self.forward_sap,
+              "og": self.forward_og, "sem": self.forward_sem,
+              "masksem": self.forward_masksem}[task.split("_")[0]]
         return fn(batch)
 
     def forward_mlm(self, batch: Batch):
@@ -245,7 +281,7 @@ class GlocalTextPathCMTPreTraining(nn.Module):
         return loss.sum() / n, {"mlm_acc": acc, "mlm_n": n}
 
     def forward_sap(self, batch: Batch):
-        gmap_embeds, bev_embeds = self.bert(batch)
+        gmap_embeds, bev_embeds, _, _ = self.bert(batch)
         global_logits, local_logits, fused_logits, _ = sap_logits(
             self.global_sap_head, self.local_sap_head, self.sap_fuse_linear,
             self.cfg.bev_center, gmap_embeds, bev_embeds, batch,
@@ -262,6 +298,26 @@ class GlocalTextPathCMTPreTraining(nn.Module):
             "sap_facc": _accuracy(fused_logits, glabels, g_valid, n),
             "sap_n": n,
         }
+
+    def forward_og(self, batch: Batch):
+        """Object grounding: cross-entropy over the last step's object slots."""
+        _, _, obj_embeds, obj_masks = self.bert(batch, return_gmap_embeds=False)
+        logits = masked_fill_neg(self.og_head(obj_embeds)[..., 0], ~obj_masks)
+        labels = batch["obj_labels"].long()
+        loss, valid = cross_entropy(logits, labels)
+        n = _count(valid)
+        return loss.sum() / n, {"og_acc": _accuracy(logits, labels, valid, n), "og_n": n}
+
+    def forward_mrc(self, batch: Batch):
+        """Masked region classification: KL(obj_probs || prediction) summed
+        over classes, averaged over the masked valid object slots."""
+        _, _, obj_embeds, obj_masks = self.bert(batch, return_gmap_embeds=False)
+        logp = torch.log_softmax(self.obj_classifier(obj_embeds), dim=-1)
+        targets = batch["obj_probs"].float()
+        kl = (targets * (torch.log(targets.clamp_min(1e-12)) - logp)).sum(-1)
+        sel = batch["obj_mrc_masks"] & obj_masks
+        n = _count(sel)
+        return torch.where(sel, kl, torch.zeros_like(kl)).sum() / n, {"mrc_n": n}
 
     def _sem_loss(self, bev_embeds: torch.Tensor, batch: Batch, sel: torch.Tensor):
         """Masked multi-label BCE with logits over the selected cells."""

@@ -31,23 +31,28 @@ class GlocalTextPathNavCMT(nn.Module):
             TwoLayerHead(cfg, 1, in_features=2 * hid, device=device)
             if cfg.glocal_fuse and cfg.use_bev else None
         )
+        # REVERIE/SOON: object grounding over the local branch's object tokens
+        self.og_head = (TwoLayerHead(cfg, 1, device=device)
+                        if cfg.obj_feat_size > 0 and cfg.use_bev else None)
 
     # ---------------------------------------------------------------- modes
     def forward_text(self, txt_ids, txt_masks):
         return self.bert.encode_text(txt_ids, txt_masks)
 
-    def forward_panorama_per_step(self, view_fts, loc_fts, nav_types, view_lens):
-        """Single-step pano encoding -> (pano_embeds (B, V, D), pano_masks)."""
+    def forward_panorama_per_step(self, view_fts, loc_fts, nav_types, view_lens,
+                                  obj_fts=None, obj_lens=None):
+        """Single-step pano encoding -> (pano_embeds (B, P, D), pano_masks)."""
         return self.bert.img_embeddings(
-            view_fts, loc_fts, nav_types, view_lens,
-            token_type_vis=self.bert.token_type_vis(),
+            view_fts, loc_fts, nav_types, view_lens, self.bert.token_type_vis(),
+            obj_fts, obj_lens,
         )
 
     def forward_navigation_per_step(self, batch: Batch) -> Dict[str, Any]:
         """Batch keys: txt_embeds (B,L,D), txt_masks, gmap_img_embeds (B,N,D),
         gmap_step_ids, gmap_pos_fts, gmap_masks, gmap_pair_dists,
         gmap_visited_masks, bev_fts (B,C,768), bev_pos_fts, bev_masks,
-        bev_nav_masks, bev_cand_idxs (B,K), local_masks (B,K), fuse_map (B,N,K).
+        bev_nav_masks, bev_cand_idxs (B,K), local_masks (B,K), fuse_map (B,N,K),
+        and with objects obj_embeds (B,O,D), obj_masks (B,O).
         """
         cfg = self.cfg
         txt_embeds, txt_masks = batch["txt_embeds"], batch["txt_masks"]
@@ -64,18 +69,23 @@ class GlocalTextPathNavCMT(nn.Module):
             return {
                 "gmap_embeds": gmap_embeds, "global_logits": global_logits,
                 "fused_logits": global_logits, "local_logits": None,
-                "bev_embeds": None, "fuse_weights": 1.0,
+                "bev_embeds": None, "obj_logits": None, "fuse_weights": 1.0,
             }
 
-        bev_embeds = self.bert.encode_bev(txt_embeds, batch)
+        bev_embeds, obj_embeds = self.bert.encode_bev(
+            txt_embeds, batch, batch.get("obj_embeds"), batch.get("obj_masks"))
         global_logits, local_logits, fused_logits, fuse_weights = sap_logits(
             self.global_sap_head, self.local_sap_head, self.sap_fuse_linear,
             cfg.bev_center, gmap_embeds, bev_embeds, batch,
         )
+        obj_logits = None
+        if obj_embeds is not None and self.og_head is not None:
+            obj_logits = masked_fill_neg(self.og_head(obj_embeds)[..., 0], ~batch["obj_masks"])
         return {
             "gmap_embeds": gmap_embeds, "bev_embeds": bev_embeds,
             "global_logits": global_logits, "local_logits": local_logits,
-            "fused_logits": fused_logits, "fuse_weights": fuse_weights,
+            "fused_logits": fused_logits, "obj_logits": obj_logits,
+            "fuse_weights": fuse_weights,
         }
 
     def forward(self, mode: str, batch: Batch):
@@ -84,7 +94,7 @@ class GlocalTextPathNavCMT(nn.Module):
         if mode == "panorama":
             return self.forward_panorama_per_step(
                 batch["view_fts"], batch["loc_fts"], batch["nav_types"],
-                batch["view_lens"],
+                batch["view_lens"], batch.get("obj_fts"), batch.get("obj_lens"),
             )
         if mode == "navigation":
             return self.forward_navigation_per_step(batch)

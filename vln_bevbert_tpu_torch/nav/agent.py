@@ -16,10 +16,16 @@
    tokens and the navigation forward, one backward through the whole
    episode, the float32 global-norm clip and AdamW.
 
+With ``obj_feat_size > 0`` (REVERIE/SOON) every panorama carries object
+slots after its views, P = V + O: they join the node means of the global map,
+the last step's slots are the local branch's object tokens, ``og_head``
+grounds the goal object (``pred_objid`` at the stop node), and the replay
+adds the object cross-entropy against ``_teacher_object``.
+
 The host helpers (``_language_variable`` ... ``_make_equiv_action``) repeat
-the JAX agent's: the port imports nothing of the JAX package. Object grounding
-(REVERIE/SOON), the teacher-recollection store, the mesh-sharded replay and
-the scan-block bench probes are not ported yet.
+the JAX agent's: the port imports nothing of the JAX package. The
+teacher-recollection store, the mesh-sharded replay and the scan-block bench
+probes are not ported yet.
 """
 
 from __future__ import annotations
@@ -62,14 +68,14 @@ LOGITS_KEY = {"local": "local_logits", "global": "global_logits", "avg": "fused_
 class StepRecord:
     """What the replay needs of one training-rollout step: host arrays, and
     the step's BEV features as the device tensor the splat produced (no
-    gradient flows into them). The object slots are not ported yet."""
+    gradient flows into them). P = V + O panorama slots."""
 
     active: np.ndarray                 # (B,) bool
     view_fts: np.ndarray               # (B, V, Dimg)
-    loc_fts: np.ndarray                # (B, V, A+3)
-    nav_types: np.ndarray              # (B, V)
+    loc_fts: np.ndarray                # (B, P, A+3)
+    nav_types: np.ndarray              # (B, P)
     view_lens: np.ndarray              # (B,)
-    gmap_agg: np.ndarray               # (B, N, T*V)
+    gmap_agg: np.ndarray               # (B, N, T*P)
     gmap_step_ids: np.ndarray          # (B, N)
     gmap_pos_fts: np.ndarray           # (B, N, A+3)
     gmap_masks: np.ndarray             # (B, N)
@@ -83,6 +89,9 @@ class StepRecord:
     fuse_map: Optional[np.ndarray] = None        # (B, N, K)
     bev_pos_fts: Optional[np.ndarray] = None     # (B, C, A+3+3)
     step_idx: int = 0
+    obj_fts: Optional[np.ndarray] = None         # (B, O, Dobj)
+    obj_lens: Optional[np.ndarray] = None        # (B,)
+    obj_targets: Optional[np.ndarray] = None     # (B,), IGNORE_ID off the goal
 
 
 class DevicePcStore:
@@ -201,16 +210,31 @@ class GMapNavAgent:
             masks[i, : len(enc)] = True
         return {"txt_ids": ids, "txt_masks": masks}
 
+    @property
+    def with_objects(self) -> bool:
+        return self.cfg.model.obj_feat_size > 0
+
+    @property
+    def num_pano_slots(self) -> int:
+        sh = self.cfg.shapes
+        return sh.max_pano_len + (sh.max_objects if self.with_objects else 0)
+
     def _panorama_variable(self, obs):
-        """Static slots: candidate views first, then the remaining views."""
+        """Static slots: candidate views first, then the remaining views,
+        then (with objects) up to O objects. Returns (inputs, candidate
+        viewpoint ids, object ids) per sample."""
         sh, m = self.cfg.shapes, self.cfg.model
         B, V = len(obs), sh.max_pano_len
+        O = sh.max_objects if self.with_objects else 0
         A = m.angle_feat_size
         view_fts = np.zeros((B, V, m.image_feat_size), np.float32)
-        loc_fts = np.zeros((B, V, A + 3), np.float32)
-        nav_types = np.zeros((B, V), np.int32)
+        loc_fts = np.zeros((B, V + O, A + 3), np.float32)
+        nav_types = np.zeros((B, V + O), np.int32)
         view_lens = np.zeros(B, np.int32)
+        obj_fts = np.zeros((B, O, m.obj_feat_size), np.float32) if O else None
+        obj_lens = np.zeros(B, np.int32) if O else None
         cand_vpids: List[List[str]] = []
+        obj_ids: List[List[str]] = []
         for i, ob in enumerate(obs):
             used = set()
             k = 0
@@ -235,9 +259,22 @@ class GMapNavAgent:
                 k += 1
             view_lens[i] = k
             cand_vpids.append(cands)
+            if O:
+                n_obj = min(len(ob.get("obj_ids", [])), O)
+                if n_obj:
+                    obj_fts[i, :n_obj] = ob["obj_img_fts"][:n_obj, : m.obj_feat_size]
+                    loc_fts[i, V : V + n_obj, :A] = ob["obj_ang_fts"][:n_obj]
+                    loc_fts[i, V : V + n_obj, A:] = ob["obj_box_fts"][:n_obj]
+                    nav_types[i, V : V + n_obj] = 2
+                obj_lens[i] = n_obj
+                obj_ids.append(list(ob.get("obj_ids", []))[:O])
+            else:
+                obj_ids.append([])
         out = {"view_fts": view_fts, "loc_fts": loc_fts, "nav_types": nav_types,
                "view_lens": view_lens}
-        return out, cand_vpids
+        if O:
+            out.update(obj_fts=obj_fts, obj_lens=obj_lens)
+        return out, cand_vpids, obj_ids
 
     def lift(self, obs):
         """World point clouds from the agent-relative camera ring. Depth is
@@ -268,7 +305,7 @@ class GMapNavAgent:
         """Global-map tensors + aggregation matrix for the policy."""
         sh, m = self.cfg.shapes, self.cfg.model
         B, N = len(obs), sh.max_gmap_len
-        V = sh.max_pano_len
+        V = self.num_pano_slots
         T = self.cfg.max_action_len
         A = m.angle_feat_size
         out = {
@@ -316,9 +353,15 @@ class GMapNavAgent:
                 w = 1.0 / len(refs)
                 for (t, slot, _wt) in refs:
                     if slot == -1:
-                        # visited: mean over the valid slots of that step's pano
+                        # visited: mean over the valid slots of that step's
+                        # pano, views and objects
                         vl = int(pano_store["view_lens"][t][i])
-                        out["gmap_agg"][i, node, t * V : t * V + vl] += w / max(vl, 1)
+                        ol = int(pano_store["obj_lens"][t][i]) if self.with_objects else 0
+                        total = max(vl + ol, 1)
+                        out["gmap_agg"][i, node, t * V : t * V + vl] += w / total
+                        if ol:
+                            base = t * V + sh.max_pano_len
+                            out["gmap_agg"][i, node, base : base + ol] += w / total
                     else:
                         out["gmap_agg"][i, node, t * V + slot] += w
         return out
@@ -455,6 +498,18 @@ class GMapNavAgent:
             a[i] = best_j
         return a
 
+    def _teacher_object(self, obs, ended, obj_ids):
+        """The goal object's slot at a goal viewpoint, else IGNORE_ID."""
+        targets = np.full(len(obs), IGNORE_ID, np.int64)
+        for i, ob in enumerate(obs):
+            if ended[i] or ob["viewpoint"] not in ob.get("gt_end_vps", []):
+                continue
+            for j, oid in enumerate(obj_ids[i]):
+                if str(oid) == str(ob.get("gt_obj_id")):
+                    targets[i] = j
+                    break
+        return targets
+
     # --------------------------------------------------------------- rollout
     def rollout(self, feedback: str = "argmax", train: bool = False):
         """One batch of episodes. ``feedback``: 'argmax' (greedy), 'teacher'
@@ -491,7 +546,7 @@ class GMapNavAgent:
 
         ended = np.zeros(B, bool)
         just_ended = np.zeros(B, bool)
-        pano_store = {"view_lens": {}, "embeds": {}}
+        pano_store = {"view_lens": {}, "obj_lens": {}, "embeds": {}}
         pc_store = self._make_pc_store(B)
         records: List[StepRecord] = []
 
@@ -502,9 +557,11 @@ class GMapNavAgent:
 
             # enqueue the pano forward, then do every piece of host work that
             # does not need its result before reading it back
-            pano_in, cand_vpids = self._panorama_variable(obs)
+            pano_in, cand_vpids, obj_ids = self._panorama_variable(obs)
             pano_embeds, _ = self._forward("panorama", pano_in)
             pano_store["view_lens"][t] = pano_in["view_lens"]
+            if self.with_objects:
+                pano_store["obj_lens"][t] = pano_in["obj_lens"]
 
             pc, pc_valid, pc_feats = self.lift(obs)
             pc_store.set_step(t, pc, pc_valid, pc_feats)
@@ -545,6 +602,10 @@ class GMapNavAgent:
                 "local_masks": nav_b["local_masks"],
                 "fuse_map": fuse_map,
             }
+            if self.with_objects:
+                V, O = self.cfg.shapes.max_pano_len, self.cfg.shapes.max_objects
+                nav_in["obj_embeds"] = pano_embeds[:, V : V + O]
+                nav_in["obj_masks"] = np.arange(O)[None, :] < pano_in["obj_lens"][:, None]
             nav_outs = self._forward("navigation", nav_in)
             nav_vpids = (
                 nav_b["bev_cand_vpids"] if cfg.fusion == "local" else nav_g["gmap_vpids"]
@@ -558,6 +619,8 @@ class GMapNavAgent:
                 ),
                 imitation_learning=(feedback == "teacher"), t=t, traj=traj,
             )
+            obj_targets = (self._teacher_object(obs, ended, obj_ids)
+                           if self.with_objects else None)
 
             # float32 logits, then the JAX agent's numpy ops: equal logits
             # give equal probabilities and equal sampled actions
@@ -565,9 +628,16 @@ class GMapNavAgent:
             nav_probs = np.exp(nav_logits - nav_logits.max(-1, keepdims=True))
             nav_probs /= nav_probs.sum(-1, keepdims=True)
 
+            obj_logits = (nav_outs["obj_logits"].float().cpu().numpy()
+                          if self.with_objects else None)
             for i, gmap in enumerate(gmaps):
                 if not ended[i]:
-                    gmap.node_stop_scores[obs[i]["viewpoint"]] = float(nav_probs[i, 0])
+                    vp = obs[i]["viewpoint"]
+                    gmap.node_stop_scores[vp] = float(nav_probs[i, 0])
+                    if self.with_objects and obj_ids[i]:
+                        # the grounded object at this node, for a stop here
+                        best = int(obj_logits[i, : len(obj_ids[i])].argmax())
+                        gmap.node_og[vp] = obj_ids[i][best]
 
             if train:
                 records.append(StepRecord(
@@ -582,6 +652,8 @@ class GMapNavAgent:
                     bev_fts=nav_b["bev_fts"], bev_nav_masks=nav_b["bev_nav_masks"],
                     bev_cand_idxs=nav_b["bev_cand_idxs"], local_masks=nav_b["local_masks"],
                     fuse_map=fuse_map, bev_pos_fts=nav_b["bev_pos_fts"], step_idx=t,
+                    obj_fts=pano_in.get("obj_fts"), obj_lens=pano_in.get("obj_lens"),
+                    obj_targets=obj_targets,
                 ))
 
             a_t = self._pick_actions(feedback, targets, nav_logits, nav_probs, nav_g, nav_b)
@@ -617,6 +689,8 @@ class GMapNavAgent:
                         traj[i]["path"].append(
                             gmaps[i].graph.path(obs[i]["viewpoint"], stop_node)
                         )
+                    if self.with_objects and stop_node is not None:
+                        traj[i]["pred_objid"] = gmaps[i].node_og.get(stop_node)
 
             obs = self.env.get_obs()
             for i, ob in enumerate(obs):
@@ -651,7 +725,7 @@ class GMapNavAgent:
 
     def _policy_node_embeds(self, gmap_agg, pano_store, B):
         """Host float32 contraction of the stored pano tokens."""
-        V = self.cfg.shapes.max_pano_len
+        V = self.num_pano_slots
         T = self.cfg.max_action_len
         D = self.cfg.model.hidden_size
         tokens = np.zeros((B, T * V, D), np.float32)
@@ -675,8 +749,8 @@ class GMapNavAgent:
     # ----------------------------------------------------------------- learn
     def _learn(self, lang, records: List[StepRecord]) -> float:
         """Stack the records to T = ``max_action_len`` steps, padding with
-        zeros and IGNORE_ID targets (the JAX agent's bundle), and replay them.
-        The BEV features stay on the device."""
+        zeros and IGNORE_ID targets (the JAX agent's bundle, object slots
+        included), and replay them. The BEV features stay on the device."""
         T = self.cfg.max_action_len
         pad = T - len(records)
 
@@ -690,12 +764,15 @@ class GMapNavAgent:
         if self.cfg.model.use_bev:
             keys += ["bev_nav_masks", "bev_cand_idxs", "local_masks", "fuse_map",
                      "bev_pos_fts"]
+        if self.with_objects:
+            keys += ["obj_fts", "obj_lens"]
         rb: Dict[str, Any] = {k: stack(k) for k in keys}
         if self.cfg.model.use_bev:
             bev = [r.bev_fts for r in records]
             rb["bev_fts"] = torch.stack(bev + [torch.zeros_like(bev[0])] * pad)
-        tgt = [r.targets for r in records]
-        rb["targets"] = np.stack(tgt + [np.full_like(tgt[0], IGNORE_ID)] * pad)
+        for key in ("targets", "obj_targets") if self.with_objects else ("targets",):
+            tgt = [getattr(r, key) for r in records]
+            rb[key] = np.stack(tgt + [np.full_like(tgt[0], IGNORE_ID)] * pad)
         rb["txt_ids"] = lang["txt_ids"]
         rb["txt_masks"] = lang["txt_masks"]
         rb["step_idx"] = np.arange(T, dtype=np.int32)
@@ -711,28 +788,36 @@ class GMapNavAgent:
         aggregation matrix with those tokens on the device, so the gradient
         of a later step reaches the earlier steps' panoramas. Per step a
         sum-reduction cross-entropy with IGNORE_ID on the fusion-selected
-        head; the total is scaled by ``ml_weight / B``."""
+        head, plus, with objects, on ``obj_logits`` against ``obj_targets``
+        (the step's object slots of the masked pano tokens are the local
+        branch's object tokens); the total is scaled by ``ml_weight / B``."""
         cfg = self.cfg
         use_bev = cfg.model.use_bev
         dev = {k: self._upload(v) for k, v in rb.items()}
         T, B = dev["view_fts"].shape[:2]
         txt_masks = dev["txt_masks"]
         txt_embeds = self.model("language", {"txt_ids": dev["txt_ids"], "txt_masks": txt_masks})
+        with_objects = "obj_fts" in rb
+        pano_keys = ("view_fts", "loc_fts", "nav_types", "view_lens")
+        if with_objects:
+            pano_keys += ("obj_fts", "obj_lens")
         pano_embeds, pano_masks = self.model("panorama", {
-            k: dev[k].reshape(T * B, *dev[k].shape[2:])
-            for k in ("view_fts", "loc_fts", "nav_types", "view_lens")
+            k: dev[k].reshape(T * B, *dev[k].shape[2:]) for k in pano_keys
         })
         P, D = pano_embeds.shape[1:]
-        tokens = (pano_embeds * pano_masks[..., None]).reshape(T, B, P, D)
-        tokens = tokens.transpose(0, 1).reshape(B, T * P, D).float()
+        V = dev["view_fts"].shape[2]
+        steps = (pano_embeds * pano_masks[..., None]).reshape(T, B, P, D)
+        tokens = steps.transpose(0, 1).reshape(B, T * P, D).float()
         logits_key = LOGITS_KEY[cfg.fusion] if use_bev else "global_logits"
-        targets = np.asarray(rb["targets"])
+        ignored = np.asarray(rb["targets"]) == IGNORE_ID
+        if with_objects:
+            ignored &= np.asarray(rb["obj_targets"]) == IGNORE_ID
         total = torch.zeros((), device=self.device)
         for t in range(T):
             # a step whose targets are all IGNORE_ID (the padding after an
             # episode's last step) adds exactly zero to the loss and the
             # gradient: the JAX scan runs it, the port skips it
-            if (targets[t] == IGNORE_ID).all():
+            if ignored[t].all():
                 continue
             nav_in = {
                 "txt_embeds": txt_embeds, "txt_masks": txt_masks,
@@ -746,8 +831,14 @@ class GMapNavAgent:
                                                        "fuse_map")})
                 nav_in["bev_masks"] = torch.ones(dev["bev_fts"].shape[1:3], dtype=torch.bool,
                                                  device=self.device)
+            if with_objects:
+                nav_in["obj_embeds"] = steps[t, :, V:]
+                slot = torch.arange(P - V, device=self.device)[None, :]
+                nav_in["obj_masks"] = slot < dev["obj_lens"][t][:, None]
             outs = self.model("navigation", nav_in)
             total = total + cross_entropy(outs[logits_key], dev["targets"][t])[0].sum()
+            if with_objects:
+                total = total + cross_entropy(outs["obj_logits"], dev["obj_targets"][t])[0].sum()
         return total * cfg.ml_weight / B
 
     @contextlib.contextmanager
