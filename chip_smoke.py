@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths (eval, pretraining, fine-tuning, and their object
-grounding variants) at full bert-base width with random seeded
+Drives the port's paths (eval, pretraining, fine-tuning, their object
+grounding variants, and continuous-environment pretraining, training, eval
+and inference) at full bert-base width with random seeded
 weights, through the hand-written CUDA kernels, in phases; each phase prints
 one line and a failing phase raises, so the script exits non-zero:
 
@@ -15,8 +16,10 @@ one line and a failing phase raises, so the script exits non-zero:
 3. kernel  - the fused splat kernel against its plain PyTorch version (the
              gather, the payload concat, ``index_add_``) on the card at the
              navigation (rows read in place from the rollout's point-cloud
-             store), pretraining (float16 features and semantic labels) and
-             CE shapes and at edge cases; per shape its time, its byte bound
+             store), pretraining (float16 features and semantic labels), CE
+             rollout (B=8, 8 steps read in place, 121 cells) and CE
+             pretraining (121 cells, float16, labels) shapes and at edge
+             cases; per shape its time, its byte bound
              and the share reached, the library calls ``index_add_`` and
              one-hot ``torch.bmm``; the navigation BEV step's device time,
              fused against the parent's gather, concat and splat;
@@ -62,7 +65,28 @@ one line and a failing phase raises, so the script exits non-zero:
              predict the same trajectories and ``predObjId``; then one SOON
              evaluation (``--dataset soon --test``);
 10. small  - a small configuration evaluated on the card and on the CPU with
-             the same parameters: equal trajectories, close logits.
+             the same parameters: equal trajectories, close logits; the same
+             for a small CE configuration (float32, low-level control), whose
+             heatmaps must be close too;
+11. ce_pretrain - CE pretraining (``cli.pretrain --synthetic --config
+             configs/ce_pretrain.json``: mlm 5 / sap 5, B=16, text 100, 11x11
+             BEV at 1 m, the depth embedding flag), 16 steps with seed 2 (8
+             of each task), then its checkpoint, checked as ``train`` is;
+12. ce     - SS-BEV CE training (``cli.ce_train --trainer ss-bev --batch_size
+             8 --allow_random_frozen --pretrain_ckpt <ce_pretrain's
+             checkpoint> --iters 4 --log_every 2 --n_episodes 16``) at
+             ``FinetuneConfig()``'s widths with the 11x11 CE map: 4 training
+             rollouts with their replay updates, 2 evaluations; every
+             navigation parameter must transfer; splat launches must equal
+             the gather-and-splat calls, dropout launches the replays'
+             dropout calls; losses finite and > 0, every parameter moved;
+             SR, SPL, nDTW in [0, 100]; then ``--run_type eval`` over the two
+             checkpoint files (control back-tracking) and ``--run_type
+             inference`` from the last, which must cover every episode; ms
+             per training iteration, per training-rollout and eval step, the
+             waypoint predictor's device ms per call, peak memory;
+13. ce_etp - the same with ``--trainer ss-etp --iters 2 --log_every 2``: the
+             topo-only model, so the splat must launch 0 times.
 
 Launch counts are the operators' own (C++, ``_build.launches``), set to 0
 just before each path and read just after it. The second-to-last line is a
@@ -223,7 +247,10 @@ def kernel_phase() -> dict:
     shapes = {  # (B, T, P, S, C, F, num_sem, feature dtype)
         "nav": (4, 15, 2352, 8, 441, 768, 0, torch.bfloat16),     # gather_and_splat
         "pretrain": (16, 1, 2352, 1, 441, 768, 40, torch.float16),  # prepare_bev
-        "ce": (8, 1, 2352, 1, 121, 768, 0, torch.bfloat16),       # the 11x11 CE map
+        # the 11x11 CE map: a rollout step's gather_and_splat at B=8, and CE
+        # pretraining's prepare_bev
+        "ce_rollout": (8, 15, 2352, 8, 121, 768, 0, torch.bfloat16),
+        "ce_pretrain": (16, 1, 2352, 1, 121, 768, 40, torch.float16),
     }
     record = {"max_abs_err": 0.0}
     for label, (b, t, p, s, c, f, num_sem, dtype) in shapes.items():
@@ -378,6 +405,13 @@ def dropout_phase() -> dict:
         # P = 44 views + 20 objects
         "obj_feat": ((16, 8, 20, 768), torch.float32, 0.4),
         "obj_pano_hidden": ((128, 64, 768), torch.bfloat16, 0.1),
+        # CE's: pretraining's 11x11 BEV attention and BEV features at B=16,
+        # the replay update's BEV attention at B=8 and its panorama encoder
+        # over T*B = 120 step-rows of 44 slots
+        "ce_attn_probs": ((16, 12, 121, 121), torch.bfloat16, 0.1),
+        "ce_feat": ((16, 121, 768), torch.float32, 0.4),
+        "ce_replay_attn_probs": ((8, 12, 121, 121), torch.bfloat16, 0.1),
+        "ce_replay_pano_hidden": ((120, 44, 768), torch.bfloat16, 0.1),
     }
     record = {"max_abs_err": 0.0, "sites": {}}
     for label, (shape, dtype, rate) in shapes.items():
@@ -400,7 +434,7 @@ def dropout_phase() -> dict:
         row = {"ms": ms, "device_ms": dev_ms, "F_dropout_ms": lib_ms,
                "F_dropout_device_ms": lib_dev_ms, "plain_ms": plain_ms, "bound_ms": bound}
         extra = {}
-        if label in ("hidden", "ft_pano_hidden", "obj_pano_hidden"):
+        if label in ("hidden", "ft_pano_hidden", "obj_pano_hidden", "ce_replay_pano_hidden"):
             row["host_us"] = host_us(lambda: dropout(x, seeds, rate))
             row["F_dropout_host_us"] = host_us(lambda: F.dropout(x, rate))
             extra = dict(host_us_per_launch=f"{row['host_us']:.2f}",
@@ -947,6 +981,282 @@ def small_phase() -> None:
           max_logit_err=f"{err:.3e}", trajectories="equal")
 
 
+CE_PRETRAIN = "configs/ce_pretrain.json"
+
+
+def ce_pretrain_phase(out_dir: str, steps: int = 16, seed: int = 2, min_each: int = 4) -> dict:
+    """CE pretraining through the CLI (``cli.pretrain --synthetic --config
+    configs/ce_pretrain.json``: mlm 5 / sap 5, B=16, text 100, 11x11 BEV at
+    1 m, the depth embedding flag), instrumented as ``train`` is; ``seed`` 2
+    schedules mlm then sap, 8 steps each."""
+    from vln_bevbert_tpu_torch.cli import pretrain
+
+    t0 = time.perf_counter()
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), CE_PRETRAIN)
+    trainer = pretrain.build(pretrain.parse_args([
+        "--synthetic", "--device", "cuda", "--config", config, "--num_steps", str(steps),
+        "--seed", str(seed), "--output_dir", out_dir]))
+    return run_trainer(trainer, "ce_pretrain", min_each, time.perf_counter() - t0)
+
+
+def ce_phase(label: str, out_dir: str, argv: list, pretrain_names: set,
+             eval_and_infer: bool) -> dict:
+    """``cli.ce_train`` training (``argv``), instrumented: each training
+    iteration (rollout and replay update), each rollout's steps, the
+    gather-and-splat and dropout calls against the kernels' launches, the
+    transfer from the pretraining checkpoint, the losses and the parameters
+    that moved. With ``eval_and_infer``: then ``--run_type eval`` over the
+    saved checkpoint files (control back-tracking) and ``--run_type
+    inference`` from the last one, which must cover every episode."""
+    from vln_bevbert_tpu_torch import _build
+    from vln_bevbert_tpu_torch.ce import agent as ce_mod
+    from vln_bevbert_tpu_torch.cli import ce_train
+    from vln_bevbert_tpu_torch.nav import agent as nav_mod
+    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
+
+    cls, base = ce_mod.CEAgent, nav_mod.GMapNavAgent
+    seen = {"gathers": 0, "drop_fwd": 0, "drop_bwd": 0, "iters": [], "rollouts": [],
+            "updates": [], "steps": 0, "agent": None, "start": None}
+    gather, drop_forward = ce_mod.gather_and_splat, drop_mod.Dropout.forward
+    rollout, ce_rollout, gmap_var = cls.rollout, cls._ce_rollout, cls._ce_gmap_variable
+    learn, init = base.learn_from_bundle, cls.init_params
+
+    def counted_gather(*args):
+        seen["gathers"] += 1
+        return gather(*args)
+
+    def counted_dropout(self, x):
+        if self.training and self.rate > 0 and x.dim() >= 2:
+            seen["drop_fwd"] += 1
+            seen["drop_bwd"] += bool(x.requires_grad and torch.is_grad_enabled())
+        return drop_forward(self, x)
+
+    def timed_iteration(self, feedback="sample", train=True, sample_ratio=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rollout(self, feedback, train, sample_ratio)
+        torch.cuda.synchronize()
+        if train:
+            seen["iters"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_rollout(self, feedback, train, sample_ratio):
+        steps0, t0 = seen["steps"], time.perf_counter()
+        out = ce_rollout(self, feedback, train, sample_ratio)
+        torch.cuda.synchronize()
+        seen["rollouts"].append((train, time.perf_counter() - t0, seen["steps"] - steps0))
+        return out
+
+    def counted_step(self, *args):
+        seen["steps"] += 1
+        return gmap_var(self, *args)
+
+    def timed_learn(self, rb):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = learn(self, rb)  # ends in the update's one read-back
+        seen["updates"].append(time.perf_counter() - t0)
+        return loss
+
+    def recorded_init(self, *args, **kw):
+        out = init(self, *args, **kw)
+        seen["agent"] = self
+        seen["start"] = {n: p.detach().cpu().clone() for n, p in self.model.named_parameters()}
+        return out
+
+    patches = [(ce_mod, "gather_and_splat", counted_gather),
+               (drop_mod.Dropout, "forward", counted_dropout), (cls, "rollout", timed_iteration),
+               (cls, "_ce_rollout", timed_rollout), (cls, "_ce_gmap_variable", counted_step),
+               (base, "learn_from_bundle", timed_learn), (cls, "init_params", recorded_init)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    try:
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        metrics = ce_train.main(argv + ["--output_dir", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"splat": _build.launches("splat"), "dropout": _build.launches("dropout")}
+        peak = torch.cuda.max_memory_allocated()
+        gathers, drop_calls = seen["gathers"], (seen["drop_fwd"], seen["drop_bwd"])
+        agent, rollouts = seen["agent"], list(seen["rollouts"])
+        use_bev = agent.cfg.model.use_bev
+
+        nav_names = set(agent.model.state_dict())
+        if not nav_names <= pretrain_names or agent.transferred != len(nav_names):
+            raise AssertionError(f"{label}: {agent.transferred} entries transferred; the models "
+                                 f"share {len(nav_names & pretrain_names)} of {len(nav_names)}")
+        if launches["splat"] != gathers or (gathers > 0) != use_bev:
+            raise AssertionError(f"{label}: {launches['splat']} splat launches for {gathers} "
+                                 f"gather-and-splat calls (use_bev {use_bev})")
+        if launches["dropout"] != sum(drop_calls) or drop_calls[1] == 0:
+            raise AssertionError(f"{label}: {launches['dropout']} dropout launches for "
+                                 f"{drop_calls[0]} forward and {drop_calls[1]} backward calls")
+        losses, norms = agent.logs["IL_loss"], agent.logs["grad_norm"]
+        values = torch.tensor(losses + norms)
+        if not losses or not torch.isfinite(values).all() or not (values > 0).all():
+            raise AssertionError(f"{label}: IL_loss {losses}, grad_norm {norms}")
+        unchanged = [n for n, p in agent.model.named_parameters()
+                     if torch.equal(p.detach().cpu(), seen["start"][n])]
+        if unchanged:
+            raise AssertionError(f"{label}: {len(unchanged)} parameters unchanged: {unchanged[:3]}")
+        scores = {k: 100 * metrics[k] for k in ("success", "spl", "ndtw")}
+        if not all(0.0 <= v <= 100.0 for v in scores.values()):
+            raise AssertionError(f"{label}: metrics {scores} outside [0, 100]")
+        # the frozen waypoint predictor at this run's batch, device time
+        depth = torch.randn(agent.env.batch_size * 12, *agent.env.depth_feat_shape,
+                            device=agent.device)
+        with torch.inference_mode():
+            wp_device_ms = device_ms(lambda: agent.wp_model(depth))
+            wp_ms = cuda_ms(lambda: agent.wp_model(depth), iters=20)
+        # the synthetic env's sensors for one step of the batch, host clock
+        t0 = time.perf_counter()
+        for _ in range(3):
+            agent.env.observations()
+        env_obs_ms = 1e3 * (time.perf_counter() - t0) / 3
+        out = {"wall_s": wall, "launches": launches, "gathers": gathers,
+               "drop_fwd": drop_calls[0], "drop_bwd": drop_calls[1], "peak_bytes": peak,
+               "transferred": agent.transferred, "params": len(nav_names), "losses": losses,
+               "grad_norms": norms, "scores": scores, "iters": len(seen["iters"]),
+               "ms_per_iter": 1e3 * sum(seen["iters"]) / len(seen["iters"]),
+               "ms_per_update": 1e3 * sum(seen["updates"]) / len(seen["updates"]),
+               "wp_device_ms": wp_device_ms, "wp_ms": wp_ms, "env_obs_ms": env_obs_ms,
+               "n_episodes": agent.env.size()}
+        for kind, train in (("train", True), ("eval", False)):
+            runs = [(s, n) for t, s, n in rollouts if t == train]
+            out[f"{kind}_rollouts"] = len(runs)
+            out[f"{kind}_steps"] = sum(n for _, n in runs)
+            out[f"ms_per_{kind}_step"] = 1e3 * sum(s for s, _ in runs) / sum(n for _, n in runs)
+        if not eval_and_infer:
+            return out
+
+        # every checkpoint of the run, evaluated with low-level control
+        seen["gathers"] = 0
+        _build.reset_launches()
+        ckpts = sorted(f for f in os.listdir(out_dir) if f.startswith("ckpt_"))
+        results = ce_train.main(argv + ["--output_dir", out_dir, "--run_type", "eval",
+                                        "--ckpt_path_dir", out_dir, "--eval_batches", "2"])
+        if sorted(results) != ckpts or len(ckpts) < 2:
+            raise AssertionError(f"{label}: evaluated {sorted(results)} of {ckpts}")
+        if _build.launches("splat") != seen["gathers"] or seen["gathers"] == 0:
+            raise AssertionError(f"{label} eval: {_build.launches('splat')} splat launches for "
+                                 f"{seen['gathers']} gather-and-splat calls")
+        for name, m in results.items():
+            if not all(0.0 <= 100 * m[k] <= 100.0 for k in ("success", "spl", "ndtw")):
+                raise AssertionError(f"{label} eval: {name} {m}")
+        # leaderboard predictions from the last checkpoint
+        last = max(ckpts, key=lambda f: int(f.split("_")[1]))
+        ce_train.main(argv + ["--output_dir", out_dir, "--run_type", "inference",
+                              "--ckpt_path_dir", os.path.join(out_dir, last)])
+        with open(os.path.join(out_dir, "preds.json")) as f:
+            preds = json.load(f)
+        if len(preds) != agent.env.size() or any(not v for v in preds.values()):
+            raise AssertionError(f"{label}: {len(preds)} predicted episodes of {agent.env.size()}")
+        out.update(eval=results, eval_gathers=seen["gathers"], n_preds=len(preds),
+                   ckpt=last)
+        return out
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def print_ce(label: str, run: dict) -> None:
+    phase(label, iters=run["iters"], transferred=f"{run['transferred']}/{run['params']}",
+          gathers=run["gathers"], splat_launches=run["launches"]["splat"],
+          dropout_forward_calls=run["drop_fwd"], dropout_backward_calls=run["drop_bwd"],
+          dropout_launches=run["launches"]["dropout"],
+          ms_per_train_iteration=f"{run['ms_per_iter']:.2f}",
+          ms_per_replay_update=f"{run['ms_per_update']:.2f}",
+          train_rollout_steps=run["train_steps"],
+          ms_per_train_rollout_step=f"{run['ms_per_train_step']:.2f}",
+          eval_rollouts=run["eval_rollouts"], eval_steps=run["eval_steps"],
+          ms_per_eval_step=f"{run['ms_per_eval_step']:.2f}",
+          waypoint_device_ms=f"{run['wp_device_ms']:.4f}", waypoint_ms=f"{run['wp_ms']:.4f}",
+          env_observations_host_ms=f"{run['env_obs_ms']:.2f}",
+          peak_mem_MiB=f"{run['peak_bytes'] / 2**20:.1f}", wall_s=f"{run['wall_s']:.2f}",
+          IL_loss=",".join(f"{v:.4g}" for v in run["losses"]),
+          grad_norm=",".join(f"{v:.4g}" for v in run["grad_norms"]),
+          **{k: f"{v:.2f}" for k, v in run["scores"].items()})
+    if "eval" in run:
+        phase(label, run_type="eval", checkpoints=",".join(sorted(run["eval"])),
+              splat_launches=run["eval_gathers"], back_algo="control",
+              **{f"{name}_sr": f"{100 * m['success']:.2f}" for name, m in run["eval"].items()},
+              run_type_inference=run["ckpt"], predicted_episodes=run["n_preds"])
+
+
+def small_ce_phase() -> None:
+    """A small CE configuration (hidden 64, BEV 5, B=2, float32) on the card
+    and on the CPU with the same parameters, greedy with low-level control:
+    equal trajectories, heatmaps within 1e-4 and fused logits within 1e-3.
+    The waypoint head is sharpened (x100) so that its NMS peaks stand far
+    apart: the NMS is an argmax over a softmax."""
+    import numpy as np
+
+    from vln_bevbert_tpu_torch.cli import ce_train
+
+    small = {
+        "model": {"hidden_size": 64, "num_attention_heads": 2, "intermediate_size": 128,
+                  "num_l_layers": 1, "num_pano_layers": 1, "num_x_layers": 1,
+                  "image_feat_size": 32, "bev_grid_feat_size": 24, "bev_dim": 5,
+                  "bev_res": 1.5, "dtype": "float32"},
+        "shapes": {"max_gmap_len": 16, "max_local_len": 8, "max_pano_len": 20,
+                   "num_views": 12, "grid_hw": 4, "max_pc_steps": 3},
+        "batch_size": 2, "max_action_len": 4,
+    }
+    agents, rec = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        config = f"{tmp}/small_ce.json"
+        with open(config, "w") as f:
+            json.dump(small, f)
+        for device in ("cpu", "cuda"):
+            _, agents[device] = ce_train.build(ce_train.parse_args([
+                "--device", device, "--config", config, "--allow_random_frozen",
+                "--n_episodes", "4", "--output_dir", tmp]))
+    cpu = agents["cpu"]
+    with torch.no_grad():
+        cpu.wp_model.cls_fc2.weight.mul_(100.0)
+    agents["cuda"].model.load_state_dict(cpu.model.state_dict())
+    agents["cuda"].wp_model.load_state_dict(cpu.wp_model.state_dict())
+    trajs = {}
+    for device, agent in agents.items():
+        rec[device] = {"heat": [], "logits": []}
+        waypoints, forward = agent._waypoints, agent._forward
+
+        def wp_rec(obs, train, waypoints=waypoints, out=rec[device]):
+            res = waypoints(obs, train)
+            out["heat"].append(res[2])
+            return res
+
+        def fwd_rec(mode, batch, forward=forward, out=rec[device]):
+            res = forward(mode, batch)
+            if mode == "navigation":
+                out["logits"].append(res["fused_logits"].float().cpu().numpy())
+            return res
+
+        agent._waypoints, agent._forward = wp_rec, fwd_rec
+        trajs[device] = sum((agent.rollout(feedback="argmax", train=False)[0]
+                             for _ in range(2)), [])
+    for a, b in zip(trajs["cuda"], trajs["cpu"]):
+        if not (np.array_equal(np.stack(a["positions"]), np.stack(b["positions"]))
+                and a["headings"] == b["headings"]):
+            raise AssertionError("small ce: trajectories differ between the card and the CPU")
+    errs = {}
+    for key, tol in (("heat", 1e-4), ("logits", 1e-3)):
+        if len(rec["cuda"][key]) != len(rec["cpu"][key]):
+            raise AssertionError(f"small ce: {key} recorded {len(rec['cuda'][key])} vs "
+                                 f"{len(rec['cpu'][key])} times")
+        errs[key] = max(float(np.abs(a - b).max()) for a, b in zip(rec["cuda"][key],
+                                                                    rec["cpu"][key]))
+        if errs[key] > tol:
+            raise AssertionError(f"small ce: {key} differ by {errs[key]}")
+    phase("small", config="ce", episodes=len(trajs["cuda"]), steps=len(rec["cuda"]["logits"]),
+          max_heatmap_err=f"{errs['heat']:.3e}", max_logit_err=f"{errs['logits']:.3e}",
+          trajectories="equal", back_algo=agents["cuda"].cfg.ce_back_algo)
+
+
 def main() -> None:
     kind = device_phase()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 references stay float32
@@ -1050,6 +1360,41 @@ def main() -> None:
     work.cleanup()
 
     small_phase()
+    small_ce_phase()
+
+    torch.cuda.empty_cache()
+    work = tempfile.TemporaryDirectory()
+    cep = ce_pretrain_phase(os.path.join(work.name, "ce_pretrain"))
+    phase("ce_pretrain", config=CE_PRETRAIN, seed=cep["seed"], steps=cep["steps"],
+          schedule=",".join(f"{t}x{n}" for t, n in run_lengths(cep["schedule"])),
+          prepare_bev_calls=cep["bev"], splat_launches=cep["launches"]["splat"],
+          dropout_forward_calls=cep["drop_fwd"], dropout_backward_calls=cep["drop_bwd"],
+          dropout_launches=cep["launches"]["dropout"],
+          **{f"ms_per_step_{t}": f"{ms:.2f}" for t, ms in cep["ms_per_task"].items()},
+          **{f"first_step_ms_{t}": f"{ms:.1f}" for t, ms in cep["first_ms"].items()},
+          mix=":".join(f"{t}{r:g}" for t, r in cep["mix"].items()),
+          samples_per_s_at_mix=f"{cep['samples_per_s']:.2f}",
+          wall_samples_per_s=f"{cep['wall_samples_per_s']:.2f}",
+          wall_s=f"{cep['wall_s']:.2f}", build_s=f"{cep['build_s']:.2f}",
+          peak_mem_MiB=f"{cep['peak_bytes'] / 2**20:.1f}", params=cep["n_params"],
+          **{k.replace("/", "_"): f"{v:.4g}" for k, v in cep["meters"].items()
+             if k.endswith(("loss", "grad_norm"))}, ckpt=os.path.basename(cep["ckpt"]))
+
+    # SS-BEV at B=8 from the CE pretraining checkpoint: 4 training iterations,
+    # an evaluation every 2, then eval over its checkpoints and inference
+    ce_argv = ["--batch_size", "8", "--allow_random_frozen", "--pretrain_ckpt", cep["ckpt"],
+               "--n_episodes", "16"]
+    torch.cuda.empty_cache()
+    ce = ce_phase("ce", os.path.join(work.name, "ce"),
+                  ce_argv + ["--trainer", "ss-bev", "--iters", "4", "--log_every", "2"],
+                  cep["pretrain_names"], eval_and_infer=True)
+    print_ce("ce", ce)
+    torch.cuda.empty_cache()
+    etp = ce_phase("ce_etp", os.path.join(work.name, "ce_etp"),
+                   ce_argv + ["--trainer", "ss-etp", "--iters", "2", "--log_every", "2"],
+                   cep["pretrain_names"], eval_and_infer=False)
+    print_ce("ce_etp", etp)
+    work.cleanup()
 
     loaded = sorted(k for k in sys.modules if k.split(".")[0] in
                     ("vln_bevbert_tpu", "jax", "jaxlib", "flax", "optax", "orbax"))
@@ -1062,11 +1407,15 @@ def main() -> None:
         {**SPLAT, "launches": train["launches"]["splat"], **splat_record, "bound_by": "bytes",
          "launches_eval": run["launches"], "launches_finetune": ft["launches"]["splat"],
          "launches_obj_pretrain": obj["launches"]["splat"],
-         "launches_obj_finetune": oft["launches"]["splat"]},
+         "launches_obj_finetune": oft["launches"]["splat"],
+         "launches_ce_pretrain": cep["launches"]["splat"], "launches_ce": ce["launches"]["splat"],
+         "launches_ce_eval": ce["eval_gathers"], "launches_ce_etp": etp["launches"]["splat"]},
         {**DROPOUT, "launches": train["launches"]["dropout"], **drop_record,
          "bound_by": "bytes", "launches_finetune": ft["launches"]["dropout"],
          "launches_obj_pretrain": obj["launches"]["dropout"],
-         "launches_obj_finetune": oft["launches"]["dropout"]},
+         "launches_obj_finetune": oft["launches"]["dropout"],
+         "launches_ce_pretrain": cep["launches"]["dropout"],
+         "launches_ce": ce["launches"]["dropout"], "launches_ce_etp": etp["launches"]["dropout"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -21,7 +21,8 @@ from vln_bevbert_tpu_torch.parallel.train_step import upload
 SPLAT_CASES = {
     "nav": (4, 15, 2352, 8, 441, 768, 0, torch.bfloat16),
     "pretrain": (16, 1, 2352, 1, 441, 768, 40, torch.float16),
-    "ce": (8, 1, 2352, 1, 121, 768, 0, torch.bfloat16),
+    "ce": (8, 15, 2352, 8, 121, 768, 0, torch.bfloat16),          # a CE rollout step
+    "ce_pretrain": (16, 1, 2352, 1, 121, 768, 40, torch.float16),
     "f32_feats": (3, 1, 1000, 1, 441, 768, 0, torch.float32),
     "repeated_step": (2, 4, 700, 3, 441, 768, 0, torch.bfloat16),
 }
@@ -319,3 +320,136 @@ def test_small_object_replay_update_matches_cpu_on_card(monkeypatch):
         pytest.skip("needs a CUDA device")
     agents = _replay_update_on_card_and_cpu(monkeypatch, obj_feat_size=40, max_objects=4)
     assert agents["cuda"].model.og_head is not None
+
+
+def _small_ce_agents(use_bev=True):
+    """A small float32 CE configuration (hidden 64, BEV 5, B=2) on the card
+    and on the CPU with the same navigation and waypoint parameters. The
+    waypoint head is sharpened (x100) so that the NMS peaks of its heatmap
+    stand far apart: float32 sums in another order cannot reorder them."""
+    import numpy as np
+
+    from vln_bevbert_tpu_torch.ce.agent import CEAgent
+    from vln_bevbert_tpu_torch.ce.env import SyntheticContinuousEnv, make_synthetic_ce_episodes
+    from vln_bevbert_tpu_torch.configs import FinetuneConfig, ModelConfig, ShapeConfig
+
+    cfg = FinetuneConfig(
+        model=ModelConfig(hidden_size=64, num_attention_heads=2, intermediate_size=128,
+                          num_l_layers=1, num_pano_layers=1, num_x_layers=1,
+                          image_feat_size=32, bev_grid_feat_size=24, bev_dim=5, bev_res=1.5,
+                          dtype="float32", use_bev=use_bev),
+        shapes=ShapeConfig(max_txt_len=32, max_pano_len=20, max_gmap_len=16, max_local_len=8,
+                           num_views=12, grid_hw=4, max_pc_steps=3),
+        batch_size=2, max_action_len=4, learning_rate=1e-4,
+        fusion="avg" if use_bev else "global")
+    agents = {}
+    for device in ("cpu", "cuda"):
+        env = SyntheticContinuousEnv(
+            make_synthetic_ce_episodes(np.random.default_rng(3), n=4),
+            batch_size=2, grid_hw=4, grid_feat_size=24, view_feat_size=32,
+            depth_feat_shape=(8, 2, 2), obstacles=[(3.0, 3.0, 0.4)])
+        agents[device] = CEAgent(cfg, env, device=device)
+        agents[device].init_params()
+    cpu = agents["cpu"]
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(6)
+        for p in cpu.model.parameters():  # no all-zero biases
+            p.add_(torch.randn(p.shape, generator=g) * 0.02)
+        cpu.wp_model.cls_fc2.weight.mul_(100.0)
+    agents["cuda"].model.load_state_dict(cpu.model.state_dict())
+    agents["cuda"].wp_model.load_state_dict(cpu.wp_model.state_dict())
+    return agents
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_bev", [True, False], ids=["ss_bev", "ss_etp"])
+def test_small_ce_rollout_matches_cpu_on_card(use_bev):
+    """Greedy CE rollouts with low-level control (B=2, 4 steps) on the card
+    and on the CPU, float32: equal positions and headings, heatmaps within
+    1e-4 and fused logits within 1e-3; on the card the splat launches once
+    per gather-and-splat call, and never without the BEV branch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from vln_bevbert_tpu_torch.ce import agent as ce_agent
+
+    agents = _small_ce_agents(use_bev)
+    rec, gather = {}, ce_agent.gather_and_splat
+    calls = {"n": 0}
+
+    def counted(*args):
+        calls["n"] += 1
+        return gather(*args)
+
+    trajs = {}
+    try:
+        ce_agent.gather_and_splat = counted
+        for device, agent in agents.items():
+            rec[device] = {"heat": [], "logits": []}
+            waypoints, forward = agent._waypoints, agent._forward
+
+            def wp_rec(obs, train, waypoints=waypoints, out=rec[device]):
+                res = waypoints(obs, train)
+                out["heat"].append(res[2])
+                return res
+
+            def fwd_rec(mode, batch, forward=forward, out=rec[device]):
+                res = forward(mode, batch)
+                if mode == "navigation":
+                    out["logits"].append(res["fused_logits"].float().cpu().numpy())
+                return res
+
+            agent._waypoints, agent._forward = wp_rec, fwd_rec
+            calls["n"] = 0
+            before = _build.launches("splat")
+            trajs[device] = [agent.rollout(feedback="argmax", train=False)[0] for _ in range(2)]
+            if device == "cuda":
+                assert _build.launches("splat") - before == calls["n"]
+                assert (calls["n"] > 0) == use_bev
+    finally:
+        ce_agent.gather_and_splat = gather
+    for a, b in zip(sum(trajs["cuda"], []), sum(trajs["cpu"], [])):
+        np.testing.assert_array_equal(np.stack(a["positions"]), np.stack(b["positions"]))
+        assert a["headings"] == b["headings"]
+    for key, tol in (("heat", 1e-4), ("logits", 1e-3)):
+        assert len(rec["cuda"][key]) == len(rec["cpu"][key]) > 0
+        for a, b in zip(rec["cuda"][key], rec["cpu"][key]):
+            np.testing.assert_allclose(a, b, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_small_ce_replay_update_matches_cpu_on_card(monkeypatch):
+    """A teacher-forced CE training rollout and its replay update (dropout
+    on) on the card and on the CPU from the same parameters and dropout
+    seeds: equal trajectories, loss and gradient norm within rtol 1e-4, the
+    updated parameters within atol 1e-4; the frozen predictor unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
+
+    agents = _small_ce_agents()
+    draw, gens = drop_mod.draw_seeds, {}
+
+    def shared_seeds(rows, generator, device):  # one CPU stream per device
+        g = gens.setdefault(torch.device(device).type, torch.Generator().manual_seed(5))
+        return draw(rows, g, "cpu").to(device)
+
+    monkeypatch.setattr(drop_mod, "draw_seeds", shared_seeds)
+    wp_before = {n: p.detach().cpu().clone() for n, p in agents["cuda"].wp_model.named_parameters()}
+    before = _build.launches("dropout")
+    trajs = {d: a.rollout(feedback="teacher", train=True)[0] for d, a in agents.items()}
+    assert _build.launches("dropout") > before
+    for a, b in zip(trajs["cuda"], trajs["cpu"]):
+        np.testing.assert_array_equal(np.stack(a["positions"]), np.stack(b["positions"]))
+    cpu, card = agents["cpu"], agents["cuda"]
+    assert len(card.logs["IL_loss"]) == 1 and card.logs["IL_loss"][0] > 0
+    torch.testing.assert_close(
+        torch.tensor(card.logs["IL_loss"] + card.logs["grad_norm"]),
+        torch.tensor(cpu.logs["IL_loss"] + cpu.logs["grad_norm"]), rtol=1e-4, atol=0)
+    for a, b in zip(card.model.parameters(), cpu.model.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=1e-4)
+    for n, p in card.wp_model.named_parameters():
+        assert torch.equal(p.detach().cpu(), wp_before[n]), n

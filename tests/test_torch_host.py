@@ -7,7 +7,10 @@ original on the same seeds: configs by ``dataclasses.asdict``, the synthetic
 world's graphs, distances and candidates, ``R2RNavBatch`` observations and
 metrics, the REVERIE/SOON object envs' observations and metrics,
 ``PretrainLoader`` batches with and without object stores, and DTW and the
-Floyd graph through the native engine and the Python fallback. Arrays must be equal; floats computed
+Floyd graph through the native engine and the Python fallback, and the CE
+host layer (habitat geometry, the synthetic continuous env and its
+low-level controller, the ghost-node map, the VLN-CE loaders, the waypoint
+NMS and sampling). Arrays must be equal; floats computed
 by the same code in the same order must be equal too.
 """
 
@@ -26,10 +29,17 @@ from test_torch_pretrain_cli import _tiny_config as pretrain_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the copied modules; ``data.feature_db`` leaves out the XLA float16 cast
+# the copied modules; ``data.feature_db`` leaves out the XLA float16 cast,
+# and its ``build_pack`` removes a stale sidecar that the original leaves in
+# place (``test_big_row_store_drops_a_stale_pack``: the one behaviour of a
+# copy held to differ from its original); ``ce.waypoint_predictor`` keeps
+# the host NMS and sampling of the original beside its torch module
 COPIED = ("configs", "geometry", "data.nav_graph", "data.pathdata", "data.batching",
           "data.loader", "data.feature_db", "data.annotations", "nav.eval_utils", "native",
-          "nav.graph_map", "nav.env", "nav.obj_env", "utils.logging")
-LEFT_OUT = {"data.feature_db": {"fast_cast"}}
+          "nav.graph_map", "nav.env", "nav.obj_env", "utils.logging", "ce.geometry_ce",
+          "ce.env", "ce.graph_map", "ce.control", "ce.dataset", "ce.waypoint_predictor",
+          "ce.inference")
+LEFT_OUT = {"data.feature_db": {"fast_cast"}, "ce.waypoint_predictor": {"jax", "jnp"}}
 FORBIDDEN = ("vln_bevbert_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
 
 
@@ -319,15 +329,182 @@ def check_dtw_and_floyd(tmp_path):
     assert jeval.compute_cls(g.distance, pred, ref) == peval.compute_cls(g.distance, pred, ref)
 
 
+def ce_pair(name):
+    return pair(f"ce.{name}")
+
+
+def check_ce_geometry_and_graph(tmp_path):
+    jgeo, pgeo = ce_pair("geometry_ce")
+    rng = np.random.default_rng(4)
+    for _ in range(5):
+        h = float(rng.uniform(0, 7))
+        q = jgeo.quaternion_from_heading(h)
+        assert_same(q, pgeo.quaternion_from_heading(h))
+        assert jgeo.heading_from_quaternion(q) == pgeo.heading_from_quaternion(q)
+        pos, ang, dis = rng.normal(size=3), rng.uniform(0, 6, 4), rng.uniform(0.25, 3, 4)
+        assert_same(jgeo.estimate_cand_pos(pos, q, ang, dis), pgeo.estimate_cand_pos(pos, q, ang, dis))
+        for clock in (False, True):
+            a, b = rng.normal(size=3), rng.normal(size=3)
+            assert jgeo.rel_pos_features_ce(a, b, h, 0.1, clock, clock) == \
+                pgeo.rel_pos_features_ce(a, b, h, 0.1, clock, clock)
+    maps = []
+    for pkg_map in ce_pair("graph_map"):
+        m = pkg_map.CEGraphMap(loc_noise=0.5, ghost_aug=0.3, rng=np.random.default_rng(9))
+        draw = np.random.default_rng(8)
+        prev, pos = None, np.zeros(3)
+        for step in range(5):
+            ori = jgeo.quaternion_from_heading(float(draw.uniform(0, 6)))
+            cur, cvp, cpos = m.identify_node(pos, ori, draw.uniform(0, 6, 4), draw.uniform(0.5, 2, 4))
+            m.update_graph(prev, step + 1, cur, pos, None, cvp, cpos,
+                           [draw.normal(size=3) for _ in cvp])
+            m.set_node_pc(cur, step)
+            if m.ghost_mean_pos:
+                ghost = sorted(m.ghost_mean_pos)[0]
+                pos = m.ghost_mean_pos[ghost].copy()
+                m.delete_ghost(ghost)
+            prev = cur
+        vps = [None] + list(m.node_pos) + list(m.ghost_aug_pos)
+        maps.append({
+            "nodes": m.node_pos, "ghosts": m.ghost_mean_pos, "aug": m.ghost_aug_pos,
+            "fronts": m.ghost_fronts, "embeds": {v: m.get_node_embeds(v) for v in vps[2:]},
+            "pos_fts": m.get_pos_fts(cur, pos, ori, vps), "neighbors": m.get_neighbors(cur, pos, ori),
+            "front_dist": [m.front_to_ghost_dist(g) for g in m.ghost_aug_pos],
+            "pc_steps": [m.gather_pc_steps(cur, k) for k in (0, 1, 2)],
+            "dist": [m.graph.distance(a, b) for a in m.node_pos for b in m.node_pos],
+        })
+    assert maps[0]["ghosts"] and maps[0]["fronts"]
+    assert_same(maps[0], maps[1], "ce graph map")
+
+
+def check_ce_env_and_control(tmp_path):
+    envs, runs = {}, {}
+    for pkg in ("vln_bevbert_tpu", "vln_bevbert_tpu_torch"):
+        env_mod = importlib.import_module(f"{pkg}.ce.env")
+        ctrl_mod = importlib.import_module(f"{pkg}.ce.control")
+        eps = env_mod.make_synthetic_ce_episodes(np.random.default_rng(2), n=5)
+        env = envs[pkg] = env_mod.SyntheticContinuousEnv(
+            eps, batch_size=2, grid_hw=3, grid_feat_size=8, view_feat_size=6,
+            depth_feat_shape=(2, 2, 2), obstacles=[(1.0, 1.0, 0.6), (4.0, 3.0, 1.0)])
+        out = {"episodes": [vars(e) for e in eps], "reset": env.reset()}
+        ctrl = ctrl_mod.LowLevelController(env, np.random.default_rng(6))
+        visited = []
+        for slot in range(2):
+            start = env.positions[slot].copy()
+            goal = env.batch[slot].goal
+            visited.append(ctrl.execute(slot, {
+                "act": 4, "back_path": [("0", start), ("1", start + [0.5, 0, 0.5])],
+                "front_pos": start, "ghost_pos": goal, "tryout": True}))
+            visited.append(ctrl.execute(slot, {"act": 0, "back_path": None,
+                                               "stop_pos": start, "tryout": False}))
+        out.update(visited=visited, positions=env.get_positions(), headings=env.get_headings(),
+                   collided=[env.previous_step_collided(s) for s in range(2)],
+                   obs=env.observations(), ctrl_draw=ctrl.rng.random(),
+                   metrics=[env.eval_episode(s, [env.batch[s].start_pos, *visited[2 * s]])
+                            for s in range(2)],
+                   dists=env.dists_to_goal(0, [np.zeros(3), np.ones(3)]),
+                   shared=env_mod.compute_ce_episode_metrics(
+                       np.stack(visited[0]), env.batch[0].gt_positions,
+                       lambda p: float(np.linalg.norm(p))))
+        runs[pkg] = out
+    assert any(runs["vln_bevbert_tpu"]["collided"]) or len(runs["vln_bevbert_tpu"]["visited"][0]) > 4
+    assert_same(runs["vln_bevbert_tpu"], runs["vln_bevbert_tpu_torch"], "ce env")
+    jctl, pctl = ce_pair("control")
+    for ang in (0.1, 3.0, -2.0):
+        pos, tgt = np.zeros(3), np.array([1.0, 0.0, -2.0])
+        assert jctl.rel_angle_dist(pos, tgt, ang) == pctl.rel_angle_dist(pos, tgt, ang)
+
+
+def check_ce_dataset(tmp_path):
+    import gzip
+
+    episodes = [{
+        "episode_id": i, "trajectory_id": i, "scene_id": f"mp3d/S{i % 2}/S{i % 2}.glb",
+        "start_position": [float(i), 0.1, -1.0], "start_rotation": [0.0, 0.3 * i, 0.0, 1.0],
+        "goals": [{"position": [2.0 + i, 0.1, -3.0], "radius": 3.0}] if i else [],
+        "reference_path": [[float(i), 0.1, -1.0], [1.0, 0.1, -2.0], [2.0 + i, 0.1, -3.0]],
+        "instruction": {"instruction_text": "walk on", "instruction_tokens": [5, 6, 7 + i],
+                        "language": "en-US" if i else "hi-IN"},
+    } for i in range(3)]
+    path = tmp_path / "val_seen_guide.json.gz"
+    with gzip.open(path, "wt") as f:
+        json.dump({"episodes": episodes}, f)
+    gt = tmp_path / "val_seen_guide_gt.json.gz"
+    with gzip.open(gt, "wt") as f:
+        json.dump({"1": {"locations": [[1.0, 0.1, -1.0], [2.0, 0.1, -2.0], [3.0, 0.1, -3.0]]}}, f)
+    out = []
+    for mod in ce_pair("dataset"):
+        loads = [mod.load_vlnce_episodes(str(path)),
+                 mod.load_vlnce_episodes(str(path), tokenizer=lambda s: [len(s)], scenes=["S1"]),
+                 mod.load_rxr_episodes(str(tmp_path / "val_seen_{role}.json.gz"),
+                                       languages=["en-US"])]
+        gt_map = mod.load_gt_paths(str(tmp_path / "val_seen_{role}_gt.json.gz"))
+        loads.append(mod.apply_gt_paths(loads[0], gt_map))
+        out.append([[vars(e) for e in eps] for eps in loads] + [gt_map])
+    assert len(out[0][2]) == 2 and len(out[0][3][1]["gt_positions"]) == 3
+    assert_same(out[0], out[1], "ce episodes")
+
+
+def check_ce_waypoint_nms(tmp_path):
+    jwp, pwp = ce_pair("waypoint_predictor")
+    rng = np.random.default_rng(0)
+    heat = rng.normal(0, 3, (3, jwp.NUM_ANGLES, jwp.NUM_CLASSES)).astype(np.float32)
+    assert_same(jwp.ring_neighbor_bias(), pwp.ring_neighbor_bias())
+    for sigma in ((7.0, 5.0), (2.0, 1.0)):
+        assert_same(jwp.nms_peaks(np.exp(heat), 4, sigma), pwp.nms_peaks(np.exp(heat), 4, sigma))
+    peaks = jwp.heatmap_to_peaks(heat)
+    assert_same(peaks, pwp.heatmap_to_peaks(heat))
+    assert_same(jwp.sample_waypoints(heat, peaks, np.random.default_rng(1)),
+                pwp.sample_waypoints(heat, peaks, np.random.default_rng(1)), "samples")
+    for in_train in (False, True):
+        assert_same(
+            jwp.extract_waypoints(heat, 5, 4, in_train, np.random.default_rng(3)),
+            pwp.extract_waypoints(heat, 5, 4, in_train, np.random.default_rng(3)), "waypoints")
+
+
 CHECKS = {"configs": check_configs, "synthetic_world": check_synthetic_world,
           "nav_env": check_nav_env, "pretrain_loader": check_pretrain_loader,
           "dtw_and_floyd": check_dtw_and_floyd, "obj_env": check_obj_env,
-          "obj_pretrain_loader": check_obj_pretrain_loader}
+          "obj_pretrain_loader": check_obj_pretrain_loader,
+          "ce_geometry_and_graph": check_ce_geometry_and_graph,
+          "ce_env_and_control": check_ce_env_and_control, "ce_dataset": check_ce_dataset,
+          "ce_waypoint_nms": check_ce_waypoint_nms}
 
 
 @pytest.mark.parametrize("name", list(CHECKS))
 def test_host_module_matches_its_jax_original(name, tmp_path):
     CHECKS[name](tmp_path)
+
+
+def test_big_row_store_drops_a_stale_pack(tmp_path):
+    """A store packed with small rows, then rewritten with rows too big to
+    pack: the port's ``build_pack`` removes the old sidecar, so the store
+    serves the new rows. The JAX original returns None with the sidecar left
+    in place, and the process that packed it goes on serving the old rows."""
+    import h5py
+
+    served = {}
+    for pkg in ("vln_bevbert_tpu", "vln_bevbert_tpu_torch"):
+        fdb = importlib.import_module(f"{pkg}.data.feature_db")
+        path = str(tmp_path / f"{pkg}.hdf5")
+        with h5py.File(path, "w") as f:
+            for key in ("s_a", "s_b"):
+                f[key] = np.ones(4, np.float32)
+        db = fdb.H5FeatureDB(path)
+        assert db.build_pack() is not None
+        np.testing.assert_array_equal(db.get("s", "a"), np.ones(4))  # from the pack
+        db.close()
+        big = np.full(fdb.H5FeatureDB.PACK_MAX_ROW_BYTES // 4 + 1, 2.0, np.float32)
+        with h5py.File(path, "w") as f:
+            for key in ("s_a", "s_b"):
+                f[key] = big
+        assert db.build_pack() is None
+        served[pkg] = (db.get("s", "b"), [os.path.exists(p) for p in db.pack_paths])
+        db.close()
+    row, left = served["vln_bevbert_tpu_torch"]
+    np.testing.assert_array_equal(row, big)
+    assert left == [False, False]
+    row, left = served["vln_bevbert_tpu"]
+    assert row.shape == (4,) and left == [True, True]
 
 
 @pytest.mark.parametrize("name", COPIED)
@@ -341,10 +518,13 @@ def test_copied_module_keeps_the_originals_public_names(name):
 
 def test_port_loads_nothing_of_the_jax_package(tmp_path):
     """Every module of the port and chip_smoke import, then the CPU CLI paths
-    run (eval, pretraining, fine-tuning, and REVERIE fine-tuning with its
-    object slots) at a tiny configuration, in one process that loads no JAX
+    run (eval, pretraining, fine-tuning, REVERIE fine-tuning with its object
+    slots, and CE training with its evaluation) at a tiny configuration, in one process that loads no JAX
     module and no module of the JAX package."""
+    from test_torch_ce_cli import ce_configs
     from test_torch_finetune_cli import finetune_config
+
+    (tmp_path / "ce").mkdir()
 
     code = (
         "import importlib, json, pkgutil, sys\n"
@@ -354,7 +534,7 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "from vln_bevbert_tpu_torch.cli import finetune, pretrain\n"
-        "out, tiny, ft, pt = sys.argv[1:5]\n"
+        "out, tiny, ft, pt, ce_cfg = sys.argv[1:6]\n"
         "ev = finetune.main(['--synthetic', '--test', '--device', 'cpu', '--config', tiny,\n"
         "                    '--output_dir', out + '/eval'])\n"
         "pre = pretrain.main(['--synthetic', '--device', 'cpu', '--num_steps', '2',\n"
@@ -368,15 +548,21 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
         "                    '--iters', '1', '--config', out + '/rv.json',\n"
         "                    '--output_dir', out + '/rv'])\n"
         "dump = json.load(open(out + '/rv/preds_val_unseen_1.json'))\n"
+        "from vln_bevbert_tpu_torch.cli import ce_train\n"
+        "ce = ce_train.main(['--device', 'cpu', '--config', ce_cfg, '--allow_random_frozen',\n"
+        "                    '--iters', '1', '--log_every', '1', '--n_episodes', '2',\n"
+        "                    '--output_dir', out + '/ce'])\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps({'bad': bad, 'names': names, 'sr': [ev['val_unseen']['sr'],\n"
         "                  tr['val_unseen']['sr'], rv['val_unseen']['sr'],\n"
-        "                  rv['val_unseen']['rgs'], rv['val_unseen']['rgspl']],\n"
+        "                  rv['val_unseen']['rgs'], rv['val_unseen']['rgspl'],\n"
+        "                  100 * ce['success']],\n"
         "                  'loss': list(pre), 'pred_obj': all('predObjId' in p for p in dump)}))\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code, str(tmp_path), config_file(tmp_path, _tiny_config),
-         config_file(tmp_path, finetune_config), config_file(tmp_path, pretrain_config)],
+         config_file(tmp_path, finetune_config), config_file(tmp_path, pretrain_config),
+         ce_configs(tmp_path / "ce")[1]],
         capture_output=True, text=True, timeout=400, cwd=REPO,
         env={**os.environ, "PYTHONPATH": REPO},
     )
@@ -384,6 +570,7 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     assert {"vln_bevbert_tpu_torch._build", "vln_bevbert_tpu_torch.data.feature_db",
+            "vln_bevbert_tpu_torch.ce.agent", "vln_bevbert_tpu_torch.cli.ce_train",
             "vln_bevbert_tpu_torch.native", "vln_bevbert_tpu_torch.nav.env",
             "vln_bevbert_tpu_torch.nav.obj_env"} <= set(out["names"])
     assert all(0.0 <= sr <= 100.0 for sr in out["sr"]) and out["loss"] and out["pred_obj"]

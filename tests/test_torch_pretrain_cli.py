@@ -101,3 +101,18 @@ def test_profile_train_ab_runs_both_dropouts_through_the_trainer(tmp_path):
     assert [s["site"] for s in out["sites"]] == ["attn_probs", "hidden", "feat"]
     assert out["sites"][0]["shape"] == [2, 2, 25, 25]
     assert all(s["kernel_device_ms"] is None for s in out["sites"])  # not measured off the card
+
+
+def test_trainer_saves_at_every_valid_steps_crossing(tmp_path):
+    """As the JAX trainer does (``pretrain/trainer.py:125-127``), ``train``
+    writes ``ckpt_<step>`` whenever the step reaches a multiple of
+    ``valid_steps``; a run cut short still leaves one to resume from."""
+    trainer = cli.build(cli.parse_args([
+        "--synthetic", "--device", "cpu", "--num_steps", "4", "--batch_size", "2",
+        "--config", _tiny_config(tmp_path), "--output_dir", str(tmp_path / "out")]))
+    trainer.cfg.valid_steps = 2
+    trainer.train()
+    assert sorted(f for f in os.listdir(tmp_path / "out") if f.startswith("ckpt_")) == [
+        "ckpt_2", "ckpt_4"]
+    trainer.restore(str(tmp_path / "out" / "ckpt_2"))
+    assert trainer.state.step == 2

@@ -143,6 +143,13 @@ class H5FeatureDB:
         first = f[keys[0]]
         row_bytes = int(np.prod(first.shape)) * np.dtype(self.dtype).itemsize
         if row_bytes > self.PACK_MAX_ROW_BYTES:
+            # an older sidecar of this path, and the pack this store may
+            # hold open, would go on serving the old rows: drop both
+            for stale in self.pack_paths:
+                if os.path.exists(stale):
+                    os.remove(stale)
+            self._pack_checked = False
+            self._pack = self._pack_rows = None
             return None
         arr_p, meta_p = self.pack_paths
         out = np.lib.format.open_memmap(

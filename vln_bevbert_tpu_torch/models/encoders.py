@@ -3,8 +3,10 @@ language, panorama, global topological map, local BEV map.
 
 Panorama tokens live in fixed slots with a validity mask, views [0:V) then
 the objects of REVERIE/SOON [V:V+O); global-map node features arrive
-pre-aggregated. The CE depth embedding is not ported yet: a config that asks
-for it raises.
+pre-aggregated. A config with the CE depth embedding (``use_depth_embedding``,
+``configs/ce_pretrain.json``) builds no ``dep_linear``/``dep_ln``: flax creates
+them only when a call passes ``dep_fts``, and no caller of either package does,
+so the JAX trees of such configs hold neither.
 """
 
 from __future__ import annotations
@@ -58,8 +60,6 @@ class ImageEmbeddings(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.use_depth_embedding:
-            raise NotImplementedError("the CE depth embedding is not ported yet")
         self.dtype = _dt(cfg)
         hid = cfg.hidden_size
         self.img_linear = Dense(cfg, cfg.image_feat_size, hid, device)
@@ -80,10 +80,15 @@ class ImageEmbeddings(nn.Module):
         self.pano_ln = LayerNorm(cfg, device=device)
 
     def forward(self, view_fts, loc_fts, nav_types, view_lens, token_type_vis=None,
-                obj_fts=None, obj_lens=None):
+                obj_fts=None, obj_lens=None, dep_fts=None):
         """view_fts (R, V, Dimg); loc_fts (R, P, A+3) and nav_types (R, P)
         int over P = V + O slots; view_lens (R,); obj_fts (R, O, Dobj) and
-        obj_lens (R,) or None. Returns (tokens (R, P, D), masks (R, P) bool)."""
+        obj_lens (R,) or None. Returns (tokens (R, P, D), masks (R, P) bool).
+        ``dep_fts``, the CE depth embedding's input, is refused: no path of
+        the port or of the JAX package feeds it."""
+        if dep_fts is not None:
+            raise NotImplementedError("no path feeds dep_fts: the CE depth embedding "
+                                      "(dep_linear, dep_ln) is built by no caller")
         dt = self.dtype
         img = self.img_ln(self.img_linear(view_fts)).to(dt)
         if obj_fts is not None:

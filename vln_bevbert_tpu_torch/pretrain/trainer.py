@@ -2,7 +2,8 @@
 ``vln_bevbert_tpu/pretrain/trainer.py``): the MetaLoader task schedule of
 ``PretrainLoader``, one train step per batch, running meters and
 ``MetricLogger`` lines, and checkpoints (parameters, optimizer state and
-step in one torch file ``ckpt_<step>``). Validation is not ported yet.
+step in one torch file ``ckpt_<step>``), saved at every ``valid_steps``
+crossing as the JAX trainer saves. Validation is not ported yet.
 
 The loop reads each step's metrics back only after it has queued the next
 step, so the card never waits for the host's readback.
@@ -95,6 +96,8 @@ class PretrainTrainer:
                 if pending is not None:
                     record(*pending)
                 pending = (self.state.step, base, metrics)
+                if self.cfg.valid_steps and self.state.step % self.cfg.valid_steps == 0:
+                    self.save(self.state.step)
             if pending is not None:
                 record(*pending)
         finally:
