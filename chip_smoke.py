@@ -40,6 +40,24 @@ one line and a failing phase raises, so the script exits non-zero:
              the ``prepare_bev`` calls; losses and gradient norms finite;
              ms/step per task, samples/s weighted by the configured task mix,
              peak memory;
+   validate - that checkpoint restored at ``PretrainConfig()`` defaults,
+             ``validate(24, num_batches=8)`` over mlm, sap and masksem: splat
+             launches = 24 ``eval_step`` + 8 ``sem_predictions``, no dropout
+             launch, the dropout generator's state unchanged, every metric
+             finite, AUC and F1 in [0, 1]; ms per eval batch per task;
+   optim   - from that checkpoint, 7 B=16 sap steps of adamw and of each
+             optimizer of ``OPTIMIZERS`` and 14 of adamw with gradient
+             accumulation 2 (odd
+             steps must move nothing); finite losses, every parameter with a
+             gradient moved; each update's device ms (CUDA events around the
+             update alone) against its state bytes at 3.35 TB/s;
+   r4r_train, rxr_train - ``cli.pretrain --config`` of
+             ``configs/r4r_pretrain.json`` (16 steps, seed 1: mlm and sap 8
+             each) and ``configs/rxr_pretrain.json`` (XLM-R's 250002-row
+             vocabulary; 24 steps, seed 16: 8 of each task), with
+             ``valid_steps`` set so that validation and its checkpoint run
+             twice; checked as ``train`` is, the validations' splat launches
+             included;
 7. finetune - DAgger fine-tuning (``cli.finetune --synthetic --pretrain_ckpt
              <the train phase's checkpoint> --iters 3 --log_every 3``) at the
              ``FinetuneConfig()`` defaults, B=4: 6 training rollouts and 6
@@ -97,6 +115,7 @@ the run checks that none of their modules was loaded.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -118,6 +137,14 @@ DROPOUT = {"name": "seeded_dropout", "route": "cuda",
 RTOL, ATOL = 1e-5, 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 OG_SHIFT_INVARIANT = ("og_head.fc2.bias", "og_head.ln.bias")
+
+
+def free_memory() -> None:
+    """Release what the previous phase left: objects held only by reference
+    cycles (an instrumented method that refers to its own object) and the
+    allocator's cache, so that each phase's peak memory is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase(tag: str, **fields) -> None:
@@ -504,16 +531,26 @@ def run_lengths(items):
     return out
 
 
+def val_prepare_calls(cfg, num_batches: int = 8) -> int:
+    """``prepare_bev`` calls of one ``validate``: each task's batches, and
+    for sem/masksem each batch's ``sem_predictions`` too."""
+    bases = [t.split("_")[0] for t in cfg.tasks]
+    return num_batches * (len(bases) + sum(b in ("sem", "masksem") for b in bases))
+
+
 def run_trainer(trainer, label: str, min_each: int, build_s: float) -> dict:
     """Train ``trainer`` to its configured step count, instrumented: the
     kernels' launch counts against the dropout calls (forward and backward)
-    and the ``prepare_bev`` calls, CUDA events around every step, then save
-    its checkpoint. Every task of the mix must run ``min_each`` steps."""
+    and the ``prepare_bev`` calls of training and of the validations at
+    every ``valid_steps`` crossing (``val_prepare_calls`` each, no dropout),
+    CUDA events around every step, then save its checkpoint. Every task of
+    the mix must run ``min_each`` steps."""
     from vln_bevbert_tpu_torch import _build
     from vln_bevbert_tpu_torch.ops import dropout as drop_mod
     from vln_bevbert_tpu_torch.parallel import train_step as ts_mod
 
-    seen = {"drop_fwd": 0, "drop_bwd": 0, "bev": 0, "steps": []}
+    seen = {"drop_fwd": 0, "drop_bwd": 0, "bev": 0, "val_bev": 0, "steps": [],
+            "validations": [], "in_val": False}
     forward, prepare = drop_mod.Dropout.forward, ts_mod.prepare_bev
 
     def counted_forward(self, x):
@@ -523,9 +560,22 @@ def run_trainer(trainer, label: str, min_each: int, build_s: float) -> dict:
         return forward(self, x)
 
     def counted_prepare(projector, batch):
-        seen["bev"] += "depths" in batch
+        seen["val_bev" if seen["in_val"] else "bev"] += "depths" in batch
         return prepare(projector, batch)
 
+    validate = trainer.validate
+
+    def timed_validate(step, num_batches=8):
+        torch.cuda.synchronize()
+        seen["in_val"], t0 = True, time.perf_counter()
+        try:
+            results = validate(step, num_batches)
+        finally:
+            seen["in_val"] = False
+        seen["validations"].append((step, time.perf_counter() - t0, results))
+        return results
+
+    trainer.validate = timed_validate
     step_fn = trainer.step_fn
 
     def timed_step(state, batch, task):
@@ -551,7 +601,7 @@ def run_trainer(trainer, label: str, min_each: int, build_s: float) -> dict:
         launches = {"dropout": _build.launches("dropout"), "splat": _build.launches("splat")}
     finally:
         drop_mod.Dropout.forward, ts_mod.prepare_bev = forward, prepare
-        trainer.step_fn = step_fn
+        trainer.step_fn, trainer.validate = step_fn, validate
     peak = torch.cuda.max_memory_allocated()
     ckpt = trainer.save(trainer.state.step)
     n_params = sum(p.numel() for p in trainer.state.params)
@@ -561,9 +611,16 @@ def run_trainer(trainer, label: str, min_each: int, build_s: float) -> dict:
     if len(schedule) != steps or any(schedule.count(t) < min_each for t in mix):
         raise AssertionError(f"{label}: ran {schedule}; every task of {sorted(mix)} needs "
                              f"{min_each} of {steps} steps")
-    if launches["splat"] != seen["bev"] or seen["bev"] != steps:
+    n_val = steps // cfg.valid_steps if cfg.valid_steps else 0
+    if [v[0] for v in seen["validations"]] != [cfg.valid_steps * (i + 1) for i in range(n_val)]:
+        raise AssertionError(f"{label}: validated at {[v[0] for v in seen['validations']]}")
+    if (launches["splat"] != seen["bev"] + seen["val_bev"] or seen["bev"] != steps
+            or seen["val_bev"] != n_val * val_prepare_calls(cfg)):
         raise AssertionError(f"{label}: {launches['splat']} splat launches for "
-                             f"{seen['bev']} prepare_bev calls in {steps} steps")
+                             f"{seen['bev']} training and {seen['val_bev']} validation "
+                             f"prepare_bev calls in {steps} steps")
+    for _, _, results in seen["validations"]:
+        check_validation(label, results)
     if launches["dropout"] != seen["drop_fwd"] + seen["drop_bwd"] or seen["drop_bwd"] == 0:
         raise AssertionError(
             f"{label}: {launches['dropout']} dropout launches for {seen['drop_fwd']} "
@@ -588,6 +645,7 @@ def run_trainer(trainer, label: str, min_each: int, build_s: float) -> dict:
         "wall_samples_per_s": cfg.train_batch_size * steps / wall,
         "wall_s": wall, "build_s": build_s,
         "peak_bytes": peak, "n_params": n_params, "meters": meters,
+        "validations": seen["validations"], "val_bev": seen["val_bev"],
         "first_ms": {t: next(s.elapsed_time(e) for tt, s, e, _ in seen["steps"] if tt == t)
                      for t in per_task},
     }
@@ -607,7 +665,209 @@ def train_phase(out_dir: str, steps: int = 24, seed: int = 16, min_each: int = 3
     return run_trainer(trainer, "train", min_each, time.perf_counter() - t0)
 
 
+def check_validation(label: str, results: dict) -> None:
+    """Every validation metric finite; the semantic macro AUC and F1 in [0, 1]."""
+    if not results or not all(v == v and abs(v) != float("inf") for v in results.values()):
+        raise AssertionError(f"{label}: validation gave {results}")
+    for key, val in results.items():
+        if key.endswith(("auc_macro", "f1_macro")) and not 0.0 <= val <= 1.0:
+            raise AssertionError(f"{label}: {key}={val} outside [0, 1]")
+
+
+def validate_phase(ckpt: str, out_dir: str, step: int = 24, num_batches: int = 8) -> dict:
+    """Validation at full width: the CLI's trainer at ``PretrainConfig()``
+    defaults (B=16; mlm, sap, masksem) restored from ``train``'s checkpoint,
+    then ``validate(24, num_batches=8)`` over val_unseen (the synthetic
+    world, as the CLI reads it). Splat launches must equal the
+    ``prepare_bev`` calls (24 ``eval_step`` + 8 ``sem_predictions``), the
+    dropout must launch 0 times and its generator keep its state; CUDA
+    events around each ``eval_step`` and ``sem_predictions``."""
+    from vln_bevbert_tpu_torch import _build
+    from vln_bevbert_tpu_torch.cli import pretrain
+    from vln_bevbert_tpu_torch.parallel import train_step as ts_mod
+
+    trainer = pretrain.build(pretrain.parse_args([
+        "--synthetic", "--device", "cuda", "--batch_size", "16", "--seed", "16",
+        "--resume", ckpt, "--output_dir", out_dir]))
+    seen = {"bev": 0, "eval": {}, "sem": []}
+    prepare, eval_step, sem_pred = ts_mod.prepare_bev, trainer.eval_step, trainer.sem_predictions
+
+    def counted_prepare(projector, batch):
+        seen["bev"] += "depths" in batch
+        return prepare(projector, batch)
+
+    def timed(fn, record):
+        def call(batch, task):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(batch, task)
+            end.record()
+            record(task).append((start, end))
+            return out
+        return call
+
+    ts_mod.prepare_bev = counted_prepare
+    trainer.eval_step = timed(eval_step, lambda t: seen["eval"].setdefault(t, []))
+    trainer.sem_predictions = timed(sem_pred, lambda t: seen["sem"])
+    gen = trainer.model.feat_dropout.generator
+    gen_state = gen.get_state()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        results = trainer.validate(step, num_batches=num_batches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"splat": _build.launches("splat"), "dropout": _build.launches("dropout")}
+    finally:
+        ts_mod.prepare_bev = prepare
+    peak = torch.cuda.max_memory_allocated()
+    calls = val_prepare_calls(trainer.cfg, num_batches)
+    if launches["splat"] != seen["bev"] or seen["bev"] != calls:
+        raise AssertionError(f"validate: {launches['splat']} splat launches for {seen['bev']} "
+                             f"prepare_bev calls, expected {calls}")
+    if launches["dropout"] != 0 or not torch.equal(gen.get_state(), gen_state):
+        raise AssertionError(f"validate: {launches['dropout']} dropout launches, generator "
+                             f"state changed: {not torch.equal(gen.get_state(), gen_state)}")
+    if not trainer.model.training:
+        raise AssertionError("validate: the model was left in eval mode")
+    check_validation("validate", results)
+    if "val_unseen/sem/auc_macro" not in results:
+        raise AssertionError(f"validate: no semantic AUC in {sorted(results)}")
+    ms = {t: sum(s.elapsed_time(e) for s, e in ev[1:]) / len(ev[1:])
+          for t, ev in seen["eval"].items()}
+    sem_ms = sum(s.elapsed_time(e) for s, e in seen["sem"][1:]) / len(seen["sem"][1:])
+    return {"results": results, "launches": launches, "bev": seen["bev"], "wall_s": wall,
+            "ms_per_eval_batch": ms, "ms_per_sem_batch": sem_ms, "peak_bytes": peak,
+            "n_params": sum(p.numel() for p in trainer.model.parameters())}
+
+
+OPTIMIZERS = ("radam", "lamb", "ralamb", "rangerlars", "adam", "adamax", "adamw+ema",
+              "adamw+lookahead", "ralamb+lookahead")
+# a constant learning rate at which 7 updates move every float32 parameter
+# that has a gradient (the config's 10000-step warmup gives 3.5e-8 at the 7th
+# update, below half a unit in the last place of a LayerNorm scale of 1)
+LR_CHECK = 1e-3
+
+
+def update_bytes(state, syncs: int, calls: int) -> float:
+    """Bytes an update call must move, averaged over ``calls``: the gradients
+    read once, the parameters and every state tensor read and written once,
+    a lookahead's slow copy only at its ``syncs``."""
+    tx = state.tx
+    n = sum(p.numel() for p in state.params)
+    total = 3 * 4 * n * calls  # gradients, parameters in and out
+    for key, bufs in tx.buffers().items():
+        moved = 2 * sum(b.numel() * b.element_size() for b in bufs)
+        total += moved * (syncs if key.startswith("lookahead") else calls)
+    return total / calls
+
+
+def optim_phase(ckpt: str, out_dir: str, updates: int = 7, task: str = "sap") -> dict:
+    """The optimizer family at full width: from ``train``'s checkpoint, adamw
+    and each optimizer of ``OPTIMIZERS`` take 7 updates (lookahead syncs at the 6th)
+    of B=16 ``sap`` steps, then adamw with ``gradient_accumulation_steps``
+    2 takes 14 steps, whose odd steps must leave every parameter as it was,
+    all at a constant learning rate ``LR_CHECK``. Losses and gradient norms
+    finite; every parameter that got a nonzero gradient moved. CUDA events
+    around each update alone."""
+    import dataclasses
+
+    from vln_bevbert_tpu_torch import _build
+    from vln_bevbert_tpu_torch.cli import pretrain
+    from vln_bevbert_tpu_torch.parallel.train_step import TrainState, upload
+
+    trainer = pretrain.build(pretrain.parse_args([
+        "--synthetic", "--device", "cuda", "--batch_size", "16", "--seed", "16",
+        "--resume", ckpt, "--output_dir", out_dir]))
+    model, device = trainer.model, trainer.device
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batches = [upload(trainer.train_loader.build_batch(i, task=task)[1], device)
+               for i in range(2 * updates)]
+    runs = [(name, 1, updates) for name in ("adamw",) + OPTIMIZERS] + [("adamw", 2, 2 * updates)]
+    out, total_launches = {}, {"splat": 0, "dropout": 0}
+    for name, k, calls in runs:
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(start[n])
+        cfg = dataclasses.replace(trainer.cfg.optim, optim=name, gradient_accumulation_steps=k,
+                                  lr_schedule="constant", learning_rate=LR_CHECK)
+        free_memory()  # the previous optimizer's state (its timed update is a cycle)
+        torch.cuda.reset_peak_memory_stats()
+        state = TrainState(model, cfg)
+        update, events, nonzero = state.tx.update, [], torch.zeros(
+            len(state.params), dtype=torch.bool, device=device)
+
+        def timed_update(grads, update=update, events=events, nonzero=nonzero):
+            nonzero |= torch.stack(torch._foreach_norm(grads)) > 0
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            moved = update(grads)
+            t1.record()
+            events.append((t0, t1, moved))
+            return moved
+
+        state.tx.update = timed_update
+        metrics, unchanged = [], []
+        _build.reset_launches()
+        for i in range(calls):
+            before = ([p.detach().clone() for p in state.params] if (i + 1) % k else None)
+            metrics.append(trainer.step_fn(state, batches[i], task))
+            if before is not None:
+                unchanged.append(all(torch.equal(a, b) for a, b in zip(before, state.params)))
+                del before
+        torch.cuda.synchronize()
+        for key in total_launches:
+            total_launches[key] += _build.launches(key)
+        values = torch.stack([torch.stack([m["loss"], m["grad_norm"]]) for m in metrics])
+        label = f"{name}x{k}" if k > 1 else name
+        if not torch.isfinite(values).all():
+            raise AssertionError(f"optim {label}: loss / grad_norm {values.tolist()}")
+        if not all(unchanged) or len(unchanged) != calls - calls // k:
+            raise AssertionError(f"optim {label}: parameters moved on an accumulating step")
+        if state.tx.count != updates or state.step != calls:
+            raise AssertionError(f"optim {label}: {state.tx.count} updates in {state.step} steps")
+        still = [n for (n, p), nz in zip(model.named_parameters(), nonzero.tolist())
+                 if nz and torch.equal(p.detach(), start[n])]
+        if still:
+            raise AssertionError(f"optim {label}: {len(still)} parameters with a gradient did "
+                                 f"not move: {still[:3]}")
+        upd_ms = [a.elapsed_time(b) for a, b, moved in events if moved]
+        acc_ms = [a.elapsed_time(b) for a, b, moved in events if not moved]
+        syncs = calls // k // 6 if ("lookahead" in name or name == "rangerlars") else 0
+        n_bytes = update_bytes(state, syncs, updates)
+        out[label] = {"update_ms": sum(upd_ms) / len(upd_ms),
+                      "first_update_ms": upd_ms[0],
+                      "accumulate_ms": sum(acc_ms) / len(acc_ms) if acc_ms else None,
+                      "bound_ms": bound_ms(n_bytes), "state_bytes": n_bytes,
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "loss": values[:, 0].tolist(), "grad_norm": values[:, 1].tolist()}
+        del state, update, timed_update
+    return {"runs": out, "launches": total_launches, "updates": updates, "task": task}
+
+
+def config_train_phase(label: str, config: str, out_dir: str, steps: int, seed: int,
+                       valid_steps: int, min_each: int) -> dict:
+    """Pretraining through the CLI at ``config``'s widths and mix
+    (``cli.pretrain --synthetic --config <config + valid_steps>``), so that
+    validation and its checkpoint run twice, instrumented as ``train`` is."""
+    from vln_bevbert_tpu_torch.cli import pretrain
+
+    t0 = time.perf_counter()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), config)) as f:
+        merged = {**json.load(f), "valid_steps": valid_steps}
+    path = out_dir + "_config.json"
+    with open(path, "w") as f:
+        json.dump(merged, f)
+    trainer = pretrain.build(pretrain.parse_args([
+        "--synthetic", "--device", "cuda", "--config", path, "--num_steps", str(steps),
+        "--seed", str(seed), "--output_dir", out_dir]))
+    return run_trainer(trainer, label, min_each, time.perf_counter() - t0)
+
+
 REVERIE_PRETRAIN = "configs/reverie_pretrain.json"
+R4R_PRETRAIN, RXR_PRETRAIN = "configs/r4r_pretrain.json", "configs/rxr_pretrain.json"
 
 
 def obj_train_phase(out_dir: str, steps: int = 40, seed: int = 39, min_each: int = 8) -> dict:
@@ -1298,7 +1558,34 @@ def main() -> None:
           **{k.replace("/", "_"): f"{v:.4g}" for k, v in train["meters"].items()
              if k.endswith(("loss", "grad_norm"))}, ckpt=os.path.basename(train["ckpt"]))
 
-    torch.cuda.empty_cache()
+    free_memory()
+    val = validate_phase(train["ckpt"], os.path.join(work.name, "validate"))
+    phase("validate", step=24, num_batches=8, tasks="mlm,sap,masksem", params=val["n_params"],
+          prepare_bev_calls=val["bev"], splat_launches=val["launches"]["splat"],
+          dropout_launches=val["launches"]["dropout"], dropout_generator="unchanged",
+          **{f"ms_per_eval_batch_{t}": f"{ms:.2f}" for t, ms in val["ms_per_eval_batch"].items()},
+          ms_per_sem_predictions_batch=f"{val['ms_per_sem_batch']:.2f}",
+          wall_s=f"{val['wall_s']:.2f}", peak_mem_MiB=f"{val['peak_bytes'] / 2**20:.1f}",
+          **{k.split("/", 1)[1].replace("/", "_"): f"{v:.4g}" for k, v in val["results"].items()})
+
+    free_memory()
+    opt = optim_phase(train["ckpt"], os.path.join(work.name, "optim"))
+    for label, r in opt["runs"].items():
+        extra = ({"accumulate_ms": f"{r['accumulate_ms']:.4f}"} if r["accumulate_ms"] is not None
+                 else {})
+        phase("optim", optimizer=label, updates=opt["updates"], task=opt["task"],
+              update_ms=f"{r['update_ms']:.4f}", first_update_ms=f"{r['first_update_ms']:.4f}",
+              **extra, bound_ms=f"{r['bound_ms']:.4f}",
+              bound_share=f"{r['bound_ms'] / r['update_ms']:.1%}",
+              state_GB_moved=f"{r['state_bytes'] / 1e9:.3f}",
+              peak_mem_MiB=f"{r['peak_bytes'] / 2**20:.1f}",
+              loss=",".join(f"{v:.4g}" for v in r["loss"]),
+              grad_norm=",".join(f"{v:.4g}" for v in r["grad_norm"]))
+    phase("optim", splat_launches=opt["launches"]["splat"],
+          dropout_launches=opt["launches"]["dropout"], moved="every parameter with a gradient",
+          accumulating_steps="parameters unchanged")
+
+    free_memory()
     ft = finetune_phase(train["ckpt"], train["pretrain_names"], os.path.join(work.name, "ft"))
     m = ft["results"]["val_unseen"]
     phase("finetune", iters=3, feedback="dagger", train_rollouts=6, updates=len(ft["losses"]),
@@ -1317,7 +1604,37 @@ def main() -> None:
           test_from_ckpt_latest="equal")
     work.cleanup()
 
-    torch.cuda.empty_cache()
+    # R4R and RxR pretraining at their configs' widths and mixes, validating
+    # twice; RxR's three tasks in blocks of 8 need 24 steps (seed 16: 8 each)
+    cfg_runs = {}
+    for label, config, steps, seed, valid in (("r4r_train", R4R_PRETRAIN, 16, 1, 8),
+                                              ("rxr_train", RXR_PRETRAIN, 24, 16, 12)):
+        free_memory()
+        work = tempfile.TemporaryDirectory()
+        run_ = config_train_phase(label, config, os.path.join(work.name, label), steps, seed,
+                                  valid, min_each=8)
+        cfg_runs[label] = run_
+        last = run_["validations"][-1][2]
+        phase(label, config=config, seed=run_["seed"], steps=run_["steps"],
+              schedule=",".join(f"{t}x{n}" for t, n in run_lengths(run_["schedule"])),
+              params=run_["n_params"], prepare_bev_calls=run_["bev"],
+              validation_prepare_bev_calls=run_["val_bev"],
+              splat_launches=run_["launches"]["splat"],
+              dropout_forward_calls=run_["drop_fwd"], dropout_backward_calls=run_["drop_bwd"],
+              dropout_launches=run_["launches"]["dropout"],
+              **{f"ms_per_step_{t}": f"{ms:.2f}" for t, ms in run_["ms_per_task"].items()},
+              mix=":".join(f"{t}{r:g}" for t, r in run_["mix"].items()),
+              samples_per_s_at_mix=f"{run_['samples_per_s']:.2f}",
+              wall_samples_per_s=f"{run_['wall_samples_per_s']:.2f}",
+              validations=",".join(f"{st}@{sec:.2f}s" for st, sec, _ in run_["validations"]),
+              peak_mem_MiB=f"{run_['peak_bytes'] / 2**20:.1f}", wall_s=f"{run_['wall_s']:.2f}",
+              **{k.replace("/", "_"): f"{v:.4g}" for k, v in run_["meters"].items()
+                 if k.endswith(("loss", "grad_norm"))},
+              **{"val_" + k.split("/", 1)[1].replace("/", "_"): f"{v:.4g}"
+                 for k, v in last.items()})
+        work.cleanup()
+
+    free_memory()
     work = tempfile.TemporaryDirectory()
     obj = obj_train_phase(os.path.join(work.name, "pretrain_reverie"))
     phase("obj_train", config=REVERIE_PRETRAIN, seed=obj["seed"], steps=obj["steps"],
@@ -1336,7 +1653,7 @@ def main() -> None:
           **{k.replace("/", "_"): f"{v:.4g}" for k, v in obj["meters"].items()
              if k.endswith(("loss", "grad_norm"))}, ckpt=os.path.basename(obj["ckpt"]))
 
-    torch.cuda.empty_cache()
+    free_memory()
     oft = obj_finetune_phase(obj["ckpt"], obj["pretrain_names"],
                              os.path.join(work.name, "ft_reverie"))
     m, soon = oft["results"]["val_unseen"], oft["soon"]
@@ -1362,7 +1679,7 @@ def main() -> None:
     small_phase()
     small_ce_phase()
 
-    torch.cuda.empty_cache()
+    free_memory()
     work = tempfile.TemporaryDirectory()
     cep = ce_pretrain_phase(os.path.join(work.name, "ce_pretrain"))
     phase("ce_pretrain", config=CE_PRETRAIN, seed=cep["seed"], steps=cep["steps"],
@@ -1384,12 +1701,12 @@ def main() -> None:
     # an evaluation every 2, then eval over its checkpoints and inference
     ce_argv = ["--batch_size", "8", "--allow_random_frozen", "--pretrain_ckpt", cep["ckpt"],
                "--n_episodes", "16"]
-    torch.cuda.empty_cache()
+    free_memory()
     ce = ce_phase("ce", os.path.join(work.name, "ce"),
                   ce_argv + ["--trainer", "ss-bev", "--iters", "4", "--log_every", "2"],
                   cep["pretrain_names"], eval_and_infer=True)
     print_ce("ce", ce)
-    torch.cuda.empty_cache()
+    free_memory()
     etp = ce_phase("ce_etp", os.path.join(work.name, "ce_etp"),
                    ce_argv + ["--trainer", "ss-etp", "--iters", "2", "--log_every", "2"],
                    cep["pretrain_names"], eval_and_infer=False)
@@ -1409,13 +1726,20 @@ def main() -> None:
          "launches_obj_pretrain": obj["launches"]["splat"],
          "launches_obj_finetune": oft["launches"]["splat"],
          "launches_ce_pretrain": cep["launches"]["splat"], "launches_ce": ce["launches"]["splat"],
-         "launches_ce_eval": ce["eval_gathers"], "launches_ce_etp": etp["launches"]["splat"]},
+         "launches_ce_eval": ce["eval_gathers"], "launches_ce_etp": etp["launches"]["splat"],
+         "launches_validate": val["launches"]["splat"], "launches_optim": opt["launches"]["splat"],
+         "launches_r4r": cfg_runs["r4r_train"]["launches"]["splat"],
+         "launches_rxr": cfg_runs["rxr_train"]["launches"]["splat"]},
         {**DROPOUT, "launches": train["launches"]["dropout"], **drop_record,
          "bound_by": "bytes", "launches_finetune": ft["launches"]["dropout"],
          "launches_obj_pretrain": obj["launches"]["dropout"],
          "launches_obj_finetune": oft["launches"]["dropout"],
          "launches_ce_pretrain": cep["launches"]["dropout"],
-         "launches_ce": ce["launches"]["dropout"], "launches_ce_etp": etp["launches"]["dropout"]},
+         "launches_ce": ce["launches"]["dropout"], "launches_ce_etp": etp["launches"]["dropout"],
+         "launches_validate": val["launches"]["dropout"],
+         "launches_optim": opt["launches"]["dropout"],
+         "launches_r4r": cfg_runs["r4r_train"]["launches"]["dropout"],
+         "launches_rxr": cfg_runs["rxr_train"]["launches"]["dropout"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -453,3 +453,81 @@ def test_small_ce_replay_update_matches_cpu_on_card(monkeypatch):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=1e-4)
     for n, p in card.wp_model.named_parameters():
         assert torch.equal(p.detach().cpu(), wp_before[n]), n
+
+
+OPTIMIZERS = ["radam", "lamb", "ralamb", "rangerlars", "adam", "adamax", "adamw+ema",
+              "adamw+lookahead", "ralamb+lookahead"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_optimizer_family_matches_cpu_on_card(name, k):
+    """Each optimizer (and gradient accumulation over 2 steps) on a small
+    ``BertLayer`` and ``Embed``, 3 updates from the same parameters and
+    gradients on the card and the CPU: parameters within 1e-5 (float32
+    reductions in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch import nn
+
+    from vln_bevbert_tpu_torch.configs import ModelConfig, OptimConfig
+    from vln_bevbert_tpu_torch.models.bert import BertLayer, Embed
+    from vln_bevbert_tpu_torch.parallel.train_step import TrainState
+
+    cfg = ModelConfig(hidden_size=32, num_attention_heads=2, intermediate_size=64,
+                      dtype="float32")
+    g = torch.Generator().manual_seed(0)
+    models, states = {}, {}
+    for device in ("cpu", "cuda"):
+        model = nn.ModuleDict({"layer": BertLayer(cfg), "emb": Embed(cfg, 50)})
+        g.manual_seed(0)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+        models[device] = model.to(device)
+        states[device] = TrainState(models[device], OptimConfig(
+            optim=name, learning_rate=0.01, warmup_steps=2, num_train_steps=10,
+            gradient_accumulation_steps=k))
+    for _ in range(3 * k):
+        grads = [torch.randn(p.shape, generator=g) for p in models["cpu"].parameters()]
+        for device, model in models.items():
+            for p, grad in zip(model.parameters(), grads):
+                p.grad.copy_(grad)
+            states[device].apply_gradients()
+    assert states["cuda"].tx.count == 3
+    for a, b in zip(models["cuda"].parameters(), models["cpu"].parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_small_validate_matches_cpu_on_card(tmp_path):
+    """``validate`` of a small float32 configuration on the card and on the
+    CPU with the same parameters and batches: every metric within 1e-4 (the
+    splat kernel's and the plain version's sums, float32 in another order),
+    no dropout launch on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    config = tmp_path / "small.json"
+    config.write_text(json.dumps({
+        "model": {"hidden_size": 64, "num_attention_heads": 2, "intermediate_size": 128,
+                  "num_l_layers": 1, "num_pano_layers": 1, "num_x_layers": 1,
+                  "image_feat_size": 32, "bev_grid_feat_size": 24, "dtype": "float32"},
+        "shapes": {"max_gmap_len": 32, "max_local_len": 8, "max_pano_len": 40,
+                   "num_views": 12, "grid_hw": 4},
+    }))
+    trainers = {device: pretrain.build(pretrain.parse_args([
+        "--synthetic", "--device", device, "--batch_size", "4", "--config", str(config),
+        "--output_dir", str(tmp_path / device)])) for device in ("cpu", "cuda")}
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(6)
+        for p in trainers["cpu"].model.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 0.02)
+    trainers["cuda"].model.load_state_dict(trainers["cpu"].model.state_dict())
+    before = _build.launches("dropout")
+    results = {d: t.validate(step=1, num_batches=2) for d, t in trainers.items()}
+    assert _build.launches("dropout") == before
+    assert sorted(results["cuda"]) == sorted(results["cpu"])
+    assert "val_unseen/sem/auc_macro" in results["cuda"]
+    for key, val in results["cpu"].items():
+        assert abs(results["cuda"][key] - val) <= 1e-4, (key, results["cuda"][key], val)

@@ -38,7 +38,7 @@ COPIED = ("configs", "geometry", "data.nav_graph", "data.pathdata", "data.batchi
           "data.loader", "data.feature_db", "data.annotations", "nav.eval_utils", "native",
           "nav.graph_map", "nav.env", "nav.obj_env", "utils.logging", "ce.geometry_ce",
           "ce.env", "ce.graph_map", "ce.control", "ce.dataset", "ce.waypoint_predictor",
-          "ce.inference")
+          "ce.inference", "utils.mlabel", "models.surgery")
 LEFT_OUT = {"data.feature_db": {"fast_cast"}, "ce.waypoint_predictor": {"jax", "jnp"}}
 FORBIDDEN = ("vln_bevbert_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
 
@@ -123,6 +123,13 @@ def check_configs(tmp_path):
         assert_same(dataclasses.asdict(a), dataclasses.asdict(b), cls)
         assert (a.model.num_bev_tokens, a.shapes.num_points) == (
             b.model.num_bev_tokens, b.shapes.num_points)
+    # the R4R and RxR pretraining configurations (RxR: XLM-R's vocabulary)
+    for name, vocab in (("r4r_pretrain.json", 30522), ("rxr_pretrain.json", 250002)):
+        path = os.path.join(REPO, "configs", name)
+        a = jax_cfg.load_config(jax_cfg.PretrainConfig, path)
+        b = port_cfg.load_config(port_cfg.PretrainConfig, path)
+        assert_same(dataclasses.asdict(a), dataclasses.asdict(b), name)
+        assert b.model.vocab_size == vocab
 
 
 def check_synthetic_world(tmp_path):
@@ -461,13 +468,45 @@ def check_ce_waypoint_nms(tmp_path):
             pwp.extract_waypoints(heat, 5, 4, in_train, np.random.default_rng(3)), "waypoints")
 
 
+def check_mlabel(tmp_path):
+    jml, pml = pair("utils.mlabel")
+    rng = np.random.default_rng(0)
+    labels = rng.uniform(size=(80, 6)) < 0.25
+    labels[:, 4] = True  # one label value only: no AUC
+    scores = np.round(rng.uniform(size=(80, 6)) + 0.3 * labels, 2)
+    assert_same(pml.multilabel_report(scores, labels, 0.4, pml.MP3D_CATEGORIES[:6]),
+                jml.multilabel_report(scores, labels, 0.4, jml.MP3D_CATEGORIES[:6]))
+    for k in range(6):
+        assert_same(pml.binary_auc(scores[:, k], labels[:, k]),
+                    jml.binary_auc(scores[:, k], labels[:, k]))
+
+
+def check_surgery(tmp_path):
+    from test_surgery import _small_cfg, synthetic_reference_sd
+
+    jsg, psg = pair("models.surgery")
+    ref = synthetic_reference_sd(_small_cfg(), np.random.default_rng(0))
+    lx = {"module." + k.replace("bert.lang_encoder.layer.", "bert.encoder.layer."): v
+          for k, v in ref.items()}
+    for sd in (ref, lx):
+        assert_same(psg.reference_ckpt_to_tree(psg.lxmert_surgery(sd), 24),
+                    jsg.reference_ckpt_to_tree(jsg.lxmert_surgery(sd), 24))
+    hf = {k.replace("bert.lang_encoder.layer.", "encoder.layer.").removeprefix("bert."): v
+          for k, v in ref.items() if k.startswith(("bert.embeddings.", "bert.lang_encoder."))}
+    assert_same(psg.roberta_surgery(hf), jsg.roberta_surgery(hf))
+    for prefix in ("bert.", "roberta."):
+        sd = {prefix + k: v for k, v in hf.items()}
+        assert_same(psg.hf_bert_to_tree(sd, 2), jsg.hf_bert_to_tree(sd, 2))
+
+
 CHECKS = {"configs": check_configs, "synthetic_world": check_synthetic_world,
           "nav_env": check_nav_env, "pretrain_loader": check_pretrain_loader,
           "dtw_and_floyd": check_dtw_and_floyd, "obj_env": check_obj_env,
           "obj_pretrain_loader": check_obj_pretrain_loader,
           "ce_geometry_and_graph": check_ce_geometry_and_graph,
           "ce_env_and_control": check_ce_env_and_control, "ce_dataset": check_ce_dataset,
-          "ce_waypoint_nms": check_ce_waypoint_nms}
+          "ce_waypoint_nms": check_ce_waypoint_nms, "mlabel": check_mlabel,
+          "surgery": check_surgery}
 
 
 @pytest.mark.parametrize("name", list(CHECKS))
@@ -518,13 +557,22 @@ def test_copied_module_keeps_the_originals_public_names(name):
 
 def test_port_loads_nothing_of_the_jax_package(tmp_path):
     """Every module of the port and chip_smoke import, then the CPU CLI paths
-    run (eval, pretraining, fine-tuning, REVERIE fine-tuning with its object
-    slots, and CE training with its evaluation) at a tiny configuration, in one process that loads no JAX
+    run (eval, pretraining, pretraining over ``--data_root`` with validation
+    and ``ralamb+lookahead`` under gradient accumulation, fine-tuning,
+    REVERIE fine-tuning with its object slots, and CE training with its
+    evaluation) at a tiny configuration, in one process that loads no JAX
     module and no module of the JAX package."""
     from test_torch_ce_cli import ce_configs
     from test_torch_finetune_cli import finetune_config
+    from test_torch_pretrain_cli import write_data_root
 
     (tmp_path / "ce").mkdir()
+    pt = config_file(tmp_path, pretrain_config)
+    real_cfg = json.loads(open(pt).read())
+    real_cfg["optim"].update(optim="ralamb+lookahead", gradient_accumulation_steps=2)
+    real_cfg["valid_steps"] = 2
+    (tmp_path / "real.json").write_text(json.dumps(real_cfg))
+    write_data_root(tmp_path / "data", pt)
 
     code = (
         "import importlib, json, pkgutil, sys\n"
@@ -534,11 +582,17 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "from vln_bevbert_tpu_torch.cli import finetune, pretrain\n"
-        "out, tiny, ft, pt, ce_cfg = sys.argv[1:6]\n"
+        "out, tiny, ft, pt, ce_cfg, real_cfg = sys.argv[1:7]\n"
         "ev = finetune.main(['--synthetic', '--test', '--device', 'cpu', '--config', tiny,\n"
         "                    '--output_dir', out + '/eval'])\n"
         "pre = pretrain.main(['--synthetic', '--device', 'cpu', '--num_steps', '2',\n"
         "                     '--batch_size', '2', '--config', pt, '--output_dir', out + '/pt'])\n"
+        "real = pretrain.main(['--data_root', out + '/data', '--device', 'cpu', '--num_steps',\n"
+        "                      '2', '--batch_size', '2', '--tasks', 'sap.1', '--config',\n"
+        "                      real_cfg, '--output_dir', out + '/real'])\n"
+        "logged = [json.loads(line) for line in open(out + '/real/metrics.jsonl')]\n"
+        "val = [r['val_unseen/sap/loss'] for r in logged if 'val_unseen/sap/loss' in r]\n"
+        "ckpt = __import__('torch').load(out + '/real/ckpt_2', weights_only=True)\n"
         "tr = finetune.main(['--synthetic', '--device', 'cpu', '--iters', '1', '--config', ft,\n"
         "                    '--output_dir', out + '/ft'])\n"
         "rv_cfg = json.load(open(ft))\n"
@@ -557,12 +611,14 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
         "                  tr['val_unseen']['sr'], rv['val_unseen']['sr'],\n"
         "                  rv['val_unseen']['rgs'], rv['val_unseen']['rgspl'],\n"
         "                  100 * ce['success']],\n"
-        "                  'loss': list(pre), 'pred_obj': all('predObjId' in p for p in dump)}))\n"
+        "                  'loss': list(pre), 'pred_obj': all('predObjId' in p for p in dump),\n"
+        "                  'real': list(real), 'val': val, 'count': ckpt['opt_state']['count'],\n"
+        "                  'slow': 'lookahead_0' in ckpt['opt_state']}))\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code, str(tmp_path), config_file(tmp_path, _tiny_config),
-         config_file(tmp_path, finetune_config), config_file(tmp_path, pretrain_config),
-         ce_configs(tmp_path / "ce")[1]],
+         config_file(tmp_path, finetune_config), pt, ce_configs(tmp_path / "ce")[1],
+         str(tmp_path / "real.json")],
         capture_output=True, text=True, timeout=400, cwd=REPO,
         env={**os.environ, "PYTHONPATH": REPO},
     )
@@ -574,3 +630,5 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
             "vln_bevbert_tpu_torch.native", "vln_bevbert_tpu_torch.nav.env",
             "vln_bevbert_tpu_torch.nav.obj_env"} <= set(out["names"])
     assert all(0.0 <= sr <= 100.0 for sr in out["sr"]) and out["loss"] and out["pred_obj"]
+    assert out["real"] and len(out["val"]) == 1 and np.isfinite(out["val"][0])
+    assert out["count"] == 1 and out["slow"]  # 2 steps of accumulation: one update

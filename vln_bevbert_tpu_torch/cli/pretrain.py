@@ -1,35 +1,46 @@
-"""Pretraining CLI (port of the synthetic path of
-``vln_bevbert_tpu/cli/pretrain.py``).
+"""Pretraining CLI (port of ``vln_bevbert_tpu/cli/pretrain.py``).
 
     python -m vln_bevbert_tpu_torch.cli.pretrain --synthetic --device cuda \\
         --num_steps 24 --batch_size 16 --tasks mlm.5.sap.5.masksem.1 --seed 0
+    python -m vln_bevbert_tpu_torch.cli.pretrain --data_root <dir> --init_bert
 
 Arguments are the JAX CLI's plus ``--device`` (default ``cuda``; a CUDA
 device that is missing raises, there is no CPU fallback). ``--synthetic``
 (the default without ``--data_root``, as in the JAX CLI) builds the JAX
 CLI's synthetic world (4 scans x 20 nodes, 256 items) in memory, with
-``DictFeatureDB`` stores and no HDF5.
-Parameters are random, from ``--seed``, or restored with ``--resume <ckpt>``
-(training then runs on to ``--num_steps``). The run ends by saving
-``<output_dir>/ckpt_<step>``. ``--dataset reverie|soon`` gives the model
-object slots (``obj_feat_size`` 768, ``obj_prob_size`` 1000 unless the config
-sets them), as the JAX CLI does; its synthetic world has no object store, as
-the JAX CLI's has none, so object pretraining (mrc, og) runs through the
-library: ``PretrainTrainer`` over a ``TextPathData`` with
-``obj_db=ObjectDB(...)`` (``data.loader.make_synthetic_object_world``). Real
-data (``--data_root``) and ``--init_bert`` are not ported yet.
+``DictFeatureDB`` stores and no HDF5; validation then reads the same world.
+``--data_root`` reads the reference layout (``build_real_db``):
+``connectivity/``, ``scanvp_candview_relangles.json`` if present, the
+annotations ``{dataset}_{split}_enc.jsonl`` (or ``--train_files`` /
+``--val_files``) and the HDF5 stores ``view_fts``, ``grid_fts``, ``depth``
+and ``sem``; validation reads the val_unseen split. Every ``valid_steps``
+steps the trainer validates val_unseen, then saves ``ckpt_<step>``.
+Parameters are random, from ``--seed``; ``--init_bert`` then replaces the
+``bert`` entries that HF ``cfg.model.lang_bert_name`` has (embeddings and the
+language layers; it needs ``transformers`` and the weights in its local
+cache), and ``--resume <ckpt>`` restores a checkpoint (training then runs on
+to ``--num_steps``). The run ends by saving ``<output_dir>/ckpt_<step>``.
+``--dataset reverie|soon`` gives the model object slots (``obj_feat_size``
+768, ``obj_prob_size`` 1000 unless the config sets them), as the JAX CLI
+does; neither its synthetic world nor ``build_real_db`` has an object
+store, as the JAX CLI's have none, so object pretraining (mrc, og) runs
+through the library: ``PretrainTrainer`` over a ``TextPathData`` with
+``obj_db=ObjectDB(...)`` (``data.loader.make_synthetic_object_world``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import tempfile
 
 import numpy as np
 import torch
 
 from ..configs import PretrainConfig, load_config
+from ..data.annotations import read_annotation_file
+from ..data.feature_db import H5FeatureDB
 from ..data.loader import PretrainLoader, make_synthetic_annotations
 from ..data.nav_graph import (
     build_scanvp_cands,
@@ -37,6 +48,7 @@ from ..data.nav_graph import (
     write_synthetic_connectivity,
 )
 from ..data.pathdata import TextPathData
+from ..models import surgery
 from ..pretrain.trainer import PretrainTrainer
 from .finetune import resolve_device, synthetic_feature_dbs
 
@@ -80,6 +92,10 @@ def parse_task_ratio(spec: str):
     return tuple(tasks), tuple(ratios)
 
 
+def _split_files(spec):
+    return [s for s in spec.split(",") if s.strip()] if spec else None
+
+
 def build_synthetic_db(cfg: PretrainConfig, seed: int = 0) -> TextPathData:
     """The JAX CLI's synthetic pretraining world, with the features in memory."""
     rng = np.random.default_rng(seed)
@@ -102,13 +118,56 @@ def build_synthetic_db(cfg: PretrainConfig, seed: int = 0) -> TextPathData:
     )
 
 
+def build_real_db(cfg: PretrainConfig, data_root: str, dataset: str, split: str = "train",
+                  traj_files=None) -> TextPathData:
+    """The reference layout under ``data_root`` (the JAX CLI's
+    ``build_real_db``): graphs from ``connectivity/``, candidates from
+    ``scanvp_candview_relangles.json`` or built from the graphs, the
+    annotations of ``traj_files`` (the reference's ``*_traj_files`` lists)
+    or ``{dataset}_{split}_enc.jsonl``, and the four HDF5 stores."""
+    graphs = load_nav_graphs(os.path.join(data_root, "connectivity"))
+    cands_file = os.path.join(data_root, "scanvp_candview_relangles.json")
+    if os.path.exists(cands_file):
+        with open(cands_file) as f:
+            cands = json.load(f)
+    else:
+        cands = build_scanvp_cands(graphs)
+    if traj_files:
+        annos = [item for path in traj_files for item in read_annotation_file(path)]
+    else:
+        annos = read_annotation_file(os.path.join(data_root, f"{dataset}_{split}_enc.jsonl"))
+    return TextPathData(
+        annos, graphs, cands,
+        view_db=H5FeatureDB(os.path.join(data_root, "view_fts.hdf5")),
+        grid_db=H5FeatureDB(os.path.join(data_root, "grid_fts.hdf5"), dtype=np.float16),
+        depth_db=H5FeatureDB(os.path.join(data_root, "depth.hdf5")),
+        sem_db=H5FeatureDB(os.path.join(data_root, "sem.hdf5"), dtype=np.uint8),
+        image_feat_size=cfg.model.image_feat_size, obj_feat_size=cfg.model.obj_feat_size,
+        obj_prob_size=cfg.model.obj_prob_size, max_txt_len=cfg.shapes.max_txt_len,
+        bev_dim=cfg.model.bev_dim, bev_res=cfg.model.bev_res,
+        num_views=cfg.shapes.num_views,
+        dataset="r2r" if dataset in ("r2r", "r4r") else dataset,
+    )
+
+
+def init_bert(trainer: PretrainTrainer) -> int:
+    """Replace the ``bert`` entries that the HF checkpoint
+    ``cfg.model.lang_bert_name`` maps (``surgery.load_hf_bert``); returns
+    how many were transferred."""
+    m = trainer.cfg.model
+    src = surgery.hf_state_dict(surgery.load_hf_bert(m.lang_bert_name, m.num_l_layers))
+    own = trainer.model.state_dict()
+    bert = {k: v for k, v in own.items() if k.startswith("bert.")}
+    trainer.model.load_state_dict(surgery.transfer_pretrained(src, own))
+    n = surgery.count_transferred(src, bert)
+    print(f"--init_bert: {n} of {len(bert)} bert entries from {m.lang_bert_name}", flush=True)
+    return n
+
+
 def build(args) -> PretrainTrainer:
-    """A trainer on ``args.device`` over the synthetic world's loader, with
-    random parameters or those of ``--resume``."""
-    if args.data_root and not args.synthetic:
-        raise NotImplementedError("--data_root is not ported yet: pass --synthetic")
-    if args.init_bert:
-        raise NotImplementedError("--init_bert is not ported yet")
+    """A trainer on ``args.device`` over the synthetic world's or
+    ``--data_root``'s loaders (train, and val_unseen for validation), with
+    random parameters, then ``--init_bert``'s, then those of ``--resume``."""
     device = resolve_device(args.device)
     # bf16 GEMMs accumulate in float32 end to end, as the JAX einsums do
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -126,9 +185,18 @@ def build(args) -> PretrainTrainer:
     if args.dataset in ("reverie", "soon") and cfg.model.obj_feat_size == 0:
         cfg.model.obj_feat_size = 768
         cfg.model.obj_prob_size = 1000
-    loader = PretrainLoader(build_synthetic_db(cfg, args.seed), cfg, seed=cfg.seed,
-                            num_workers=cfg.num_workers)
-    trainer = PretrainTrainer(cfg, loader, device)
+    if args.synthetic or not args.data_root:
+        nav_db = val_db = build_synthetic_db(cfg, args.seed)
+    else:
+        nav_db = build_real_db(cfg, args.data_root, args.dataset, "train",
+                               _split_files(args.train_files))
+        val_db = build_real_db(cfg, args.data_root, args.dataset, "val_unseen",
+                               _split_files(args.val_files))
+    loader = PretrainLoader(nav_db, cfg, seed=cfg.seed, num_workers=cfg.num_workers)
+    val_loader = PretrainLoader(val_db, cfg, seed=cfg.seed + 1, prefetch=0)
+    trainer = PretrainTrainer(cfg, loader, device, val_loaders={"val_unseen": val_loader})
+    if args.init_bert:
+        init_bert(trainer)
     if args.resume:
         trainer.restore(args.resume)
     return trainer

@@ -1,24 +1,48 @@
-"""Learning-rate schedules, the weight-decay mask and AdamW with a bfloat16
-first moment (port of the ``adamw`` path of ``vln_bevbert_tpu/parallel/optim.py``).
+"""Learning-rate schedules, the weight-decay mask and the optimizer family
+(port of ``make_optimizer(cfg, include_clip=False)`` of
+``vln_bevbert_tpu/parallel/optim.py``).
 
-``AdamW`` computes what ``optax.adamw(mu_dtype=...)`` computes, written as
-``torch._foreach_*`` tensor ops because ``torch.optim.AdamW`` keeps its first
-moment in float32:
+``Optimizer`` computes what the JAX package's optax chain computes, written
+as ``torch._foreach_*`` tensor ops over a list of float32 parameters.
+``cfg.optim`` is ``<base>[+<wrapper>]``:
 
-- ``m = (1 - b1) * g + b1 * m`` where ``b1 * m`` is a product in the
-  moment's storage dtype before the float32 add (``optax.tree.update_moment``
-  on a bfloat16 ``m``: JAX casts the Python scalar ``b1`` to bfloat16, 0.9 ->
-  0.8984375, and rounds the product to bfloat16), ``v = (1 - b2) * g^2 +
-  b2 * v`` in float32;
-- ``u = (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)`` from the float32
-  ``m``, which is then rounded to its storage dtype;
-- ``u += weight_decay * p`` where the mask allows it, then
-  ``p -= lr(t - 1) * u`` (optax evaluates the schedule at the count before
-  the increment).
+- ``adamw``: ``optax.adamw(mu_dtype=...)`` as the jitted JAX step
+  computes it. ``m = (1 - b1) * g + b1 * m`` with ``b1`` cast to the
+  moment's storage dtype (``optax.tree.update_moment`` on a bfloat16 ``m``:
+  0.9 -> 0.8984375) and the product taken in float32 (XLA fuses it into
+  the float32 add; eager JAX would round it to bfloat16 first), ``v = (1 -
+  b2) * g^2 + b2 * v`` in float32; ``u =
+  (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)`` from the float32 ``m``,
+  which is then rounded to its storage dtype; ``u += weight_decay * p``
+  where the mask allows it; the update is ``-lr * u``. The only base whose
+  first moment is stored in ``cfg.mu_dtype``; the others keep float32 state,
+  as optax does.
+- ``adam``, ``radam``, ``adamax``: L2 decay into the gradient first
+  (``add_decayed_weights`` before the optax transform), so the decay enters
+  the moments. ``radam`` rectifies once ``rho_t >= 5``; ``adamax`` divides
+  by ``max(|g| + eps, b2 * v)``.
+- ``lamb``: ``optax.lamb`` (eps 1e-6): the Adam direction plus masked
+  decay, scaled per tensor by ``||p|| / ||u||`` (1 where either is 0).
+- ``ralamb``: the JAX package's own transform, with the reference's quirks:
+  the decay is lr-scaled and applied before the step and not trust-scaled;
+  the trust ratio is ``clip(||p||, 0, 10) / ||candidate||`` over the
+  candidate parameters, 1 where either norm is 0; the rectified direction
+  once ``N_sma >= 5``.
+- ``rangerlars``: ``ralamb`` then ``lookahead(6, 0.5)``.
+- ``+lookahead``: every 6th update lands the parameters on ``slow + 0.5 *
+  (fast - slow)``, which becomes the slow copy; the slow copy is taken from
+  the parameters when the optimizer is built, as in JAX.
+- ``+ema``: ``optax.ema(0.5, debias=False)`` over the *updates*.
+- ``gradient_accumulation_steps`` k > 1: ``optax.MultiSteps``. Every call
+  folds its gradients into a running mean (``acc + (g - acc) / (n + 1)``);
+  only every k-th call runs the update on the mean and moves the
+  parameters. The schedule, the bias corrections and lookahead's sync run
+  on the update count ``count``, not on calls.
 
-The step count and the learning rate live on the host, so an update queues
-device work and reads nothing back. The optimizer family beyond ``adamw`` is
-not ported yet.
+The update count and the learning rate live on the host, so an update
+queues device work and reads nothing back. The JAX package's low-precision
+update paths (``scale_by_adam_lp``, ``fused_adamw_clip``) are not ported:
+a config that selects one raises, naming its fields.
 
 Fine-tuning builds its optimizer in the agent rather than from an
 ``OptimConfig`` (JAX ``nav/agent.py:225-232``); ``finetune_optim`` states it
@@ -28,13 +52,25 @@ every parameter.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence
+import math
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..configs import FinetuneConfig, OptimConfig
 from ..convert import flax_paths
+
+BASES = ("adamw", "adam", "adamax", "radam", "lamb", "ralamb", "rangerlars")
+WRAPPERS = ("", "ema", "lookahead")
+# the JAX config fields that select its low-precision update paths, at the
+# values that leave them off
+LOW_PRECISION_KNOBS = {"nu_dtype": "float32", "grad_dtype": "float32",
+                       "state_sr": False, "fused_update": False}
+LOOKAHEAD_K, LOOKAHEAD_ALPHA = 6, 0.5
+EMA_DECAY = 0.5
+
+Tensors = List[torch.Tensor]
 
 
 def lr_schedule(cfg: OptimConfig) -> Callable[[int], float]:
@@ -85,49 +121,230 @@ def decay_mask(module: nn.Module) -> Dict[str, bool]:
     return out
 
 
-class AdamW:
-    """AdamW over ``params`` (float32) with moments stored as
-    ``cfg.mu_dtype`` / float32; ``decayed[i]`` says whether ``params[i]``
-    takes weight decay."""
+def parse_optim(cfg: OptimConfig) -> Tuple[str, str]:
+    """(base, wrapper) of ``cfg.optim``; raises on a name the JAX factory
+    does not know and on the low-precision knobs that are not ported."""
+    base, _, wrapper = cfg.optim.partition("+")
+    if base not in BASES:
+        raise ValueError(f"unknown optimizer: {cfg.optim}")
+    if wrapper not in WRAPPERS:
+        raise ValueError(f"unknown optimizer wrapper: {wrapper}")
+    if cfg.gradient_accumulation_steps < 1:
+        raise ValueError(f"gradient_accumulation_steps {cfg.gradient_accumulation_steps} < 1")
+    changed = [f"{k}={getattr(cfg, k)!r}" for k, off in LOW_PRECISION_KNOBS.items()
+               if getattr(cfg, k) != off]
+    if changed:
+        raise NotImplementedError(
+            f"{', '.join(changed)}: the JAX package's scale_by_adam_lp and "
+            "fused_adamw_clip update paths are not ported")
+    return base, wrapper
+
+
+def _norms(tensors: Tensors) -> torch.Tensor:
+    """(N,) float32 L2 norms, one per tensor."""
+    return torch.stack(torch._foreach_norm(tensors))
+
+
+class Optimizer:
+    """The optimizer ``cfg.optim`` over ``params`` (float32);
+    ``decayed[i]`` says whether ``params[i]`` takes weight decay. ``update``
+    is one call of the optax chain's ``update`` followed by
+    ``apply_updates``."""
 
     def __init__(self, params: Sequence[torch.Tensor], decayed: Sequence[bool],
                  cfg: OptimConfig):
-        if cfg.optim != "adamw" or cfg.gradient_accumulation_steps != 1:
-            raise NotImplementedError(
-                f"only adamw without gradient accumulation is ported, got "
-                f"{cfg.optim!r} x{cfg.gradient_accumulation_steps}"
-            )
+        self.base, wrapper = parse_optim(cfg)
         self.params = list(params)
         self.decayed = list(decayed)
         self.sched = lr_schedule(cfg)
         self.b1, self.b2 = cfg.betas
-        self.eps = 1e-8
+        self.eps = 1e-6 if self.base == "lamb" else 1e-8  # optax.lamb's default
         self.weight_decay = cfg.weight_decay
-        mu_dtype = getattr(torch, cfg.mu_dtype)
-        self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
+        self.k = cfg.gradient_accumulation_steps
+        mu_dtype = getattr(torch, cfg.mu_dtype) if self.base == "adamw" else torch.float32
+        self.mu = self._zeros(mu_dtype)
         self.b1_mu = torch.tensor(self.b1, dtype=mu_dtype).item()  # b1 as optax's m sees it
-        self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
-        self.count = 0  # updates applied (optax's ``count``)
+        self.nu = self._zeros(torch.float32)
+        # the transforms after the base, in the chain's order, with their state:
+        # lookahead's slow copy is seeded from the parameters, ema's is zeros
+        self.post = (["lookahead"] if self.base == "rangerlars" else []) + (
+            [wrapper] if wrapper else [])
+        self.post_state = [[p.detach().clone() for p in self.params] if kind == "lookahead"
+                           else self._zeros(torch.float32) for kind in self.post]
+        self.acc = self._zeros(torch.float32) if self.k > 1 else []
+        self.count = 0      # updates applied (optax's inner ``count``)
+        self.mini_step = 0  # calls folded into ``acc`` since the last update
+
+    def _zeros(self, dtype) -> Tensors:
+        return [torch.zeros_like(p, dtype=dtype) for p in self.params]
+
+    def buffers(self) -> Dict[str, Tensors]:
+        """The state tensors by name (``mu``, ``nu``, ``<wrapper>_<i>``, ``acc``)."""
+        out = {"mu": self.mu, "nu": self.nu}
+        out.update({f"{kind}_{i}": bufs for i, (kind, bufs)
+                    in enumerate(zip(self.post, self.post_state))})
+        if self.k > 1:
+            out["acc"] = self.acc
+        return out
 
     @torch.no_grad()
-    def update(self, grads: List[torch.Tensor]) -> None:
-        """One update of every parameter from ``grads`` (same order)."""
-        b1, b2 = self.b1, self.b2
+    def update(self, grads: Tensors) -> bool:
+        """Fold ``grads`` (same order as the parameters) in; returns whether
+        the parameters moved (every call, or every k-th with accumulation)."""
+        if self.k > 1:
+            delta = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(delta, float(self.mini_step + 1))
+            torch._foreach_add_(self.acc, delta)
+            if self.mini_step < self.k - 1:
+                self.mini_step += 1
+                return False
+            grads = self.acc
         lr = self.sched(self.count)
         self.count += 1
-        bc1, bc2 = 1.0 - b1 ** self.count, 1.0 - b2 ** self.count
-        m = [t.float() for t in torch._foreach_mul(self.mu, self.b1_mu)]
-        torch._foreach_add_(m, grads, alpha=1.0 - b1)
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
-        denom = torch._foreach_div(self.nu, bc2)
+        upd, scale = getattr(self, f"_{self.base}")(grads, lr)
+        if self.post:
+            if scale != 1.0:
+                torch._foreach_mul_(upd, scale)
+                scale = 1.0
+            for kind, state in zip(self.post, self.post_state):
+                upd = getattr(self, f"_{kind}")(upd, state)
+        torch._foreach_add_(self.params, upd, alpha=scale)
+        if self.k > 1:
+            torch._foreach_zero_(self.acc)
+            self.mini_step = 0
+        return True
+
+    # ------------------------------------------------ bases: (u, scale), update = scale * u
+    def _pick(self, tensors: Tensors) -> Tensors:
+        return [t for t, d in zip(tensors, self.decayed) if d]
+
+    def _l2_decayed(self, grads: Tensors) -> Tensors:
+        """``add_decayed_weights`` before the moments: ``g + wd * p``."""
+        if not self.weight_decay:
+            return grads
+        return [torch.add(g, p, alpha=self.weight_decay) if d else g
+                for g, p, d in zip(grads, self.params, self.decayed)]
+
+    def _moments(self, grads: Tensors) -> None:
+        """float32 ``m = (1 - b1) g + b1 m`` and ``v = (1 - b2) g^2 + b2 v``."""
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
+
+    def _adam_direction(self, m: Tensors) -> Tensors:
+        """``(m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)``."""
+        t = self.count
+        denom = torch._foreach_div(self.nu, 1.0 - self.b2 ** t)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(m, bc1)
+        upd = torch._foreach_div(m, 1.0 - self.b1 ** t)
         torch._foreach_div_(upd, denom)
+        return upd
+
+    def _adamw(self, grads: Tensors, lr: float):
+        m = [t.float() for t in self.mu]
+        torch._foreach_mul_(m, self.b1_mu)
+        torch._foreach_add_(m, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
+        upd = self._adam_direction(m)
         if self.weight_decay and any(self.decayed):
-            pick = lambda ts: [t for t, d in zip(ts, self.decayed) if d]  # noqa: E731
-            torch._foreach_add_(pick(upd), pick(self.params), alpha=self.weight_decay)
-        torch._foreach_add_(self.params, upd, alpha=-lr)
+            torch._foreach_add_(self._pick(upd), self._pick(self.params), alpha=self.weight_decay)
         for dst, src in zip(self.mu, m):
             dst.copy_(src)
+        return upd, -lr
+
+    def _adam(self, grads: Tensors, lr: float):
+        self._moments(self._l2_decayed(grads))
+        return self._adam_direction(self.mu), -lr
+
+    def _adamax(self, grads: Tensors, lr: float):
+        g = self._l2_decayed(grads)
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, g, alpha=1.0 - self.b1)
+        bound = torch._foreach_abs(g)
+        torch._foreach_add_(bound, self.eps)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_maximum_(self.nu, bound)
+        upd = torch._foreach_div(self.mu, 1.0 - self.b1 ** self.count)
+        torch._foreach_div_(upd, self.nu)
+        return upd, -lr
+
+    def _radam(self, grads: Tensors, lr: float):
+        self._moments(self._l2_decayed(grads))
+        t, b2 = self.count, self.b2
+        ro_inf = 2.0 / (1.0 - b2) - 1.0
+        b2t = b2 ** t
+        ro = ro_inf - 2.0 * t * b2t / (1.0 - b2t)
+        upd = torch._foreach_div(self.mu, 1.0 - self.b1 ** t)
+        if ro >= 5.0:
+            r = math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
+                          / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+            denom = torch._foreach_div(self.nu, 1.0 - b2t)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            torch._foreach_mul_(upd, r)
+            torch._foreach_div_(upd, denom)
+        return upd, -lr
+
+    def _lamb(self, grads: Tensors, lr: float):
+        self._moments(grads)
+        upd = self._adam_direction(self.mu)
+        if self.weight_decay and any(self.decayed):
+            torch._foreach_add_(self._pick(upd), self._pick(self.params), alpha=self.weight_decay)
+        p_norm, u_norm = _norms(self.params), _norms(upd)
+        ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                            p_norm / u_norm)
+        torch._foreach_mul_(upd, list(ratio.unbind()))
+        return upd, -lr
+
+    def _ralamb(self, grads: Tensors, lr: float):
+        self._moments(grads)
+        t, b1, b2 = self.count, self.b1, self.b2
+        beta2_t = b2 ** t
+        n_sma_max = 2.0 / (1.0 - b2) - 1.0
+        n_sma = n_sma_max - 2.0 * t * beta2_t / (1.0 - beta2_t)
+        use_rect = n_sma >= 5.0
+        rect = math.sqrt((1.0 - beta2_t) * (n_sma - 4.0) / (n_sma_max - 4.0)
+                         * (n_sma - 2.0) / n_sma * n_sma_max / (n_sma_max - 2.0)
+                         ) if use_rect else 1.0
+        step_lr = rect / (1.0 - b1 ** t) * lr
+        if use_rect:
+            direction = torch._foreach_sqrt(self.nu)
+            torch._foreach_add_(direction, self.eps)
+            direction = torch._foreach_div(self.mu, direction)
+        else:
+            direction = self.mu
+        # p1: the parameters after the lr-scaled decay; the trust ratio
+        # compares ||p|| (clipped to 10) with the candidate p1 - step * dir
+        p1 = torch._foreach_mul(self.params, [self.weight_decay * lr if d else 0.0
+                                              for d in self.decayed])
+        p1 = torch._foreach_sub(self.params, p1)
+        step = torch._foreach_mul(direction, step_lr)
+        w_norm = _norms(self.params).clamp(0.0, 10.0)
+        r_norm = _norms(torch._foreach_sub(p1, step))
+        trust = torch.where((w_norm == 0) | (r_norm == 0), torch.ones_like(w_norm),
+                            w_norm / r_norm)
+        torch._foreach_mul_(step, list(trust.unbind()))
+        upd = torch._foreach_sub(p1, self.params)
+        torch._foreach_sub_(upd, step)
+        return upd, 1.0
+
+    def _rangerlars(self, grads: Tensors, lr: float):
+        return self._ralamb(grads, lr)  # its lookahead is the first post transform
+
+    # ------------------------------------------------ wrappers: updates -> updates
+    def _lookahead(self, upd: Tensors, slow: Tensors) -> Tensors:
+        if self.count % LOOKAHEAD_K:
+            return upd
+        pull = torch._foreach_add(self.params, upd)
+        torch._foreach_sub_(pull, slow)
+        torch._foreach_mul_(pull, LOOKAHEAD_ALPHA)
+        torch._foreach_add_(slow, pull)
+        return torch._foreach_sub(slow, self.params)
+
+    def _ema(self, upd: Tensors, ema: Tensors) -> Tensors:
+        torch._foreach_mul_(ema, EMA_DECAY)
+        torch._foreach_add_(ema, upd, alpha=1.0 - EMA_DECAY)
+        return ema

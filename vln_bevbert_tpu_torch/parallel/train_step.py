@@ -3,11 +3,14 @@
 One step: the device lift-splat of the raw BEV inputs (``prepare_bev``,
 through the CUDA splat kernel on the card), the ``GlocalTextPathCMTPreTraining``
 forward of one proxy task with dropout on (through the CUDA dropout kernel on
-the card), the loss's backward, a float32 global-norm clip and AdamW with a
-bfloat16 first moment. The JAX step is a pure jitted function of its state;
-here ``TrainState`` holds the module's parameters, their gradient buffers
-and the optimizer state, and the step updates them in place. The JAX
-package's scan over a block of steps is a loop of steps here.
+the card), the loss's backward, a float32 global-norm clip of that step's
+gradients and the configured optimizer (``optim.Optimizer``: AdamW with a
+bfloat16 first moment by default; with gradient accumulation it moves the
+parameters every k-th step). The JAX step is a pure jitted function of its
+state; here ``TrainState`` holds the module's parameters, their gradient
+buffers and the optimizer state, and the step updates them in place. The
+JAX package's scan over a block of steps is a loop of steps here.
+``make_eval_fn`` is validation's forward: the same lift-splat, dropout off.
 
 A step queues its device work and reads nothing back: the learning rate and
 step count live on the host, the dropout seeds come from a generator on the
@@ -34,15 +37,16 @@ from ..ops.bev import BevProjector
 from ..ops.dropout import set_dropout_generator
 from ..utils.device import to_device
 from ..utils.rng import make_generator, train_generator
-from .optim import AdamW, decay_mask
+from .optim import Optimizer, decay_mask
 
 Batch = Dict[str, Any]
 
 
 class TrainState:
-    """A module's parameters with persistent gradient buffers, AdamW state
-    and the global-norm clip. Weight decay follows ``decay_mask``, or reaches
-    every parameter with ``decay_all`` (optax's ``mask=None``)."""
+    """A module's parameters with persistent gradient buffers, the state of
+    the optimizer ``cfg.optim`` and the global-norm clip. Weight decay
+    follows ``decay_mask``, or reaches every parameter with ``decay_all``
+    (optax's ``mask=None``)."""
 
     def __init__(self, model: nn.Module, cfg: OptimConfig, decay_all: bool = False):
         names, params = zip(*model.named_parameters())
@@ -53,31 +57,42 @@ class TrainState:
             # zeros, not None: a parameter the task's forward does not reach
             # still gets its moment decay and weight decay, as in optax
             p.grad = torch.zeros_like(p)
-        self.tx = AdamW(self.params, [mask is None or mask[n] for n in names], cfg)
+        self.tx = Optimizer(self.params, [mask is None or mask[n] for n in names], cfg)
         self.clip_norm = float(cfg.grad_norm)
 
     @property
     def step(self) -> int:
-        return self.tx.count
+        """Calls of ``apply_gradients``, as the JAX ``TrainState.step`` counts
+        them: with accumulation, k calls per update (``tx.count``)."""
+        return self.tx.count * self.tx.k + self.tx.mini_step
+
+    def lr(self, step: int) -> float:
+        """The learning rate of the update that call ``step`` (1-based) folds into."""
+        return self.tx.sched((step - 1) // self.tx.k)
 
     def state_dict(self) -> Dict[str, Any]:
-        """The optimizer state by parameter name: ``mu`` (its storage dtype),
-        ``nu`` (float32) and the update ``count``."""
-        return {"mu": dict(zip(self.names, self.tx.mu)),
-                "nu": dict(zip(self.names, self.tx.nu)), "count": self.tx.count}
+        """The optimizer state: the update ``count``, the ``mini_step`` of
+        accumulation, and each state tensor by name, then by parameter name
+        (``mu`` in its storage dtype, ``nu``, a wrapper's, ``acc``)."""
+        return {"count": self.tx.count, "mini_step": self.tx.mini_step,
+                **{key: dict(zip(self.names, bufs)) for key, bufs in self.tx.buffers().items()}}
 
     @torch.no_grad()
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
-        for name, mu, nu in zip(self.names, self.tx.mu, self.tx.nu):
-            mu.copy_(sd["mu"][name])
-            nu.copy_(sd["nu"][name])
+        """Restore ``state_dict``'s output; a file without ``mini_step``
+        (written before accumulation was ported) holds none."""
+        for key, bufs in self.tx.buffers().items():
+            for name, buf in zip(self.names, bufs):
+                buf.copy_(sd[key][name])
         self.tx.count = int(sd["count"])
+        self.tx.mini_step = int(sd.get("mini_step", 0))
 
     def apply_gradients(self) -> torch.Tensor:
         """Clip by the global norm in the step body (one float32 norm pass
         serves the clip and the returned ``grad_norm``), update, and zero the
         gradient buffers. ``g * clip / max(norm, clip)`` is
-        ``optax.clip_by_global_norm``."""
+        ``optax.clip_by_global_norm``; with accumulation each call's
+        gradients are clipped before they are averaged, as in JAX."""
         grads = [p.grad for p in self.params]
         gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         torch._foreach_mul_(grads, self.clip_norm / torch.clamp_min(gnorm, self.clip_norm))
@@ -148,6 +163,25 @@ def make_loss_fn(model: GlocalTextPathCMTPreTraining, projector: BevProjector
         return model(prepare_bev(projector, batch), task)
 
     return loss_fn
+
+
+def make_eval_fn(model: GlocalTextPathCMTPreTraining, projector: BevProjector
+                 ) -> Callable[[Batch, str], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+    """Validation's forward (``eval_fn`` of JAX ``PretrainTrainer.eval_step``):
+    ``loss_fn``'s mlm ids and lift-splat, the model in eval mode (no dropout)
+    under ``torch.inference_mode()``, then training mode as it was."""
+    loss_fn = make_loss_fn(model, projector)
+
+    def eval_fn(batch: Batch, task: str):
+        training = model.training
+        model.eval()
+        try:
+            with torch.inference_mode():
+                return loss_fn(batch, task)
+        finally:
+            model.train(training)
+
+    return eval_fn
 
 
 def make_pretrain_step(model: GlocalTextPathCMTPreTraining, projector: BevProjector

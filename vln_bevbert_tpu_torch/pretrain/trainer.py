@@ -1,12 +1,14 @@
-"""The pretraining loop (port of the step loop of
-``vln_bevbert_tpu/pretrain/trainer.py``): the MetaLoader task schedule of
-``PretrainLoader``, one train step per batch, running meters and
-``MetricLogger`` lines, and checkpoints (parameters, optimizer state and
-step in one torch file ``ckpt_<step>``), saved at every ``valid_steps``
-crossing as the JAX trainer saves. Validation is not ported yet.
+"""The pretraining loop (port of ``vln_bevbert_tpu/pretrain/trainer.py``):
+the MetaLoader task schedule of ``PretrainLoader``, one train step per batch,
+running meters and ``MetricLogger`` lines, validation and checkpoints
+(parameters, optimizer state and step in one torch file ``ckpt_<step>``):
+at every ``valid_steps`` crossing the trainer validates, then saves, as the
+JAX trainer does.
 
 The loop reads each step's metrics back only after it has queued the next
-step, so the card never waits for the host's readback.
+step, so the card never waits for the host's readback. Validation runs the
+model in eval mode under ``torch.inference_mode()``: no dropout, so it draws
+nothing from the dropout generator and leaves training's stream as it was.
 """
 
 from __future__ import annotations
@@ -14,33 +16,40 @@ from __future__ import annotations
 import os
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..configs import PretrainConfig
 from ..data.loader import PretrainLoader
+from ..parallel import train_step
 from ..parallel.train_step import (
     init_pretrain_state,
     load_checkpoint,
+    make_eval_fn,
     make_pretrain_step,
     save_checkpoint,
     upload,
 )
 from ..utils.logging import MetricLogger, RunningMeter
+from ..utils.mlabel import MP3D_CATEGORIES, multilabel_report
 
 
 class PretrainTrainer:
     def __init__(self, cfg: PretrainConfig, train_loader: PretrainLoader, device,
-                 output_dir: Optional[str] = None):
+                 output_dir: Optional[str] = None,
+                 val_loaders: Optional[Dict[str, PretrainLoader]] = None):
         self.cfg = cfg
         self.train_loader = train_loader
+        self.val_loaders = val_loaders or {}
         self.device = torch.device(device)
         self.output_dir = output_dir or cfg.output_dir
         self.logger = MetricLogger(self.output_dir)
         self.model, self.projector, self.state = init_pretrain_state(cfg, cfg.seed,
                                                                      self.device)
         self.step_fn = make_pretrain_step(self.model, self.projector)
+        self.eval_fn = make_eval_fn(self.model, self.projector)
 
     # ------------------------------------------------------------ checkpoints
     def save(self, step: int) -> str:
@@ -49,7 +58,7 @@ class PretrainTrainer:
         return save_checkpoint(path, self.model, self.state, step=self.state.step)
 
     def restore(self, path: str) -> None:
-        """Parameters and optimizer state, whose update count is the step."""
+        """Parameters and optimizer state, whose counts give the step."""
         ckpt = load_checkpoint(path, self.device)
         self.model.load_state_dict(ckpt["params"])
         self.state.load_state_dict(ckpt["opt_state"])
@@ -65,10 +74,11 @@ class PretrainTrainer:
         self.restore(newest)
         return newest
 
+    # ------------------------------------------------------------------ train
     def train(self, num_steps: Optional[int] = None) -> Dict[str, float]:
-        """Train until ``num_steps`` updates (default
-        ``cfg.optim.num_train_steps``); returns the meters' values by
-        "<task>/<metric>"."""
+        """Train until ``num_steps`` steps (default
+        ``cfg.optim.num_train_steps``; with gradient accumulation a step is a
+        micro-step, as in JAX); returns the meters' values by "<task>/<metric>"."""
         num_steps = num_steps or self.cfg.optim.num_train_steps
         meters: Dict[str, RunningMeter] = defaultdict(RunningMeter)
         n_examples, t_start = 0, time.time()
@@ -81,7 +91,7 @@ class PretrainTrainer:
             if step % self.cfg.log_steps == 0:
                 self.logger.log(step, {
                     "train/examples_per_sec": n_examples / (time.time() - t_start),
-                    "train/lr": self.state.tx.sched(step - 1),
+                    "train/lr": self.state.lr(step),
                     **{k: m.value for k, m in meters.items()},
                 })
 
@@ -96,10 +106,78 @@ class PretrainTrainer:
                 if pending is not None:
                     record(*pending)
                 pending = (self.state.step, base, metrics)
-                if self.cfg.valid_steps and self.state.step % self.cfg.valid_steps == 0:
-                    self.save(self.state.step)
+                step = self.state.step
+                if self.cfg.valid_steps and step % self.cfg.valid_steps == 0:
+                    record(*pending)
+                    pending = None
+                    self.validate(step)
+                    self.save(step)
             if pending is not None:
                 record(*pending)
         finally:
             batches.close()  # stops the loader's prefetch thread or workers
         return {k: m.value for k, m in meters.items()}
+
+    # -------------------------------------------------------------- validation
+    def validate(self, step: int, num_batches: int = 8) -> Dict[str, float]:
+        """Per split, the mean loss and metrics of ``num_batches`` batches of
+        every task (batch ``i * num_batches + j`` of task ``i``), and for
+        sem/masksem the macro AUC and F1 over the supervised cells (the JAX
+        trainer's ``validate``); logged at ``step`` and returned as
+        "<split>/<task>/<metric>"."""
+        results: Dict[str, float] = {}
+        for split, loader in self.val_loaders.items():
+            agg = defaultdict(list)
+            sem_scores, sem_labels = [], []
+            for i, task in enumerate(self.cfg.tasks):
+                base = task.split("_")[0]
+                for j in range(num_batches):
+                    _, batch = loader.build_batch(i * num_batches + j, task=task)
+                    batch = upload(batch, self.device)
+                    loss, metrics = self.eval_step(batch, base)
+                    names = ["loss", *metrics]
+                    values = torch.stack([loss.float(), *(v.float() for v in metrics.values())])
+                    for name, val in zip(names, values.tolist()):
+                        agg[f"{split}/{base}/{name}"].append(val)
+                    if base in ("sem", "masksem"):
+                        scores, labels = self.sem_predictions(batch, base)
+                        sem_scores.append(scores)
+                        sem_labels.append(labels)
+            results.update({k: float(np.mean(v)) for k, v in agg.items()})
+            if sem_scores:
+                report = multilabel_report(
+                    np.concatenate(sem_scores), np.concatenate(sem_labels),
+                    class_names=MP3D_CATEGORIES[: self.cfg.model.num_sem_classes])
+                results[f"{split}/sem/auc_macro"] = report["auc_macro"]
+                results[f"{split}/sem/f1_macro"] = report["f1_macro"]
+        if results:
+            self.logger.log(step, results)
+        return results
+
+    def eval_step(self, batch, task: str) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, metrics) of ``task`` on ``batch`` (host arrays or device
+        tensors) with dropout off."""
+        return self.eval_fn(upload(batch, self.device), task)
+
+    def sem_predictions(self, batch, task: str) -> Tuple[np.ndarray, np.ndarray]:
+        """(scores, labels) at the supervised BEV cells, (N, num_sem) each:
+        ``sigmoid(local_sem_head(forward_sem(...)))`` with dropout off; for
+        masksem the features of ``bev_mrc_masks`` cells are zeroed and only
+        those cells count."""
+        model = self.model
+        training = model.training
+        model.eval()
+        try:
+            with torch.inference_mode():
+                b = train_step.prepare_bev(self.projector, upload(batch, self.device))
+                if task == "masksem":
+                    b["bev_fts"] = torch.where(b["bev_mrc_masks"][..., None],
+                                               torch.zeros_like(b["bev_fts"]), b["bev_fts"])
+                embeds = model.bert.forward_sem(b, model.sem_pred_token)
+                scores = torch.sigmoid(model.local_sem_head(embeds).float())
+                sel = b["bev_sem_masks"]
+                if task == "masksem":
+                    sel = sel & b["bev_mrc_masks"]
+                return scores[sel].cpu().numpy(), b["bev_sems"][sel].cpu().numpy()
+        finally:
+            model.train(training)
