@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port's paths (eval, pretraining, fine-tuning, their object
-grounding variants, and continuous-environment pretraining, training, eval
-and inference) at full bert-base width with random seeded
+grounding variants, and continuous-environment pretraining, training, eval,
+inference and DAgger with its stores and env pool) at full bert-base width
+with random seeded
 weights, through the hand-written CUDA kernels, in phases; each phase prints
 one line and a failing phase raises, so the script exits non-zero:
 
@@ -104,7 +105,34 @@ one line and a failing phase raises, so the script exits non-zero:
              per training iteration, per training-rollout and eval step, the
              waypoint predictor's device ms per call, peak memory;
 13. ce_etp - the same with ``--trainer ss-etp --iters 2 --log_every 2``: the
-             topo-only model, so the splat must launch 0 times.
+             topo-only model, so the splat must launch 0 times;
+14. dagger_prevalent - CE DAgger with the PREVALENT policy (``cli.ce_train
+             --trainer dagger --policy prevalent --batch_size 8
+             --dagger_iters 2 --update_size 16 --dagger_epochs 2 --dagger_p
+             0.75``): bert-base with 9 language and 4 cross-modal layers,
+             B=8, T=15, 5 candidates and the stop slot; betas 1 and 0.75,
+             16 episodes a collection into the episode store, BPTT updates
+             from it; dropout launches must equal the dropout calls, the
+             splat launches none; losses finite, every parameter moved;
+             ``ckpt_dagger`` restored into an agent of another seed gives
+             the trained agent's action scores; ms per collection step, ms
+             per BPTT update (CUDA events, without the first), the store's
+             size on disk, peak memory;
+    dagger_bev, dagger_etp - the same with ``--policy bev`` (and ``etp``,
+             1 iteration of 8 episodes) from ce_pretrain's checkpoint: one
+             replay bundle per collection rollout spilled to the
+             recollection store, updates from the store; splat launches must
+             equal the gather-and-splat calls (none for etp); ms per spilled
+             bundle written and read, ms per update from the store;
+15. ce_pool - three SS-BEV training rollouts (B=8, sampled) in process and
+             through the CLI's env pool of 2 and 4 spawned workers, from one
+             seed: equal trajectories; no worker holds the card open; ms per
+             rollout step (all three, and the range of one) and the env's
+             host ms per step.
+
+The dropout phase also holds the kernel to its plain version, forward and
+backward bitwise, at the PREVALENT update's sites (B=8, language bucket 32,
+7 [state; vision] rows).
 
 Launch counts are the operators' own (C++, ``_build.launches``), set to 0
 just before each path and read just after it. The second-to-last line is a
@@ -136,6 +164,14 @@ DROPOUT = {"name": "seeded_dropout", "route": "cuda",
 # (atomics), hence:
 RTOL, ATOL = 1e-5, 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
+PREVALENT_SITES = {
+    "prev_lang_hidden": ((8, 32, 768), torch.bfloat16, 0.1),
+    "prev_lang_attn_probs": ((8, 12, 32, 32), torch.bfloat16, 0.1),
+    "prev_cand": ((8, 6, 768), torch.float32, 0.1),
+    "prev_cross_attn_probs": ((8, 12, 7, 31), torch.bfloat16, 0.1),
+    "prev_self_attn_probs": ((8, 12, 7, 7), torch.bfloat16, 0.1),
+    "prev_x_hidden": ((8, 7, 768), torch.bfloat16, 0.1),
+}
 OG_SHIFT_INVARIANT = ("og_head.fc2.bias", "og_head.ln.bias")
 
 
@@ -173,7 +209,9 @@ def device_ms_by_kernel(fn, iters: int = 10) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # the tracer has returned a session without device events
+    for attempt in range(6):  # the tracer has returned sessions without device events
+        if attempt:
+            time.sleep(0.2)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -185,7 +223,7 @@ def device_ms_by_kernel(fn, iters: int = 10) -> dict:
                 by_name[e.name] = by_name.get(e.name, 0.0) + (r.end - r.start) / 1e3 / iters
         if by_name:
             return by_name
-    raise RuntimeError("torch.profiler recorded no device time in three sessions")
+    raise RuntimeError("torch.profiler recorded no device time in six sessions")
 
 
 def device_ms(fn, iters: int = 10) -> float:
@@ -439,6 +477,14 @@ def dropout_phase() -> dict:
         "ce_feat": ((16, 121, 768), torch.float32, 0.4),
         "ce_replay_attn_probs": ((8, 12, 121, 121), torch.bfloat16, 0.1),
         "ce_replay_pano_hidden": ((120, 44, 768), torch.bfloat16, 0.1),
+        # the PREVALENT BPTT update's at B=8 and the language bucket L=32:
+        # the embeddings and the 9 language layers' outputs and attention
+        # probabilities, then per recurrent step the candidate embeddings
+        # (float32 after visn_ln), and in each cross-modal layer over the
+        # K+1 = 7 [state; vision] rows the cross-attention probabilities
+        # into the L-1 language keys, the self-attention probabilities and
+        # the cross, self and FFN outputs
+        **PREVALENT_SITES,
     }
     record = {"max_abs_err": 0.0, "sites": {}}
     for label, (shape, dtype, rate) in shapes.items():
@@ -461,7 +507,8 @@ def dropout_phase() -> dict:
         row = {"ms": ms, "device_ms": dev_ms, "F_dropout_ms": lib_ms,
                "F_dropout_device_ms": lib_dev_ms, "plain_ms": plain_ms, "bound_ms": bound}
         extra = {}
-        if label in ("hidden", "ft_pano_hidden", "obj_pano_hidden", "ce_replay_pano_hidden"):
+        if label in ("hidden", "ft_pano_hidden", "obj_pano_hidden", "ce_replay_pano_hidden",
+                     "prev_x_hidden"):
             row["host_us"] = host_us(lambda: dropout(x, seeds, rate))
             row["F_dropout_host_us"] = host_us(lambda: F.dropout(x, rate))
             extra = dict(host_us_per_launch=f"{row['host_us']:.2f}",
@@ -517,6 +564,21 @@ def dropout_phase() -> dict:
             f"{int((x.grad != 0).ne(kept & (dy != 0)).sum())} from the forward's mask")
     phase("dropout", edges="rate0 ragged_rows misaligned single_row", backward_mask="equal",
           saved="seeds only", backward_launch="counted")
+
+    # the PREVALENT sites, backward: the kernel on dy with the saved seeds,
+    # bitwise against the plain version, with the forward's mask
+    for label, (shape, dtype, rate) in PREVALENT_SITES.items():
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype).requires_grad_()
+        seeds = draw_seeds(shape[0], g, "cuda")
+        y = dropout(x, seeds, rate)
+        dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        y.backward(dy)
+        kept = dropout_ref(torch.ones_like(dy), seeds, rate) != 0
+        if not (torch.equal(x.grad, dropout_ref(dy, seeds, rate))
+                and torch.equal(x.grad != 0, kept & (dy != 0))):
+            raise AssertionError(f"dropout {label}: the backward differs from the plain version")
+    phase("dropout", prevalent_sites=",".join(PREVALENT_SITES), forward="bitwise",
+          backward="bitwise")
     return record
 
 
@@ -1517,6 +1579,343 @@ def small_ce_phase() -> None:
           trajectories="equal", back_algo=agents["cuda"].cfg.ce_back_algo)
 
 
+DAGGER_ARGV = ["--batch_size", "8", "--allow_random_frozen", "--n_episodes", "16",
+               "--trainer", "dagger", "--dagger_p", "0.75"]
+
+
+def dagger_phase(label: str, out_dir: str, argv: list, pretrain_names=None) -> dict:
+    """``cli.ce_train --trainer dagger`` (``argv``), instrumented: each
+    collection rollout and its steps, each update (the PREVALENT BPTT update
+    between CUDA events; the glocal agent's update from a stored bundle on
+    the host clock, ending in its read-back), each shard written to and read
+    from the store, the gather-and-splat and dropout calls against the
+    kernels' launches, the parameters that moved. Then ``ckpt_dagger``
+    restored into a fresh agent (another seed) must give the trained
+    agent's scores (PREVALENT: the first step's action scores of a stored
+    batch; glocal: the episode loss of a stored bundle), in eval mode."""
+    import numpy as np
+
+    from vln_bevbert_tpu_torch import _build
+    from vln_bevbert_tpu_torch.ce import agent as ce_mod
+    from vln_bevbert_tpu_torch.ce import dagger as dagger_mod
+    from vln_bevbert_tpu_torch.cli import ce_train
+    from vln_bevbert_tpu_torch.nav import agent as nav_mod
+    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
+    from vln_bevbert_tpu_torch.utils import npz_store
+
+    prev, ce, store = dagger_mod.PrevalentDaggerAgent, ce_mod.CEAgent, npz_store.NpzShardStore
+    seen = {"gathers": 0, "drop_fwd": 0, "drop_bwd": 0, "rollouts": [], "events": [],
+            "updates": [], "writes": [], "reads": [], "steps": 0, "agent": None, "start": None}
+    gather, drop_forward = ce_mod.gather_and_splat, drop_mod.Dropout.forward
+
+    def counted_gather(*args):
+        seen["gathers"] += 1
+        return gather(*args)
+
+    def counted_dropout(self, x):
+        y = drop_forward(self, x)
+        if self.training and self.rate > 0 and x.dim() >= 2:
+            seen["drop_fwd"] += 1
+            if y.requires_grad:
+                # the backward launches only where the loss reaches this
+                # output: the last recurrent step's last FFN and
+                # self-attention block feed no later step
+                y.register_hook(lambda g: seen.__setitem__("drop_bwd", seen["drop_bwd"] + 1))
+        return y
+
+    def host_timed(fn, key, sync=True):
+        def wrapper(*args, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            seen[key].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def step_counted(fn):
+        def wrapper(self, *args):
+            seen["steps"] += 1
+            return fn(self, *args)
+        return wrapper
+
+    def rollout_timed(fn):
+        def wrapper(self, *args):
+            steps0, t0 = seen["steps"], time.perf_counter()
+            out = fn(self, *args)
+            torch.cuda.synchronize()
+            seen["rollouts"].append((time.perf_counter() - t0, seen["steps"] - steps0))
+            return out
+        return wrapper
+
+    def evented_update(self, batch):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = update(self, batch)
+        end.record()
+        seen["events"].append((start, end))
+        return out
+
+    def recorded_init(fn):
+        def wrapper(self, *args, **kw):
+            out = fn(self, *args, **kw)
+            seen["agent"] = self
+            seen["start"] = {n: p.detach().cpu().clone()
+                             for n, p in self.model.named_parameters()}
+            return out
+        return wrapper
+
+    update = prev._update
+    patches = [(ce_mod, "gather_and_splat", counted_gather),
+               (drop_mod.Dropout, "forward", counted_dropout),
+               (prev, "_candidate_features", step_counted(prev._candidate_features)),
+               (prev, "_collect_rollout", rollout_timed(prev._collect_rollout)),
+               (prev, "_update", evented_update),
+               (prev, "init_params", recorded_init(prev.init_params)),
+               (ce, "_ce_gmap_variable", step_counted(ce._ce_gmap_variable)),
+               (ce, "_ce_rollout", rollout_timed(ce._ce_rollout)),
+               (ce, "init_params", recorded_init(ce.init_params)),
+               (nav_mod.GMapNavAgent, "learn_from_bundle",
+                host_timed(nav_mod.GMapNavAgent.learn_from_bundle, "updates")),
+               (store, "append", host_timed(store.append, "writes", sync=False)),
+               (store, "get", host_timed(store.get, "reads", sync=False))]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    argv = ["--device", "cuda", "--output_dir", out_dir, *DAGGER_ARGV, *argv]
+    try:
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        history = ce_train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"splat": _build.launches("splat"), "dropout": _build.launches("dropout")}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    agent = seen["agent"]
+    prevalent = isinstance(agent, prev)
+    use_bev = not prevalent and agent.cfg.model.use_bev
+    gathers, drop_calls = seen["gathers"], (seen["drop_fwd"], seen["drop_bwd"])
+    if launches["splat"] != gathers or (gathers > 0) != use_bev:
+        raise AssertionError(f"{label}: {launches['splat']} splat launches for {gathers} "
+                             f"gather-and-splat calls (BEV branch {use_bev})")
+    if launches["dropout"] != sum(drop_calls) or drop_calls[1] == 0:
+        raise AssertionError(f"{label}: {launches['dropout']} dropout launches for "
+                             f"{drop_calls[0]} forward and {drop_calls[1]} backward calls")
+    p = float(argv[argv.index("--dagger_p") + 1])
+    iters = int(argv[argv.index("--dagger_iters") + 1])
+    if history["betas"] != [p ** it if p else 0.0 for it in range(iters)]:
+        raise AssertionError(f"{label}: betas {history['betas']}")
+    losses = agent.logs["loss" if prevalent else "IL_loss"]
+    norms = agent.logs["grad_norm"]
+    values = torch.tensor(losses + norms + history["losses"])
+    if not losses or not torch.isfinite(values).all() or not (values > 0).all():
+        raise AssertionError(f"{label}: losses {losses}, grad norms {norms}")
+    unchanged = [n for n, q in agent.model.named_parameters()
+                 if torch.equal(q.detach().cpu(), seen["start"][n])]
+    if unchanged:
+        raise AssertionError(f"{label}: {len(unchanged)} parameters unchanged: {unchanged[:3]}")
+    nav_names = set(agent.model.state_dict())
+    if pretrain_names is not None and (not nav_names <= pretrain_names
+                                       or agent.transferred != len(nav_names)):
+        raise AssertionError(f"{label}: {agent.transferred} entries transferred of "
+                             f"{len(nav_names)}")
+    store_dir = os.path.join(out_dir, "store")
+    shards = sorted(f for f in os.listdir(store_dir) if f.endswith(".npz"))
+
+    # the checkpoint, restored into a fresh agent of another seed
+    ckpt = os.path.join(out_dir, "ckpt_dagger")
+    _, fresh = ce_train.build(ce_train.parse_args(argv + ["--seed", "1"]))
+    try:
+        fresh.restore_ckpt(ckpt)
+        if prevalent:
+            batch = next(dagger_mod.DaggerEpisodeStore(store_dir).iter_batches(
+                agent.env.batch_size, np.random.default_rng(0)))
+            got, want = (prevalent_first_scores(a, batch) for a in (fresh, agent))
+        else:
+            bundle = store(store_dir).get(0)
+            with torch.inference_mode():
+                got, want = (a._episode_loss(bundle) for a in (fresh, agent))
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: the restored agent scores "
+                                 f"{(got - want).abs().max().item()} away from the trained one")
+    finally:
+        ce_train.close_env(fresh.env)
+    n_params = sum(q.numel() for q in agent.model.parameters())
+    out = {"history": history, "wall_s": wall, "launches": launches, "gathers": gathers,
+           "drop_fwd": drop_calls[0], "drop_bwd": drop_calls[1], "peak_bytes": peak,
+           "params": n_params, "losses": losses, "grad_norms": norms,
+           "store_size": len(shards),
+           "store_bytes": sum(os.path.getsize(os.path.join(store_dir, f)) for f in shards),
+           "transferred": getattr(agent, "transferred", None),
+           "rollouts": len(seen["rollouts"]),
+           "steps": sum(n for _, n in seen["rollouts"]),
+           "ms_per_collect_step": (1e3 * sum(t for t, _ in seen["rollouts"])
+                                   / sum(n for _, n in seen["rollouts"])),
+           "writes": len(seen["writes"]), "reads": len(seen["reads"]),
+           "ms_per_write": 1e3 * sum(seen["writes"]) / len(seen["writes"]),
+           "ms_per_read": 1e3 * sum(seen["reads"]) / len(seen["reads"])}
+    if prevalent:
+        torch.cuda.synchronize()
+        ms = [s.elapsed_time(e) for s, e in seen["events"]]
+        out.update(updates=len(ms), first_update_ms=ms[0],
+                   ms_per_update=sum(ms[1:]) / len(ms[1:]))
+    else:
+        ups = seen["updates"]
+        out.update(updates=len(ups), first_update_ms=1e3 * ups[0],
+                   ms_per_update=1e3 * sum(ups[1:]) / len(ups[1:]))
+    return out
+
+
+def prevalent_first_scores(agent, batch):
+    """The first recurrent step's action scores of a stacked batch, eval mode."""
+    with torch.inference_mode():
+        dev = {k: agent._upload(v) for k, v in batch.items()}
+        h_t, lang = agent.model("language", {"txt_ids": dev["txt_ids"],
+                                             "txt_masks": dev["txt_masks"]})
+        lf = torch.cat([h_t[:, None], lang[:, 1:]], dim=1)
+        _, scores = agent.model("visual", {
+            "lang_embeds": lf, "txt_masks": dev["txt_masks"],
+            **{k: dev[k][:, 0].float() for k in ("cand_rgb", "cand_depth", "cand_dir")},
+            "cand_masks": dev["cand_masks"][:, 0]})
+    return scores
+
+
+def print_dagger(label: str, run: dict) -> None:
+    h = run["history"]
+    extra = {}
+    if run["transferred"] is not None:
+        extra["transferred"] = run["transferred"]
+    phase(label, betas=",".join(f"{b:g}" for b in h["betas"]),
+          collected=",".join(str(n) for n in h["collected"]), store_size=run["store_size"],
+          store_MB_on_disk=f"{run['store_bytes'] / 1e6:.2f}", params=run["params"], **extra,
+          collect_rollouts=run["rollouts"], collect_steps=run["steps"],
+          ms_per_collect_step=f"{run['ms_per_collect_step']:.2f}", updates=run["updates"],
+          ms_per_update=f"{run['ms_per_update']:.2f}",
+          first_update_ms=f"{run['first_update_ms']:.1f}",
+          shards_written=run["writes"], ms_per_shard_write=f"{run['ms_per_write']:.2f}",
+          shards_read=run["reads"], ms_per_shard_read=f"{run['ms_per_read']:.2f}",
+          gathers=run["gathers"], splat_launches=run["launches"]["splat"],
+          dropout_forward_calls=run["drop_fwd"], dropout_backward_calls=run["drop_bwd"],
+          dropout_launches=run["launches"]["dropout"],
+          peak_mem_MiB=f"{run['peak_bytes'] / 2**20:.1f}", wall_s=f"{run['wall_s']:.2f}",
+          loss=",".join(f"{v:.4g}" for v in h["losses"]),
+          grad_norm_last=f"{run['grad_norms'][-1]:.4g}", moved="every parameter",
+          ckpt_dagger_restores="equal scores")
+
+
+def pool_order(episodes: list, workers: int, slots: int, batches: int) -> list:
+    """The episodes in the order a pool of ``workers`` x ``slots`` visits them
+    (worker w takes every ``workers``-th episode from w, ``slots`` a batch):
+    an in-process env over this list sees the same batches, slot by slot."""
+    shares = [episodes[w::workers] for w in range(workers)]
+    return [ep for k in range(batches) for w in range(workers)
+            for ep in shares[w][k * slots:(k + 1) * slots]]
+
+
+def opens_the_card(pid) -> bool:
+    """Whether a process holds a CUDA device file open (a CUDA context does)."""
+    fd_dir = f"/proc/{pid}/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            if os.readlink(os.path.join(fd_dir, fd)).startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            pass
+    return False
+
+
+def ce_pool_phase(out_dir: str, workers=(2, 4), rollouts: int = 3) -> dict:
+    """``rollouts`` SS-BEV training rollouts (sampled, ratio 0.75, B=8, full
+    width; the replay update left out, so every run starts from the same
+    parameters; 16 episodes, so the third rollout starts the second epoch)
+    over the same episodes in process and through ``--num_env_workers`` 2
+    and 4 (the CLI's pool), from one ``np_rng`` seed: equal trajectories.
+    The in-process env visits the episodes in the pool's slot order. Host ms
+    per rollout step over all rollouts and the least and most of one
+    rollout, and the env's host ms per step (time blocked in
+    ``reset``/``begin_observations``/``observations``). No worker holds a
+    CUDA device file open, while the parent does."""
+    import numpy as np
+
+    from vln_bevbert_tpu_torch.ce.env import SyntheticContinuousEnv
+    from vln_bevbert_tpu_torch.cli import ce_train
+
+    argv = ["--device", "cuda", "--batch_size", "8", "--allow_random_frozen", "--n_episodes",
+            "16", "--output_dir", out_dir]
+    cfg, agent = ce_train.build(ce_train.parse_args(argv))
+    agent._learn = lambda lang, records: None
+    episodes, B = agent.env.episodes, cfg.batch_size
+    if not opens_the_card(os.getpid()):
+        raise AssertionError("ce_pool: the parent holds no CUDA device file: the check is blind")
+
+    def run(env):
+        env_s = []
+        for name in ("reset", "begin_observations", "observations"):
+            if hasattr(env, name):
+                fn = getattr(env, name)
+
+                def timed(*a, fn=fn, **kw):
+                    t0 = time.perf_counter()
+                    out = fn(*a, **kw)
+                    env_s.append(time.perf_counter() - t0)
+                    return out
+
+                setattr(env, name, timed)
+        agent.env = env
+        agent.np_rng = np.random.default_rng(cfg.seed)
+        env.reset_epoch()
+        steps, secs, trajs = [], [], []
+        gmap_var = agent._ce_gmap_variable
+        agent._ce_gmap_variable = lambda *a: steps.append(1) or gmap_var(*a)
+        try:
+            for _ in range(rollouts):
+                n0 = len(steps)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trajs += agent.rollout(feedback="sample", train=True, sample_ratio=0.75)[0]
+                torch.cuda.synchronize()
+                secs.append((time.perf_counter() - t0, len(steps) - n0))
+        finally:
+            del agent._ce_gmap_variable
+        per = [1e3 * s / k for s, k in secs]
+        return trajs, {"steps": len(steps), "ms_per_step": 1e3 * sum(s for s, _ in secs) / len(steps),
+                       "ms_range": (min(per), max(per)),
+                       "env_ms_per_step": 1e3 * sum(env_s) / len(steps)}
+
+    out = {}
+    for n in workers:
+        order = pool_order(episodes, n, B // n, len(episodes) // B)
+        inproc = SyntheticContinuousEnv(order, batch_size=B, seed=cfg.seed,
+                                        grid_hw=cfg.shapes.grid_hw,
+                                        grid_feat_size=cfg.model.bev_grid_feat_size,
+                                        view_feat_size=cfg.model.image_feat_size)
+        ref, ref_t = run(inproc)
+        pool = ce_train.build_env(cfg, ce_train.parse_args(argv + ["--num_env_workers", str(n)]))
+        try:
+            got, got_t = run(pool)
+            pids = [w.proc.pid for w in pool.workers]
+            on_card = [pid for pid in pids if opens_the_card(pid)]
+        finally:
+            ce_train.close_env(pool)
+        if on_card:
+            raise AssertionError(f"ce_pool: workers {on_card} hold a CUDA device file open")
+        if len(got) != len(ref) or len(ref) != rollouts * B:
+            raise AssertionError(f"ce_pool: {len(got)} / {len(ref)} trajectories")
+        for a, b in zip(got, ref):
+            if not (a["instr_id"] == b["instr_id"] and a["headings"] == b["headings"]
+                    and np.array_equal(np.stack(a["positions"]), np.stack(b["positions"]))):
+                raise AssertionError(f"ce_pool: {n} workers walk {a['instr_id']} otherwise")
+        out[n] = {"inproc": ref_t, "pool": got_t, "workers": len(pids), "rollouts": rollouts}
+    return out
+
+
 def main() -> None:
     kind = device_phase()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 references stay float32
@@ -1711,6 +2110,38 @@ def main() -> None:
                    ce_argv + ["--trainer", "ss-etp", "--iters", "2", "--log_every", "2"],
                    cep["pretrain_names"], eval_and_infer=False)
     print_ce("ce_etp", etp)
+
+    # CE DAgger at full width: PREVALENT from random weights, the glocal
+    # policies from the CE pretraining checkpoint; 2 iterations of 16
+    # episodes at p 0.75 (the second mixes in policy actions), 2 epochs each
+    free_memory()
+    depth = ["--dagger_iters", "2", "--update_size", "16", "--dagger_epochs", "2"]
+    dag = {"prevalent": dagger_phase("dagger_prevalent",
+                                     os.path.join(work.name, "dagger_prevalent"),
+                                     ["--policy", "prevalent", *depth])}
+    print_dagger("dagger_prevalent", dag["prevalent"])
+    free_memory()
+    dag["bev"] = dagger_phase("dagger_bev", os.path.join(work.name, "dagger_bev"),
+                              ["--policy", "bev", "--pretrain_ckpt", cep["ckpt"], *depth],
+                              cep["pretrain_names"])
+    print_dagger("dagger_bev", dag["bev"])
+    free_memory()
+    dag["etp"] = dagger_phase("dagger_etp", os.path.join(work.name, "dagger_etp"),
+                              ["--policy", "etp", "--pretrain_ckpt", cep["ckpt"],
+                               "--dagger_iters", "1", "--update_size", "8",
+                               "--dagger_epochs", "2"], cep["pretrain_names"])
+    print_dagger("dagger_etp", dag["etp"])
+    free_memory()
+    pool = ce_pool_phase(os.path.join(work.name, "ce_pool"))
+    for n, r in pool.items():
+        phase("ce_pool", workers=n, rollouts=r["rollouts"], steps=r["pool"]["steps"], trajectories="equal",
+              worker_cuda_context="none",
+              ms_per_rollout_step_inprocess=f"{r['inproc']['ms_per_step']:.2f}",
+              ms_per_rollout_step_pool=f"{r['pool']['ms_per_step']:.2f}",
+              rollout_range_inprocess="{:.2f}-{:.2f}".format(*r["inproc"]["ms_range"]),
+              rollout_range_pool="{:.2f}-{:.2f}".format(*r["pool"]["ms_range"]),
+              env_host_ms_per_step_inprocess=f"{r['inproc']['env_ms_per_step']:.2f}",
+              env_host_ms_per_step_pool=f"{r['pool']['env_ms_per_step']:.2f}")
     work.cleanup()
 
     loaded = sorted(k for k in sys.modules if k.split(".")[0] in
@@ -1729,7 +2160,8 @@ def main() -> None:
          "launches_ce_eval": ce["eval_gathers"], "launches_ce_etp": etp["launches"]["splat"],
          "launches_validate": val["launches"]["splat"], "launches_optim": opt["launches"]["splat"],
          "launches_r4r": cfg_runs["r4r_train"]["launches"]["splat"],
-         "launches_rxr": cfg_runs["rxr_train"]["launches"]["splat"]},
+         "launches_rxr": cfg_runs["rxr_train"]["launches"]["splat"],
+         **{f"launches_dagger_{k}": r["launches"]["splat"] for k, r in dag.items()}},
         {**DROPOUT, "launches": train["launches"]["dropout"], **drop_record,
          "bound_by": "bytes", "launches_finetune": ft["launches"]["dropout"],
          "launches_obj_pretrain": obj["launches"]["dropout"],
@@ -1739,7 +2171,8 @@ def main() -> None:
          "launches_validate": val["launches"]["dropout"],
          "launches_optim": opt["launches"]["dropout"],
          "launches_r4r": cfg_runs["r4r_train"]["launches"]["dropout"],
-         "launches_rxr": cfg_runs["rxr_train"]["launches"]["dropout"]},
+         "launches_rxr": cfg_runs["rxr_train"]["launches"]["dropout"],
+         **{f"launches_dagger_{k}": r["launches"]["dropout"] for k, r in dag.items()}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -222,11 +222,11 @@ def test_refused_flags_and_devices(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="allow_random_frozen"):
         cli.build(cli.parse_args(base))
     for flags, slice_name in (
-        (["--trainer", "dagger"], "DAgger"),
         (["--habitat_config", "h.yaml"], "Habitat sensor stack"),
         (["--clip_ckpt", "clip.pt"], "Habitat sensor stack"),
         (["--ddppo_ckpt", "ddppo.pt"], "Habitat sensor stack"),
-        (["--num_env_workers", "2"], "env pool"),
+        (["--trainer", "dagger", "--habitat_config", "h.yaml"], "Habitat sensor stack"),
+        (["--num_env_workers", "2", "--clip_ckpt", "clip.pt"], "Habitat sensor stack"),
     ):
         with pytest.raises(SystemExit, match=f"not ported yet.*{slice_name}"):
             cli.main(base + ["--allow_random_frozen", *flags])

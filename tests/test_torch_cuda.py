@@ -455,6 +455,112 @@ def test_small_ce_replay_update_matches_cpu_on_card(monkeypatch):
         assert torch.equal(p.detach().cpu(), wp_before[n]), n
 
 
+def _shared_dropout_seeds(monkeypatch):
+    """Dropout seeds from one CPU stream per device type, the same on both."""
+    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
+
+    draw, gens = drop_mod.draw_seeds, {}
+
+    def shared_seeds(rows, generator, device):
+        g = gens.setdefault(torch.device(device).type, torch.Generator().manual_seed(5))
+        return draw(rows, g, "cpu").to(device)
+
+    monkeypatch.setattr(drop_mod, "draw_seeds", shared_seeds)
+
+
+@pytest.mark.cuda
+def test_small_prevalent_update_matches_cpu_on_card(monkeypatch, tmp_path):
+    """The PREVALENT policy (hidden 64, float32, dropout on) on the card and
+    on the CPU from the same parameters: a collection at beta 1 stores equal
+    episodes; one BPTT update from the stacked store with the same dropout
+    seeds gives the loss and gradient norm within rtol 1e-4 and parameters
+    within atol 1e-4; the dropout kernel launches on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from vln_bevbert_tpu_torch.ce.dagger import DaggerEpisodeStore, PrevalentDaggerAgent
+    from vln_bevbert_tpu_torch.ce.env import SyntheticContinuousEnv, make_synthetic_ce_episodes
+    from vln_bevbert_tpu_torch.configs import FinetuneConfig, ModelConfig
+
+    cfg = FinetuneConfig(model=ModelConfig(hidden_size=64, num_attention_heads=2,
+                                           intermediate_size=128, image_feat_size=32,
+                                           dtype="float32"),
+                         batch_size=2, max_action_len=4, learning_rate=1e-4)
+    agents, stores = {}, {}
+    for device in ("cpu", "cuda"):
+        env = SyntheticContinuousEnv(make_synthetic_ce_episodes(np.random.default_rng(3), n=4),
+                                     batch_size=2, grid_hw=4, grid_feat_size=24,
+                                     view_feat_size=32, depth_feat_shape=(8, 2, 2))
+        agents[device] = PrevalentDaggerAgent(cfg, env, device=device)
+        agents[device].init_params()
+    cpu, card = agents["cpu"], agents["cuda"]
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(6)
+        for p in cpu.model.parameters():  # no all-zero biases
+            p.add_(torch.randn(p.shape, generator=g) * 0.02)
+        cpu.wp_model.cls_fc2.weight.mul_(100.0)
+    card.model.load_state_dict(cpu.model.state_dict())
+    card.wp_model.load_state_dict(cpu.wp_model.state_dict())
+    for device, agent in agents.items():
+        stores[device] = DaggerEpisodeStore(str(tmp_path / device))
+        assert agent.collect(stores[device], 1, beta=1.0) == 2
+    for i in range(2):
+        a, b = stores["cuda"].get(i), stores["cpu"].get(i)
+        for key in b:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    batch = next(stores["cpu"].iter_batches(2, np.random.default_rng(0)))
+    _shared_dropout_seeds(monkeypatch)
+    before = _build.launches("dropout")
+    out = {d: torch.stack(a._update(batch)).tolist() for d, a in agents.items()}
+    assert _build.launches("dropout") > before
+    torch.testing.assert_close(torch.tensor(out["cuda"]), torch.tensor(out["cpu"]), rtol=1e-4,
+                               atol=0)
+    for a, b in zip(card.model.parameters(), cpu.model.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_small_dagger_bev_store_update_matches_cpu_on_card(monkeypatch, tmp_path):
+    """The glocal CE agent's DAgger store on the card and on the CPU: a
+    collection at beta 1 spills equal bundles (BEV features within 1e-4,
+    float32 on disk), the splat launching once per gather-and-splat call;
+    an epoch over the store with the same dropout seeds gives losses within
+    rtol 1e-4 and parameters within atol 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from vln_bevbert_tpu_torch.ce import agent as ce_mod
+    from vln_bevbert_tpu_torch.nav.recollection import TeacherRecollectionStore
+
+    agents = _small_ce_agents()
+    gathers = []
+    gather = ce_mod.gather_and_splat
+    monkeypatch.setattr(ce_mod, "gather_and_splat",
+                        lambda *a: gathers.append(a[1].device.type) or gather(*a))
+    stores = {d: TeacherRecollectionStore(a, spill_dir=str(tmp_path / d))
+              for d, a in agents.items()}
+    before = _build.launches("splat")
+    for store in stores.values():
+        assert store.collect(1, beta=1.0) == 1
+    assert _build.launches("splat") - before == gathers.count("cuda") > 0
+    a, b = stores["cuda"]._get(0), stores["cpu"]._get(0)
+    assert sorted(a) == sorted(b) and a["bev_fts"].dtype == np.float32
+    for key in b:
+        if key == "bev_fts":
+            np.testing.assert_allclose(a[key], b[key], atol=1e-4, rtol=0)
+        else:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    _shared_dropout_seeds(monkeypatch)
+    before = _build.launches("dropout")
+    losses = {d: s.train_epochs(1, rng=np.random.default_rng(0)) for d, s in stores.items()}
+    assert _build.launches("dropout") > before
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    for p, q in zip(agents["cuda"].model.parameters(), agents["cpu"].model.parameters()):
+        torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=0, atol=1e-4)
+
+
 OPTIMIZERS = ["radam", "lamb", "ralamb", "rangerlars", "adam", "adamax", "adamw+ema",
               "adamw+lookahead", "ralamb+lookahead"]
 

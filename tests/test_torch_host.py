@@ -10,7 +10,8 @@ metrics, the REVERIE/SOON object envs' observations and metrics,
 Floyd graph through the native engine and the Python fallback, and the CE
 host layer (habitat geometry, the synthetic continuous env and its
 low-level controller, the ghost-node map, the VLN-CE loaders, the waypoint
-NMS and sampling). Arrays must be equal; floats computed
+NMS and sampling), and the FIFO npz shard store behind the recollection
+stores. Arrays must be equal; floats computed
 by the same code in the same order must be equal too.
 """
 
@@ -38,7 +39,7 @@ COPIED = ("configs", "geometry", "data.nav_graph", "data.pathdata", "data.batchi
           "data.loader", "data.feature_db", "data.annotations", "nav.eval_utils", "native",
           "nav.graph_map", "nav.env", "nav.obj_env", "utils.logging", "ce.geometry_ce",
           "ce.env", "ce.graph_map", "ce.control", "ce.dataset", "ce.waypoint_predictor",
-          "ce.inference", "utils.mlabel", "models.surgery")
+          "ce.inference", "utils.mlabel", "models.surgery", "utils.npz_store", "ce.env_pool")
 LEFT_OUT = {"data.feature_db": {"fast_cast"}, "ce.waypoint_predictor": {"jax", "jnp"}}
 FORBIDDEN = ("vln_bevbert_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
 
@@ -481,6 +482,29 @@ def check_mlabel(tmp_path):
                     jml.binary_auc(scores[:, k], labels[:, k]))
 
 
+def check_npz_store(tmp_path):
+    """Append with FIFO eviction, reopen (resuming from the highest id),
+    import a foreign file under a fresh id, in both packages: the same file
+    names and the same items."""
+    rng = np.random.default_rng(0)
+    items = [{"a": rng.normal(size=(3, 4)).astype(np.float16),
+              "b": np.arange(i + 2, dtype=np.int32), "m": rng.uniform(size=5) < 0.5}
+             for i in range(5)]
+    foreign = str(tmp_path / "foreign.npz")
+    np.savez_compressed(foreign, **items[0])
+    seen = {}
+    for pkg in ("vln_bevbert_tpu", "vln_bevbert_tpu_torch"):
+        store_mod = importlib.import_module(f"{pkg}.utils.npz_store")
+        d = str(tmp_path / pkg)
+        store = store_mod.NpzShardStore(d, capacity=3)
+        names = [store.append(item) for item in items[:4]]
+        store = store_mod.NpzShardStore(d, capacity=3)
+        names += [store.append(items[4]), store.import_file(foreign)]
+        seen[pkg] = (names, sorted(os.listdir(d)), [store.get(i) for i in range(len(store))])
+    assert_same(seen["vln_bevbert_tpu_torch"], seen["vln_bevbert_tpu"], "npz store")
+    assert os.path.exists(foreign) and len(seen["vln_bevbert_tpu"][1]) == 3
+
+
 def check_surgery(tmp_path):
     from test_surgery import _small_cfg, synthetic_reference_sd
 
@@ -506,7 +530,7 @@ CHECKS = {"configs": check_configs, "synthetic_world": check_synthetic_world,
           "ce_geometry_and_graph": check_ce_geometry_and_graph,
           "ce_env_and_control": check_ce_env_and_control, "ce_dataset": check_ce_dataset,
           "ce_waypoint_nms": check_ce_waypoint_nms, "mlabel": check_mlabel,
-          "surgery": check_surgery}
+          "surgery": check_surgery, "npz_store": check_npz_store}
 
 
 @pytest.mark.parametrize("name", list(CHECKS))
@@ -559,8 +583,9 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
     """Every module of the port and chip_smoke import, then the CPU CLI paths
     run (eval, pretraining, pretraining over ``--data_root`` with validation
     and ``ralamb+lookahead`` under gradient accumulation, fine-tuning,
-    REVERIE fine-tuning with its object slots, and CE training with its
-    evaluation) at a tiny configuration, in one process that loads no JAX
+    REVERIE fine-tuning with its object slots, CE training with its
+    evaluation, and CE DAgger with the PREVALENT policy through a 2-worker
+    env pool) at a tiny configuration, in one process that loads no JAX
     module and no module of the JAX package."""
     from test_torch_ce_cli import ce_configs
     from test_torch_finetune_cli import finetune_config
@@ -606,6 +631,10 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
         "ce = ce_train.main(['--device', 'cpu', '--config', ce_cfg, '--allow_random_frozen',\n"
         "                    '--iters', '1', '--log_every', '1', '--n_episodes', '2',\n"
         "                    '--output_dir', out + '/ce'])\n"
+        "dg = ce_train.main(['--device', 'cpu', '--config', ce_cfg, '--allow_random_frozen',\n"
+        "                    '--trainer', 'dagger', '--policy', 'prevalent', '--dagger_iters',\n"
+        "                    '1', '--update_size', '2', '--dagger_epochs', '1', '--n_episodes',\n"
+        "                    '2', '--num_env_workers', '2', '--output_dir', out + '/dagger'])\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps({'bad': bad, 'names': names, 'sr': [ev['val_unseen']['sr'],\n"
         "                  tr['val_unseen']['sr'], rv['val_unseen']['sr'],\n"
@@ -613,7 +642,8 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
         "                  100 * ce['success']],\n"
         "                  'loss': list(pre), 'pred_obj': all('predObjId' in p for p in dump),\n"
         "                  'real': list(real), 'val': val, 'count': ckpt['opt_state']['count'],\n"
-        "                  'slow': 'lookahead_0' in ckpt['opt_state']}))\n"
+        "                  'slow': 'lookahead_0' in ckpt['opt_state'],\n"
+        "                  'dagger': dg['collected']}))\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code, str(tmp_path), config_file(tmp_path, _tiny_config),
@@ -628,7 +658,11 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
     assert {"vln_bevbert_tpu_torch._build", "vln_bevbert_tpu_torch.data.feature_db",
             "vln_bevbert_tpu_torch.ce.agent", "vln_bevbert_tpu_torch.cli.ce_train",
             "vln_bevbert_tpu_torch.native", "vln_bevbert_tpu_torch.nav.env",
-            "vln_bevbert_tpu_torch.nav.obj_env"} <= set(out["names"])
+            "vln_bevbert_tpu_torch.nav.obj_env", "vln_bevbert_tpu_torch.ce.dagger",
+            "vln_bevbert_tpu_torch.ce.env_pool", "vln_bevbert_tpu_torch.nav.recollection",
+            "vln_bevbert_tpu_torch.models.legacy",
+            "vln_bevbert_tpu_torch.utils.npz_store"} <= set(out["names"])
     assert all(0.0 <= sr <= 100.0 for sr in out["sr"]) and out["loss"] and out["pred_obj"]
     assert out["real"] and len(out["val"]) == 1 and np.isfinite(out["val"][0])
     assert out["count"] == 1 and out["slow"]  # 2 steps of accumulation: one update
+    assert out["dagger"] == [2]

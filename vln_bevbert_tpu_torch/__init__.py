@@ -10,16 +10,20 @@ module: it keeps its own copy of the host layer it runs (``configs``,
 
 Ported so far: the navigation-eval slice (``bevbert-finetune --test``), the
 pretraining train step (``bevbert-pretrain --synthetic``) and DAgger
-fine-tuning (``bevbert-finetune``):
+fine-tuning (``bevbert-finetune``), object grounding, pretraining as users
+run it, and continuous environments (``ce/``: SS-BEV/SS-ETP, eval,
+inference, and the DAgger trainer with its stores and env pool):
 
 - ``ops``      : masking, the BEV projector, the CUDA splat and dropout kernels
 - ``models``   : BERT blocks, the four encoders, the glocal backbone with its
-                 pretraining heads and losses, and the navigation model
+                 pretraining heads and losses, the navigation model, and
+                 Recurrent VLN-BERT (PREVALENT, ``models/legacy.py``)
 - ``convert``  : flax parameter tree <-> ``state_dict``
 - ``parallel`` : AdamW with a bf16 first moment, the train step
 - ``pretrain`` : the trainer over the MetaLoader task schedule
-- ``nav``      : the greedy-eval navigation agent
-- ``cli``      : ``finetune --test``, ``pretrain --synthetic``, profilers
+- ``nav``      : the navigation agent and the teacher-recollection store
+- ``ce``       : continuous environments, the CE DAgger trainer, the env pool
+- ``cli``      : ``finetune``, ``pretrain``, ``ce_train``, profilers
 
 Hand-written CUDA sources live in ``csrc/``; ``csrc/ops.cpp`` binds them as
 ``torch.ops.bevbert`` operators, and ``_build.py`` compiles them with ``nvcc``

@@ -489,6 +489,10 @@ class CEAgent(GMapNavAgent):
                 gmap.delete_ghost(vp)
             if ended.all():
                 break
+            # a subprocess pool (ce/env_pool.py) synthesises the sensors in
+            # its workers: dispatch now, then gather
+            if hasattr(env, "begin_observations"):
+                env.begin_observations()
             obs = env.observations()
         return traj, lang, records
 

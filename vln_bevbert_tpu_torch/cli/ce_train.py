@@ -2,7 +2,7 @@
 ``vln_bevbert_tpu/cli/ce_train.py``): scheduled-sampling SS-BEV or SS-ETP
 training with the sample-ratio decay, evaluation and a ``ckpt_<done>``
 checkpoint every ``log_every`` iterations; evaluation of a checkpoint
-directory; leaderboard inference.
+directory; leaderboard inference; DAgger with a recollection store.
 
     python -m vln_bevbert_tpu_torch.cli.ce_train --allow_random_frozen --batch_size 8 \\
         --pretrain_ckpt runs/ce_pretrain/ckpt_16 --iters 4 --log_every 2
@@ -11,6 +11,8 @@ directory; leaderboard inference.
         --ckpt_path_dir runs/ce
     python -m vln_bevbert_tpu_torch.cli.ce_train --allow_random_frozen --run_type inference \\
         --ckpt_path_dir runs/ce/ckpt_4
+    python -m vln_bevbert_tpu_torch.cli.ce_train --allow_random_frozen --trainer dagger \\
+        --policy prevalent --dagger_iters 2 --update_size 16 --num_env_workers 2
 
 Arguments are the JAX CLI's plus ``--device`` (default ``cuda``; a CUDA
 device that is missing raises, there is no CPU fallback). The world is the
@@ -20,10 +22,20 @@ are single torch files. ``--pretrain_ckpt`` takes a torch checkpoint of the
 port's pretraining (``cli/pretrain.py --config configs/ce_pretrain.json``)
 or of this CLI. ``--waypoint_ckpt`` reads the frozen waypoint predictor
 (``ce/frozen.py``); without it the predictor is random and the run needs
-``--allow_random_frozen``. Not ported yet, and refused: ``--trainer dagger``
-(the CE DAgger trainer with its recollection store), ``--habitat_config``,
-``--clip_ckpt``/``--ddppo_ckpt`` (the Habitat sensor stack) and
-``--num_env_workers`` > 0 (the subprocess env pool).
+``--allow_random_frozen``.
+
+``--trainer dagger`` runs ``ce/dagger.py:run_dagger``: per iteration
+``--update_size`` episodes collected at beta = ``--dagger_p`` ** iteration
+into a store under ``--store_dir`` (default ``<output_dir>/store``, FIFO
+over ``--store_capacity`` episodes), then ``--dagger_epochs`` epochs over
+it; ``dagger/{beta,collected,loss,store_size}`` go to ``metrics.jsonl`` and
+``ckpt_dagger`` is written at the end. ``--policy prevalent`` trains the
+Recurrent VLN-BERT policy by BPTT from a ``DaggerEpisodeStore``; ``bev`` and
+``etp`` (the topo-only model) train the glocal ``CEAgent`` from a
+``TeacherRecollectionStore``. ``--num_env_workers N`` runs the synthetic env
+in N spawned worker processes (``ce/env_pool.py``; the batch must divide
+by N). Not ported yet, and refused: ``--habitat_config`` and
+``--clip_ckpt``/``--ddppo_ckpt`` (the Habitat sensor stack).
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ import numpy as np
 import torch
 
 from ..ce.agent import CEAgent
+from ..ce.dagger import PrevalentDaggerAgent, run_dagger
 from ..ce.env import SyntheticContinuousEnv, make_synthetic_ce_episodes
 from ..configs import FinetuneConfig, load_config
 from ..parallel.train_step import load_checkpoint
@@ -59,19 +72,29 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--test", action="store_true")
     p.add_argument("--trainer", default="ss-bev", choices=["ss-bev", "ss-etp", "dagger"],
-                   help="ss-etp = topo-only ETP architecture; dagger (not ported yet) = "
+                   help="ss-etp = topo-only ETP architecture; dagger = "
                         "recollection-store DAgger training (ref run.py TRAINER_NAME "
                         "registry: SS-BEV / SS-ETP / dagger)")
     p.add_argument("--policy", default="bev", choices=["bev", "etp", "prevalent"],
-                   help="dagger's policy (dagger is not ported yet)")
-    p.add_argument("--dagger_iters", type=int, default=3)
-    p.add_argument("--update_size", type=int, default=32)
-    p.add_argument("--dagger_p", type=float, default=0.75)
-    p.add_argument("--dagger_epochs", type=int, default=2)
-    p.add_argument("--store_dir", default=None)
-    p.add_argument("--store_capacity", type=int, default=None)
+                   help="dagger: policy to train — glocal BEV / topo-only ETP via the "
+                        "replay-bundle store, or the legacy Recurrent VLN-BERT "
+                        "(PREVALENT) via the episode store (ref MODEL.policy_name)")
+    p.add_argument("--dagger_iters", type=int, default=3,
+                   help="dagger iterations (ref IL.DAGGER.iterations)")
+    p.add_argument("--update_size", type=int, default=32,
+                   help="episodes collected per dagger iteration (ref IL.DAGGER.update_size)")
+    p.add_argument("--dagger_p", type=float, default=0.75,
+                   help="teacher-mix decay base: beta = p**iter (ref IL.DAGGER.p)")
+    p.add_argument("--dagger_epochs", type=int, default=2,
+                   help="training epochs over the store per iteration (ref IL.epochs)")
+    p.add_argument("--store_dir", default=None,
+                   help="disk directory of the recollection store (ref "
+                        "IL.DAGGER.lmdb_features_dir; default <output_dir>/store)")
+    p.add_argument("--store_capacity", type=int, default=None,
+                   help="max episodes kept (FIFO eviction); None = unbounded")
     p.add_argument("--num_env_workers", type=int, default=0,
-                   help=">0: subprocess env pool (not ported yet)")
+                   help=">0: subprocess env pool with this many workers "
+                        "(ref env_utils.py NUM_ENVIRONMENTS)")
     p.add_argument("--run_type", default="train", choices=["train", "eval", "inference"],
                    help="ref run.py --run-type: train loop, checkpoint(-dir) "
                         "evaluation, or leaderboard inference")
@@ -117,15 +140,9 @@ def parse_args(argv=None):
 
 def refuse_later_slices(args) -> None:
     """The JAX CLI's paths that this port does not have yet."""
-    if args.trainer == "dagger":
-        raise SystemExit("--trainer dagger is not ported yet: the CE DAgger trainer comes "
-                         "with the recollection store in a later slice")
     if args.habitat_config or args.clip_ckpt or args.ddppo_ckpt:
         raise SystemExit("--habitat_config, --clip_ckpt and --ddppo_ckpt are not ported yet: "
                          "they come with the Habitat sensor stack in a later slice")
-    if args.num_env_workers > 0:
-        raise SystemExit("--num_env_workers > 0 is not ported yet: the subprocess env pool "
-                         "comes with the Habitat sensor stack in a later slice")
 
 
 def build_frozen(args):
@@ -149,7 +166,8 @@ def build_frozen(args):
 
 def make_config(args) -> FinetuneConfig:
     """The JAX CLI's config: file, overrides, the CE BEV (11x11 at 1 m, ref
-    ss_trainer_BEV.py:204-218), the topo-only ETP model for ss-etp."""
+    ss_trainer_BEV.py:204-218), the topo-only ETP model for ss-etp and for
+    dagger's etp policy."""
     overrides = {"seed": args.seed, "output_dir": args.output_dir}
     if args.batch_size:
         overrides["batch_size"] = args.batch_size
@@ -157,7 +175,7 @@ def make_config(args) -> FinetuneConfig:
     if cfg.model.bev_dim == 21:
         cfg.model.bev_dim = 11
         cfg.model.bev_res = 1.0
-    if args.trainer == "ss-etp":
+    if args.trainer == "ss-etp" or (args.trainer == "dagger" and args.policy == "etp"):
         # topo-only: no local BEV branch at all (ref ss_trainer_ETP.py)
         cfg.model.use_bev = False
         cfg.fusion = "global"
@@ -168,9 +186,11 @@ def make_config(args) -> FinetuneConfig:
     return cfg
 
 
-def build_env(cfg: FinetuneConfig, args) -> SyntheticContinuousEnv:
+def build_env(cfg: FinetuneConfig, args):
     """The synthetic continuous environment over synthetic episodes, or over
-    the episodes of ``--data_path`` (with ``--gt_path``'s dense paths)."""
+    the episodes of ``--data_path`` (with ``--gt_path``'s dense paths); with
+    ``--num_env_workers N`` a pool of N spawned workers, each with
+    ``batch_size / N`` slots over every N-th episode."""
     if args.data_path:
         from ..ce.dataset import (apply_gt_paths, load_gt_paths, load_rxr_episodes,
                                   load_vlnce_episodes)
@@ -183,44 +203,94 @@ def build_env(cfg: FinetuneConfig, args) -> SyntheticContinuousEnv:
             apply_gt_paths(episodes, load_gt_paths(args.gt_path))
     else:
         episodes = make_synthetic_ce_episodes(np.random.default_rng(cfg.seed), n=args.n_episodes)
-    return SyntheticContinuousEnv(
-        episodes, batch_size=cfg.batch_size, seed=cfg.seed, grid_hw=cfg.shapes.grid_hw,
-        grid_feat_size=cfg.model.bev_grid_feat_size, view_feat_size=cfg.model.image_feat_size,
-    )
+    env_kwargs = dict(grid_hw=cfg.shapes.grid_hw, grid_feat_size=cfg.model.bev_grid_feat_size,
+                      view_feat_size=cfg.model.image_feat_size)
+    if args.num_env_workers > 0:
+        from ..ce.env_pool import make_synthetic_pool
+
+        if cfg.batch_size % args.num_env_workers:
+            raise SystemExit(f"--num_env_workers {args.num_env_workers} must divide the batch "
+                             f"size {cfg.batch_size}")
+        return make_synthetic_pool(
+            episodes, num_workers=args.num_env_workers,
+            slots_per_worker=cfg.batch_size // args.num_env_workers, seed=cfg.seed, **env_kwargs)
+    return SyntheticContinuousEnv(episodes, batch_size=cfg.batch_size, seed=cfg.seed,
+                                  **env_kwargs)
 
 
 def build(args):
-    """(config, agent on ``args.device`` in its env). The agent's parameters
-    are random from the seed or, with ``--pretrain_ckpt``, transferred from
-    that checkpoint (``agent.transferred`` counts the entries taken)."""
+    """(config, agent on ``args.device`` in its env): a ``CEAgent``, or a
+    ``PrevalentDaggerAgent`` for ``--trainer dagger --policy prevalent``.
+    The glocal agent's parameters are random from the seed or, with
+    ``--pretrain_ckpt``, transferred from that checkpoint
+    (``agent.transferred`` counts the entries taken). A pool's workers are
+    stopped if the agent cannot be built."""
     refuse_later_slices(args)
     device = resolve_device(args.device)
     # bf16 GEMMs accumulate in float32 end to end, as the JAX einsums do
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    prevalent = args.trainer == "dagger" and args.policy == "prevalent"
+    if prevalent and args.pretrain_ckpt:
+        # PREVALENT loads torch-layout state dicts (vlnbert_init.py), not
+        # the glocal pretraining checkpoint
+        raise SystemExit("--pretrain_ckpt is the glocal pretrain tree; the prevalent policy "
+                         "loads torch weights via models.legacy.prevalent_to_tree instead")
     cfg = make_config(args)
     wp_params = build_frozen(args)
-    agent = CEAgent(cfg, build_env(cfg, args), seed=cfg.seed, sample_ratio=args.sample_ratio,
-                    loc_noise=args.loc_noise, ghost_aug=args.ghost_aug,
-                    waypoint_aug=not args.no_waypoint_aug, device=device)
-    pretrained = None
-    if args.pretrain_ckpt:
-        pretrained = load_checkpoint(args.pretrain_ckpt, device)["params"]
-    agent.init_params(pretrained=pretrained, wp_params=wp_params)
-    return cfg, agent
+    env = build_env(cfg, args)
+    try:
+        if prevalent:
+            agent = PrevalentDaggerAgent(cfg, env, seed=cfg.seed, device=device)
+            agent.init_params(wp_params=wp_params)
+            return cfg, agent
+        agent = CEAgent(cfg, env, seed=cfg.seed, sample_ratio=args.sample_ratio,
+                        loc_noise=args.loc_noise, ghost_aug=args.ghost_aug,
+                        waypoint_aug=not args.no_waypoint_aug, device=device)
+        pretrained = None
+        if args.pretrain_ckpt:
+            pretrained = load_checkpoint(args.pretrain_ckpt, device)["params"]
+        agent.init_params(pretrained=pretrained, wp_params=wp_params)
+        return cfg, agent
+    except BaseException:
+        close_env(env)
+        raise
+
+
+def close_env(env) -> None:
+    """Stop a pool's worker processes; an in-process env has nothing to stop."""
+    if hasattr(env, "close"):
+        env.close()
 
 
 def main(argv=None):
     """Train (evaluating and saving ``ckpt_<done>`` every ``log_every``
-    iterations), evaluate (``--run_type eval`` / ``--test``) or write
-    predictions (``--run_type inference``). Returns the last metrics by name,
-    {checkpoint: metrics} for a checkpoint directory, or the predictions."""
+    iterations), run DAgger (``--trainer dagger``), evaluate (``--run_type
+    eval`` / ``--test``) or write predictions (``--run_type inference``).
+    Returns the last metrics by name, DAgger's history, {checkpoint: metrics}
+    for a checkpoint directory, or the predictions. A pool's workers are
+    stopped on every way out."""
     args = parse_args(argv)
     cfg, agent = build(args)
+    try:
+        return run(args, cfg, agent)
+    finally:
+        close_env(agent.env)
+
+
+def run(args, cfg: FinetuneConfig, agent):
     os.makedirs(cfg.output_dir, exist_ok=True)
     logger = MetricLogger(cfg.output_dir)
-    if agent.transferred is not None:
+    if getattr(agent, "transferred", None) is not None:
         logger.log(0, {"pretrain/transferred": agent.transferred,
                        "pretrain/params": len(agent.model.state_dict())})
+
+    if args.trainer == "dagger":
+        history = run_dagger(
+            agent, args.store_dir or os.path.join(cfg.output_dir, "store"), policy=args.policy,
+            dagger_iters=args.dagger_iters, update_size=args.update_size, p=args.dagger_p,
+            epochs=args.dagger_epochs, capacity=args.store_capacity, log_fn=logger.log)
+        agent.save_ckpt(os.path.join(cfg.output_dir, "ckpt_dagger"))
+        return history
 
     if args.run_type == "eval" or args.test:
         from ..ce.inference import evaluate_checkpoint_dir

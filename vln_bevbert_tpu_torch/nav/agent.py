@@ -24,8 +24,8 @@ adds the object cross-entropy against ``_teacher_object``.
 
 The host helpers (``_language_variable`` ... ``_make_equiv_action``) repeat
 the JAX agent's: the port imports nothing of the JAX package. The
-teacher-recollection store, the mesh-sharded replay and the scan-block bench
-probes are not ported yet.
+teacher-recollection store is ``nav/recollection.py``; the mesh-sharded
+replay and the scan-block bench probes are not ported yet.
 """
 
 from __future__ import annotations
