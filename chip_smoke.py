@@ -4,8 +4,9 @@
 
 Drives the port's paths (eval, pretraining, fine-tuning, their object
 grounding variants, and continuous-environment pretraining, training, eval,
-inference and DAgger with its stores and env pool) at full bert-base width
-with random seeded
+inference and DAgger with its stores and env pool, and CE training over the
+Habitat sensor stack with the frozen CLIP and DDPPO towers) at full
+bert-base width with random seeded
 weights, through the hand-written CUDA kernels, in phases; each phase prints
 one line and a failing phase raises, so the script exits non-zero:
 
@@ -106,6 +107,22 @@ one line and a failing phase raises, so the script exits non-zero:
              waypoint predictor's device ms per call, peak memory;
 13. ce_etp - the same with ``--trainer ss-etp --iters 2 --log_every 2``: the
              topo-only model, so the splat must launch 0 times;
+    habitat - the Habitat sensor stack over a stand-in ``habitat`` module
+             (this script's: seeded pose-dependent 224x224 RGB and 256x256
+             depth, round obstacles; the simulator only) with checkpoint
+             files written from seeds: the full-width CLIP ViT-B/16 and
+             DDPPO ResNet-50 on the card against the CPU on one 12-view
+             ring (pooled, grid, the DDPPO map within rtol 1e-3 atol 1e-3);
+             then ``cli.ce_train --trainer ss-bev --habitat_config
+             --clip_ckpt --ddppo_ckpt --batch_size 8 --iters 2 --log_every 2``
+             from ce_pretrain's checkpoint, checked as ``ce`` is, its
+             evaluation walking with low-level control; the towers' calls
+             per step, CLIP ms per 12-view call and DDPPO ms per 12-frame
+             call, an env's render and preprocess host ms, the grid's round
+             trip to the host and back;
+    precompute - the precompute pipeline's towers at full width over
+             ``SyntheticImageSource`` frames: ms per viewpoint for the 36
+             views, the 12-view ring and the 36 depth views;
 14. dagger_prevalent - CE DAgger with the PREVALENT policy (``cli.ce_train
              --trainer dagger --policy prevalent --batch_size 8
              --dagger_iters 2 --update_size 16 --dagger_epochs 2 --dagger_p
@@ -229,6 +246,245 @@ def device_ms_by_kernel(fn, iters: int = 10) -> dict:
 def device_ms(fn, iters: int = 10) -> float:
     """Mean device milliseconds per call of all the kernels ``fn`` runs."""
     return sum(device_ms_by_kernel(fn, iters).values())
+
+
+# ------------------------------------------------------ habitat stand-in
+# The card machine has no habitat-sim. The habitat phase drives the port's
+# binding (``ce/habitat_binding.py``) over this stand-in of the simulator's
+# surface: the one ``tests/test_binding_mocks.py`` fakes, plus
+# ``get_config`` and ``make_dataset``. It renders seeded, pose-dependent
+# frames; the towers, the splat and the dropout all run on the card.
+class _Node(dict):
+    """A habitat config node: attribute access, ``defrost``/``freeze``."""
+
+    __getattr__ = dict.get
+
+    def __setattr__(self, key, value):
+        self[key] = value
+
+    def defrost(self):
+        pass
+
+    def freeze(self):
+        pass
+
+
+def _node(tree):
+    return _Node({k: _node(v) for k, v in tree.items()}) if isinstance(tree, dict) else tree
+
+
+class _Quat:
+    """habitat-sim's quaternion: coefficients as attributes."""
+
+    def __init__(self, q):
+        self.x, self.y, self.z, self.w = ((q.x, q.y, q.z, q.w) if hasattr(q, "x")
+                                          else (float(v) for v in q))
+
+
+class StandInSim:
+    """Agent state, a renderer, a navmesh step filter and a geodesic oracle
+    over an open plane with round obstacles (motion into one stops at the
+    start). A view is a window of a seeded panoramic texture, shifted by
+    the agent's heading and position, RGB ``rgb_hw`` square uint8 and depth
+    ``depth_hw`` square in [0, 1] with some zero (no-return) pixels."""
+
+    def __init__(self, config):
+        import numpy as np
+
+        sim = config.SIMULATOR
+        self.rgb_hw, self.depth_hw = sim.RGB_SENSOR.WIDTH, sim.DEPTH_SENSOR.WIDTH
+        rng = np.random.default_rng(config.SEED)
+        self.rgb_tex = rng.integers(0, 256, (self.rgb_hw, 4 * self.rgb_hw, 3), dtype=np.uint8)
+        depth = rng.uniform(0.05, 1.0, (self.depth_hw, 4 * self.depth_hw)).astype(np.float32)
+        depth[rng.random(depth.shape) < 0.03] = 0.0
+        self.depth_tex = depth
+        self.obstacles = np.asarray(config.OBSTACLES, np.float64).reshape(-1, 3)
+        self.position = np.zeros(3)
+        self.rotation = _Quat([0.0, 0.0, 0.0, 1.0])
+
+    def get_agent_state(self):
+        from types import SimpleNamespace
+
+        return SimpleNamespace(position=self.position.copy(), rotation=self.rotation)
+
+    def set_agent_state(self, position, rotation, reset_sensors=True):
+        import numpy as np
+
+        self.position = np.asarray(position, np.float64).copy()
+        self.rotation = _Quat(rotation)
+        return True
+
+    def get_sensor_observations(self):
+        import math
+
+        import numpy as np
+
+        q = self.rotation
+        heading = 2.0 * math.atan2(q.y, q.w)
+        shift = heading / (2 * math.pi) + 0.37 * self.position[0] + 0.61 * self.position[2]
+        rgb_cols = (np.arange(self.rgb_hw) + int(shift * 4 * self.rgb_hw)) % (4 * self.rgb_hw)
+        d_cols = (np.arange(self.depth_hw) + int(shift * 4 * self.depth_hw)) % (4 * self.depth_hw)
+        scale = 0.6 + 0.4 * abs(math.sin(self.position[0] + 2.0 * self.position[2]))
+        return {"rgb": self.rgb_tex[:, rgb_cols], "depth": self.depth_tex[:, d_cols] * scale}
+
+    def step_filter(self, start, target):
+        import numpy as np
+
+        target = np.asarray(target, np.float64)
+        d = np.hypot(target[0] - self.obstacles[:, 0], target[2] - self.obstacles[:, 1])
+        return np.asarray(start, np.float64) if (d < self.obstacles[:, 2]).any() else target
+
+    def geodesic_distance(self, a, b):
+        import numpy as np
+
+        return float(np.linalg.norm(np.asarray(a, np.float64) - np.asarray(b, np.float64)))
+
+
+class StandInEnv:
+    def __init__(self, config):
+        self.sim = StandInSim(config)
+        self.current_episode = None
+
+    def reset(self):
+        ep = self.current_episode
+        self.sim.set_agent_state(ep.start_position, ep.start_rotation)
+
+
+def stand_in_episodes(config):
+    """``make_dataset``: seeded R2R-CE-like episodes on the open plane."""
+    import math
+    from types import SimpleNamespace as NS
+
+    import numpy as np
+
+    rng = np.random.default_rng(config.SEED)
+    episodes = []
+    for i in range(config.NUM_EPISODES):
+        start = np.array([rng.uniform(-2, 2), 0.0, rng.uniform(-2, 2)])
+        path = [start]
+        for _ in range(int(rng.integers(3, 6))):
+            ang = rng.uniform(0, 2 * math.pi)
+            path.append(path[-1] + rng.uniform(1.5, 3.0) * np.array([-math.sin(ang), 0.0,
+                                                                      -math.cos(ang)]))
+        heading = float(rng.uniform(0, 2 * math.pi))
+        episodes.append(NS(
+            episode_id=f"{config.SPLIT}_{i}", scene_id="stand_in",
+            instruction=NS(instruction_tokens=rng.integers(
+                1000, 2000, int(rng.integers(12, 40))).tolist()),
+            reference_path=[p.tolist() for p in path], goals=[NS(position=path[-1].tolist())],
+            start_position=start.tolist(),
+            start_rotation=[0.0, math.sin(heading / 2), 0.0, math.cos(heading / 2)]))
+    return NS(episodes=episodes)
+
+
+def habitat_stand_in():
+    """The stand-in ``habitat`` module, for ``sys.modules["habitat"]``."""
+    import types
+
+    def get_config(path):
+        with open(path) as f:
+            return _node(json.load(f))  # JSON is YAML
+
+    def make_dataset(kind, config):
+        if kind != "StandIn-v1":
+            raise ValueError(f"unknown dataset type {kind}")
+        return stand_in_episodes(config)
+
+    mod = types.ModuleType("habitat")
+    mod.Env, mod.get_config, mod.make_dataset = StandInEnv, get_config, make_dataset
+    return mod
+
+
+def write_habitat_config(path: str, rgb_hw: int = 224, depth_hw: int = 256,
+                         episodes: int = 16, seed: int = 0) -> str:
+    """A stand-in habitat config: the sensors, the dataset, the obstacles."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    obstacles = [[float(rng.uniform(-6, 6)), float(rng.uniform(-6, 6)), 0.5] for _ in range(6)]
+    cfg = {"SEED": seed, "OBSTACLES": obstacles,
+           "SIMULATOR": {"RGB_SENSOR": {"WIDTH": rgb_hw, "HEIGHT": rgb_hw},
+                         "DEPTH_SENSOR": {"WIDTH": depth_hw, "HEIGHT": depth_hw}},
+           "DATASET": {"TYPE": "StandIn-v1", "SPLIT": "train", "DATA_PATH": "stand_in",
+                       "NUM_EPISODES": episodes, "SEED": seed}}
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def hf_clip_state_dict(hidden=768, inter=3072, layers=12, patch=16, image=224, seed=0):
+    """A random state dict in HF ``CLIPVisionModel`` layout (names and
+    shapes of openai/clip-vit-base-patch16 at the defaults), from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shapes = {"embeddings.class_embedding": (hidden,),
+              "embeddings.patch_embedding.weight": (hidden, 3, patch, patch),
+              "embeddings.position_embedding.weight": ((image // patch) ** 2 + 1, hidden)}
+    norms = ["pre_layrnorm", "post_layernorm"]
+    for i in range(layers):
+        p = f"encoder.layers.{i}"
+        for n in ("q", "k", "v", "out"):
+            shapes[f"{p}.self_attn.{n}_proj.weight"] = (hidden, hidden)
+            shapes[f"{p}.self_attn.{n}_proj.bias"] = (hidden,)
+        shapes.update({f"{p}.mlp.fc1.weight": (inter, hidden), f"{p}.mlp.fc1.bias": (inter,),
+                       f"{p}.mlp.fc2.weight": (hidden, inter), f"{p}.mlp.fc2.bias": (hidden,)})
+        norms += [f"{p}.layer_norm1", f"{p}.layer_norm2"]
+    for n in norms:
+        shapes[f"{n}.weight"] = shapes[f"{n}.bias"] = (hidden,)
+    out = {}
+    for name, shape in shapes.items():
+        mean = 1.0 if name.endswith(".weight") and len(shape) == 1 else 0.0
+        out["vision_model." + name] = torch.from_numpy(
+            rng.normal(mean, 0.02, shape).astype(np.float32))
+    return out
+
+
+def ddppo_checkpoint(baseplanes=32, layers=(3, 4, 6, 3), channels=128, seed=0):
+    """A random DDPPO point-nav checkpoint: ``state_dict`` holding the
+    visual encoder under ``actor_critic.net.visual_encoder.`` (the
+    published gibson-2plus-resnet50.pth layout) beside a policy head the
+    surgery leaves out, from a seed. Convolutions He-scaled, GroupNorm
+    scales near 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shapes, inplanes, planes = {}, baseplanes, baseplanes
+
+    def conv(name, o, i, k):
+        shapes[f"{name}.weight"] = (o, i, k, k)
+
+    def gn(name, c):
+        shapes[f"{name}.weight"] = shapes[f"{name}.bias"] = (c,)
+
+    conv("backbone.conv1", baseplanes, 1, 7)
+    gn("backbone.bn1", baseplanes)
+    for stage, blocks in enumerate(layers):
+        for b in range(blocks):
+            p, stride = f"backbone.layer{stage + 1}.{b}", 2 if (b == 0 and stage > 0) else 1
+            conv(f"{p}.convs.0", planes, inplanes, 1)
+            gn(f"{p}.convs.1", planes)
+            conv(f"{p}.convs.3", planes, planes, 3)
+            gn(f"{p}.convs.4", planes)
+            conv(f"{p}.convs.6", 4 * planes, planes, 1)
+            gn(f"{p}.convs.7", 4 * planes)
+            if inplanes != 4 * planes or stride != 1:
+                conv(f"{p}.downsample.0", 4 * planes, inplanes, 1)
+                gn(f"{p}.downsample.1", 4 * planes)
+            inplanes = 4 * planes
+        if stage < len(layers) - 1:
+            planes *= 2
+    conv("compression.0", channels, inplanes, 3)
+    gn("compression.1", channels)
+    sd = {}
+    for name, shape in shapes.items():
+        if len(shape) == 4:
+            val = rng.normal(0.0, (2.0 / np.prod(shape[1:])) ** 0.5, shape)
+        else:
+            val = rng.normal(1.0 if name.endswith(".weight") else 0.0, 0.1, shape)
+        sd["actor_critic.net.visual_encoder." + name] = torch.from_numpy(val.astype(np.float32))
+    sd["actor_critic.action_distribution.linear.weight"] = torch.zeros(4, 512)
+    return {"state_dict": sd}
 
 
 # ------------------------------------------------------------------ phases
@@ -1579,6 +1835,229 @@ def small_ce_phase() -> None:
           trajectories="equal", back_algo=agents["cuda"].cfg.ce_back_algo)
 
 
+# card against CPU for the full-width towers, strict float32 on both: sums
+# over K = 768-3072 in another order, through 12 layers
+TOWER_RTOL, TOWER_ATOL = 1e-3, 1e-3
+
+
+def write_tower_files(out_dir: str) -> tuple:
+    """The full-width frozen towers' checkpoint files from seeds: CLIP
+    ViT-B/16 in HF ``CLIPVisionModel`` layout, the DDPPO ResNet-50 in the
+    published ``actor_critic.net.visual_encoder.*`` layout."""
+    os.makedirs(out_dir, exist_ok=True)
+    clip, ddppo = os.path.join(out_dir, "clip_vit_b16.pt"), os.path.join(out_dir, "ddppo.pth")
+    torch.save(hf_clip_state_dict(seed=11), clip)
+    torch.save(ddppo_checkpoint(seed=12), ddppo)
+    return clip, ddppo
+
+
+def habitat_phase(out_dir: str, pretrain_ckpt: str, pretrain_names: set) -> dict:
+    """The Habitat path over the stand-in simulator: the full-width towers
+    on the card against the CPU on one 12-view ring; then ``cli.ce_train
+    --trainer ss-bev --habitat_config --clip_ckpt --ddppo_ckpt`` from the CE
+    pretraining checkpoint, instrumented as ``ce`` is, with the towers'
+    calls and the controller's steps counted; then the low-level control
+    of the evaluation's back-tracking on the binding (an argmax evaluation
+    after 2 iterations may stop at once): a walk into an obstacle and a free
+    one must move and call ``rotate`` and ``forward_step``; the step's parts
+    timed alone: an env's render and depth pooling and its frames' CLIP
+    preprocessing (host), a 12-view CLIP and a 12-frame DDPPO call (CUDA
+    events), an env's grid round trip to the host and back (host clock
+    around a sync)."""
+    import numpy as np
+
+    from vln_bevbert_tpu_torch.ce import habitat_binding as hb_mod
+    from vln_bevbert_tpu_torch.ce.control import LowLevelController
+    from vln_bevbert_tpu_torch.ce.frozen import (DeviceDepthEncoder, load_clip_params,
+                                                 load_depth_params)
+    from vln_bevbert_tpu_torch.models.clip import preprocess
+    from vln_bevbert_tpu_torch.precompute.pipeline import DeviceClipEncoder
+
+    clip_path, ddppo_path = write_tower_files(out_dir)
+    config = write_habitat_config(os.path.join(out_dir, "stand_in.yaml"))
+    saved_habitat = sys.modules.get("habitat")
+    sys.modules["habitat"] = habitat_stand_in()
+    counts = {"clip": 0, "ddppo": 0, "observations": 0, "forward_step": 0, "rotate": 0}
+    patches = [(hb_mod.HabitatContinuousEnv, "observations", "observations"),
+               (DeviceClipEncoder, "encode_views", "clip"),
+               (DeviceClipEncoder, "encode_grids", "clip"),
+               (DeviceDepthEncoder, "spatial", "ddppo"),
+               (hb_mod.HabitatContinuousEnv, "forward_step", "forward_step"),
+               (hb_mod.HabitatContinuousEnv, "rotate", "rotate")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    try:
+        # 1. one ring of the stand-in's frames through both towers on both devices
+        ring_env = hb_mod.make_habitat_env(config, 1)
+        ring_env.reset()
+        env0 = ring_env.envs[0]
+        state = env0.sim.get_agent_state()
+        views = [ring_env._render_at(env0.sim, state.position,
+                                     ring_env._heading(state) + k * 2 * np.pi / 12)
+                 for k in range(12)]
+        rgb = np.stack([v["rgb"] for v in views])
+        depth = np.stack([v["depth"] for v in views])
+        clip_params, ddppo_params = load_clip_params(clip_path), load_depth_params(ddppo_path)
+        outs, errs = {}, {}
+        for device in ("cpu", "cuda"):
+            clip = DeviceClipEncoder(clip_params, device=device)
+            ddppo = DeviceDepthEncoder(ddppo_params, device=device)
+            outs[device] = {"pooled": clip.encode_views(rgb), "grid": clip.encode_grids(rgb),
+                            "ddppo_map": ddppo.spatial(depth)}
+        width, n_patches = clip.feat_size, clip.tower.position_embedding.shape[0] - 1
+        want_shapes = {"pooled": (12, width), "grid": (12, n_patches, width),
+                       "ddppo_map": (12, *ddppo.feat_shape)}
+        for key, ref in outs["cpu"].items():
+            got = outs["cuda"][key]
+            errs[key] = float(np.abs(got - ref).max())
+            if got.shape != want_shapes[key] or not np.isfinite(got).all() or not np.allclose(
+                    got, ref, rtol=TOWER_RTOL, atol=TOWER_ATOL):
+                raise AssertionError(f"habitat: {key} {got.shape}, card vs CPU {errs[key]:.3e}")
+        tower_params = {"clip": sum(p.numel() for p in clip.tower.parameters()),
+                        "ddppo": sum(p.numel() for p in ddppo.model.parameters())}
+
+        # the step's parts alone
+        x = torch.from_numpy(preprocess(rgb)).to("cuda")
+        d = torch.from_numpy(depth).to("cuda")
+        with torch.inference_mode():
+            clip_ms = cuda_ms(lambda: clip.tower(x), iters=10)
+            ddppo_ms = cuda_ms(lambda: ddppo.model(d), iters=10)
+            grid = clip.tower(x)["grid"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            torch.from_numpy(grid.cpu().numpy()).to("cuda")
+        torch.cuda.synchronize()
+        round_trip_ms = 1e3 * (time.perf_counter() - t0) / 10
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ring_env._camera_ring(env0.sim, state)  # no towers: render, pool, stack
+        render_ms = 1e3 * (time.perf_counter() - t0) / 3
+        t0 = time.perf_counter()
+        for _ in range(3):
+            preprocess(rgb)
+            preprocess(rgb)
+        preprocess_ms = 1e3 * (time.perf_counter() - t0) / 3
+        del clip, ddppo, x, d, grid, outs
+        free_memory()
+
+        # 2. the CLI, instrumented
+        def counting(fn, key):
+            def counted(*args, **kw):
+                counts[key] += 1
+                return fn(*args, **kw)
+            return counted
+
+        for obj, name, key in patches:
+            setattr(obj, name, counting(getattr(obj, name), key))
+        argv = ["--batch_size", "8", "--allow_random_frozen", "--pretrain_ckpt", pretrain_ckpt,
+                "--n_episodes", "16", "--trainer", "ss-bev", "--iters", "2", "--log_every", "2",
+                "--habitat_config", config, "--clip_ckpt", clip_path, "--ddppo_ckpt", ddppo_path]
+        run = ce_phase("habitat", os.path.join(out_dir, "run"), argv, pretrain_names,
+                       eval_and_infer=False)
+        cli_counts = dict(counts)
+
+        # 3. the evaluation's back-tracking control on the binding, whatever
+        # the policy chose: a walk into an obstacle (a collision, the tryout
+        # recovery) and a free one
+        ctrl_env = hb_mod.make_habitat_env(config, 2)
+        ctrl_env.reset()
+        ctrl = LowLevelController(ctrl_env, np.random.default_rng(0))
+        cx, cz, r = ctrl_env.envs[0].sim.obstacles[0]
+        ctrl_env.teleport(0, [cx, 0.0, cz + r + 0.3], heading=0.0)
+        free_start = ctrl_env.positions[1].copy()
+        collided = []
+        for slot, ghost in ((0, [cx, 0.0, cz - r - 1.0]), (1, free_start + [1.5, 0.0, -1.5])):
+            start = ctrl_env.positions[slot].copy()
+            ctrl.execute(slot, {"act": 4, "back_path": None, "front_pos": start,
+                                "ghost_pos": np.asarray(ghost), "tryout": True})
+            collided.append(ctrl_env.previous_step_collided(slot))
+        moved = np.linalg.norm(ctrl_env.positions - np.stack([[cx, 0.0, cz + r + 0.3],
+                                                              free_start]), axis=1)
+        ctrl_counts = {k: counts[k] - cli_counts[k] for k in ("forward_step", "rotate")}
+        if not (moved > 0.2).all() or ctrl_counts["forward_step"] < 8 or not ctrl_counts["rotate"]:
+            raise AssertionError(f"habitat control: moved {moved}, calls {ctrl_counts}")
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+        if saved_habitat is None:
+            sys.modules.pop("habitat", None)
+        else:
+            sys.modules["habitat"] = saved_habitat
+    # each rollout step reads one batch of observations (the last reads none,
+    # a reset one; ``ce_phase``'s timing reads three more)
+    steps = cli_counts["observations"]
+    if run["eval_rollouts"] != 2 or cli_counts["clip"] == 0:
+        raise AssertionError(f"habitat: {run['eval_rollouts']} eval rollouts, "
+                             f"counts {cli_counts}")
+    run.update(errs=errs, tower_params=tower_params, counts=cli_counts, clip_ms=clip_ms,
+               control={**ctrl_counts, "moved_m": moved.round(2).tolist(),
+                        "last_step_collided": collided},
+               ddppo_ms=ddppo_ms, round_trip_ms=round_trip_ms, render_ms=render_ms,
+               preprocess_ms=preprocess_ms, clip_path=clip_path, ddppo_path=ddppo_path,
+               clip_calls_per_step=cli_counts["clip"] / steps,
+               ddppo_calls_per_step=cli_counts["ddppo"] / steps)
+    return run
+
+
+def print_habitat(run: dict) -> None:
+    print_ce("habitat", run)
+    phase("habitat", card_vs_cpu="within rtol 1e-3 atol 1e-3",
+          **{f"max_err_{k}": f"{v:.3e}" for k, v in run["errs"].items()},
+          clip_params=run["tower_params"]["clip"], ddppo_params=run["tower_params"]["ddppo"],
+          observation_batches=run["counts"]["observations"], clip_calls=run["counts"]["clip"],
+          ddppo_calls=run["counts"]["ddppo"],
+          clip_calls_per_step=f"{run['clip_calls_per_step']:.2f}",
+          ddppo_calls_per_step=f"{run['ddppo_calls_per_step']:.2f}",
+          clip_ms_per_12_view_call=f"{run['clip_ms']:.3f}",
+          ddppo_ms_per_12_frame_call=f"{run['ddppo_ms']:.3f}",
+          grid_round_trip_ms_per_env=f"{run['round_trip_ms']:.3f}",
+          env_render_pool_host_ms_per_env=f"{run['render_ms']:.2f}",
+          clip_preprocess_host_ms_per_env=f"{run['preprocess_ms']:.2f}",
+          eval_control_forward_steps=run["counts"]["forward_step"],
+          eval_control_rotations=run["counts"]["rotate"],
+          control_check_forward_steps=run["control"]["forward_step"],
+          control_check_rotations=run["control"]["rotate"],
+          control_check_moved_m=",".join(map(str, run["control"]["moved_m"])),
+          control_check_last_step_collided=",".join(map(str, run["control"]["last_step_collided"])))
+
+
+def precompute_phase(clip_path: str, ddppo_path: str, viewpoints: int = 4) -> dict:
+    """The precompute pipeline's towers at full width over
+    ``SyntheticImageSource`` frames (224x224, made before the clock starts):
+    per viewpoint the 36 views through ``DeviceClipEncoder.encode_views``,
+    the 12-view ring through ``encode_grids`` and the 36 depth views
+    through the DDPPO tower (``DeviceDepthEncoder``, pooled), each host ms
+    per viewpoint around a sync, the first viewpoint left out."""
+    import numpy as np
+
+    from vln_bevbert_tpu_torch.ce.frozen import (DeviceDepthEncoder, load_clip_params,
+                                                 load_depth_params)
+    from vln_bevbert_tpu_torch.precompute.pipeline import DeviceClipEncoder, SyntheticImageSource
+
+    source = SyntheticImageSource({"scan": [f"vp{i}" for i in range(viewpoints + 1)]},
+                                  image_hw=224, grid_hw=14)
+    frames = [f for _, _, f in source]
+    clip = DeviceClipEncoder(load_clip_params(clip_path), device="cuda")
+    ddppo = DeviceDepthEncoder(load_depth_params(ddppo_path), input_size=224, device="cuda")
+    jobs = {"views36": lambda f: clip.encode_views(f["views36"]),
+            "ring12": lambda f: clip.encode_grids(f["ring12"]),
+            "depth36": lambda f: ddppo(f["views36_depth"])}
+    width, n_patches = clip.feat_size, clip.tower.position_embedding.shape[0] - 1
+    want = {"views36": (36, width), "ring12": (12, n_patches, width),
+            "depth36": (36, ddppo.feat_shape[0])}
+    out = {}
+    for name, job in jobs.items():
+        res = job(frames[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in frames[1:]:
+            res = job(f)
+        out[name] = 1e3 * (time.perf_counter() - t0) / viewpoints
+        if res.shape != want[name] or not np.isfinite(res).all():
+            raise AssertionError(f"precompute: {name} {res.shape}")
+    return out
+
+
 DAGGER_ARGV = ["--batch_size", "8", "--allow_random_frozen", "--n_episodes", "16",
                "--trainer", "dagger", "--dagger_p", "0.75"]
 
@@ -2111,6 +2590,17 @@ def main() -> None:
                    cep["pretrain_names"], eval_and_infer=False)
     print_ce("ce_etp", etp)
 
+    # the Habitat sensor stack: SS-BEV over the stand-in simulator with the
+    # full-width CLIP and DDPPO towers, from the CE pretraining checkpoint
+    free_memory()
+    hab = habitat_phase(os.path.join(work.name, "habitat"), cep["ckpt"], cep["pretrain_names"])
+    print_habitat(hab)
+    free_memory()
+    pre = precompute_phase(hab["clip_path"], hab["ddppo_path"])
+    phase("precompute", viewpoints=4, image_hw=224,
+          **{f"ms_per_viewpoint_{k}": f"{v:.2f}" for k, v in pre.items()},
+          hdf5_writes="not timed here (no h5py on this machine)")
+
     # CE DAgger at full width: PREVALENT from random weights, the glocal
     # policies from the CE pretraining checkpoint; 2 iterations of 16
     # episodes at p 0.75 (the second mixes in policy actions), 2 epochs each
@@ -2158,6 +2648,7 @@ def main() -> None:
          "launches_obj_finetune": oft["launches"]["splat"],
          "launches_ce_pretrain": cep["launches"]["splat"], "launches_ce": ce["launches"]["splat"],
          "launches_ce_eval": ce["eval_gathers"], "launches_ce_etp": etp["launches"]["splat"],
+         "launches_habitat": hab["launches"]["splat"],
          "launches_validate": val["launches"]["splat"], "launches_optim": opt["launches"]["splat"],
          "launches_r4r": cfg_runs["r4r_train"]["launches"]["splat"],
          "launches_rxr": cfg_runs["rxr_train"]["launches"]["splat"],
@@ -2168,6 +2659,7 @@ def main() -> None:
          "launches_obj_finetune": oft["launches"]["dropout"],
          "launches_ce_pretrain": cep["launches"]["dropout"],
          "launches_ce": ce["launches"]["dropout"], "launches_ce_etp": etp["launches"]["dropout"],
+         "launches_habitat": hab["launches"]["dropout"],
          "launches_validate": val["launches"]["dropout"],
          "launches_optim": opt["launches"]["dropout"],
          "launches_r4r": cfg_runs["r4r_train"]["launches"]["dropout"],

@@ -11,8 +11,10 @@ tiny configuration.
 - ``--data_path``/``--gt_path``: release-format ``.json.gz`` episodes, as
   the JAX loaders read them, evaluated with ``control`` back-tracking.
 - The config equals the JAX CLI's for ss-bev and ss-etp; ``--waypoint_ckpt``
-  loads the published layout; the flags of later slices, a missing card and
-  a random frozen predictor without ``--allow_random_frozen`` are refused.
+  loads the published layout; the frozen towers without ``--habitat_config``,
+  ``--habitat_config`` with an env pool, a missing card and a random frozen
+  predictor without ``--allow_random_frozen`` are refused, and
+  ``--habitat_config`` without ``habitat`` raises ``ImportError``.
 """
 
 import dataclasses
@@ -221,14 +223,19 @@ def test_refused_flags_and_devices(tmp_path, monkeypatch):
     base = ["--device", "cpu", "--config", ce_cfg, "--output_dir", str(tmp_path)]
     with pytest.raises(SystemExit, match="allow_random_frozen"):
         cli.build(cli.parse_args(base))
-    for flags, slice_name in (
-        (["--habitat_config", "h.yaml"], "Habitat sensor stack"),
-        (["--clip_ckpt", "clip.pt"], "Habitat sensor stack"),
-        (["--ddppo_ckpt", "ddppo.pt"], "Habitat sensor stack"),
-        (["--trainer", "dagger", "--habitat_config", "h.yaml"], "Habitat sensor stack"),
-        (["--num_env_workers", "2", "--clip_ckpt", "clip.pt"], "Habitat sensor stack"),
+    for flags, message in (
+        (["--clip_ckpt", "clip.pt"], "require --habitat_config"),
+        (["--ddppo_ckpt", "ddppo.pt"], "require --habitat_config"),
+        (["--num_env_workers", "2", "--clip_ckpt", "clip.pt"], "require --habitat_config"),
+        (["--habitat_config", "h.yaml", "--num_env_workers", "2"], "not supported yet"),
     ):
-        with pytest.raises(SystemExit, match=f"not ported yet.*{slice_name}"):
+        with pytest.raises(SystemExit, match=message):
+            cli.main(base + ["--allow_random_frozen", *flags])
+    # the simulator is external: without ``habitat`` the binding raises
+    monkeypatch.setitem(sys.modules, "habitat", None)
+    for flags in (["--habitat_config", "h.yaml"],
+                  ["--trainer", "dagger", "--habitat_config", "h.yaml"]):
+        with pytest.raises(ImportError):
             cli.main(base + ["--allow_random_frozen", *flags])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

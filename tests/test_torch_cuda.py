@@ -418,6 +418,133 @@ def test_small_ce_rollout_matches_cpu_on_card(use_bev):
             np.testing.assert_allclose(a, b, atol=tol, rtol=0)
 
 
+def _small_towers(device, tmp_path):
+    """A small CLIP (hidden 64, 2 layers, 64x64 frames) and DDPPO (baseplanes
+    8, a block per stage, 128x128 depth) from chip_smoke's seeded
+    checkpoints, on ``device``."""
+    import chip_smoke
+    from vln_bevbert_tpu_torch.ce.frozen import (DeviceDepthEncoder, load_clip_params,
+                                                 load_depth_params)
+    from vln_bevbert_tpu_torch.precompute.pipeline import DeviceClipEncoder
+
+    clip, ddppo = tmp_path / "clip.pt", tmp_path / "ddppo.pth"
+    if not clip.exists():
+        torch.save(chip_smoke.hf_clip_state_dict(64, 128, 2, 16, 64, seed=1), clip)
+        torch.save(chip_smoke.ddppo_checkpoint(8, (1, 1, 1, 1), 32, seed=2), ddppo)
+    return (DeviceClipEncoder(load_clip_params(str(clip)), grid_hw=4, device=device),
+            DeviceDepthEncoder(load_depth_params(str(ddppo)), input_size=128, device=device))
+
+
+@pytest.mark.cuda
+def test_small_towers_match_cpu_on_card(tmp_path, monkeypatch):
+    """The small CLIP and DDPPO towers on the card and on the CPU with the
+    same parameters, in strict float32 (TF32 off for cuDNN, as the CE CLI
+    sets it): pooled features, grids and the DDPPO map within rtol 1e-4 and
+    atol 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (12, 64, 64, 3), dtype=np.uint8)
+    depth = rng.uniform(0, 1, (12, 128, 128)).astype(np.float32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        clip, ddppo = _small_towers(device, tmp_path)
+        out[device] = (clip.encode_views(frames), clip.encode_grids(frames),
+                       ddppo.spatial(depth), ddppo(depth))
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+    assert out["cuda"][2].shape == (12, 32, 2, 2)
+
+
+@pytest.mark.cuda
+def test_small_habitat_ce_rollout_matches_cpu_on_card(tmp_path, monkeypatch):
+    """Greedy SS-BEV rollouts with low-level control over chip_smoke's
+    stand-in habitat, the small towers rendering each step's ring, on the
+    card and on the CPU from the same parameters: equal positions and
+    headings, heatmaps within 1e-4 and fused logits within 1e-3; the splat
+    launches once per gather-and-splat call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import sys
+
+    import numpy as np
+
+    import chip_smoke
+    from vln_bevbert_tpu_torch.ce import agent as ce_agent
+    from vln_bevbert_tpu_torch.ce.agent import CEAgent
+    from vln_bevbert_tpu_torch.ce.habitat_binding import make_habitat_env
+    from vln_bevbert_tpu_torch.configs import FinetuneConfig, ModelConfig, ShapeConfig
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setitem(sys.modules, "habitat", chip_smoke.habitat_stand_in())
+    config = chip_smoke.write_habitat_config(str(tmp_path / "h.yaml"), rgb_hw=64, depth_hw=128,
+                                             episodes=4)
+    cfg = FinetuneConfig(
+        model=ModelConfig(hidden_size=64, num_attention_heads=2, intermediate_size=128,
+                          num_l_layers=1, num_pano_layers=1, num_x_layers=1,
+                          image_feat_size=32, bev_grid_feat_size=64, bev_dim=5, bev_res=1.5,
+                          dtype="float32"),
+        shapes=ShapeConfig(max_txt_len=64, max_pano_len=20, max_gmap_len=16, max_local_len=8,
+                           num_views=12, grid_hw=4, max_pc_steps=3),
+        batch_size=2, max_action_len=4, learning_rate=1e-4, fusion="avg")
+    agents = {}
+    for device in ("cpu", "cuda"):
+        clip, ddppo = _small_towers(device, tmp_path)
+        env = make_habitat_env(config, 2, clip_encoder=clip, depth_encoder=ddppo, grid_hw=4)
+        agents[device] = CEAgent(cfg, env, device=device)
+        agents[device].init_params()
+    cpu = agents["cpu"]
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(6)
+        for p in cpu.model.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 0.02)
+        cpu.wp_model.cls_fc2.weight.mul_(100.0)
+    agents["cuda"].model.load_state_dict(cpu.model.state_dict())
+    agents["cuda"].wp_model.load_state_dict(cpu.wp_model.state_dict())
+    rec, gather, calls, trajs = {}, ce_agent.gather_and_splat, {"n": 0}, {}
+
+    def counted(*args):
+        calls["n"] += 1
+        return gather(*args)
+
+    try:
+        ce_agent.gather_and_splat = counted
+        for device, agent in agents.items():
+            rec[device] = {"heat": [], "logits": []}
+            waypoints, forward = agent._waypoints, agent._forward
+
+            def wp_rec(obs, train, waypoints=waypoints, out=rec[device]):
+                res = waypoints(obs, train)
+                out["heat"].append(res[2])
+                return res
+
+            def fwd_rec(mode, batch, forward=forward, out=rec[device]):
+                res = forward(mode, batch)
+                if mode == "navigation":
+                    out["logits"].append(res["fused_logits"].float().cpu().numpy())
+                return res
+
+            agent._waypoints, agent._forward = wp_rec, fwd_rec
+            calls["n"] = 0
+            before = _build.launches("splat")
+            trajs[device] = agent.rollout(feedback="argmax", train=False)[0]
+            if device == "cuda":
+                assert _build.launches("splat") - before == calls["n"] > 0
+    finally:
+        ce_agent.gather_and_splat = gather
+    for a, b in zip(trajs["cuda"], trajs["cpu"]):
+        np.testing.assert_array_equal(np.stack(a["positions"]), np.stack(b["positions"]))
+        assert a["headings"] == b["headings"]
+    for key, tol in (("heat", 1e-4), ("logits", 1e-3)):
+        assert len(rec["cuda"][key]) == len(rec["cpu"][key]) > 0
+        for a, b in zip(rec["cuda"][key], rec["cpu"][key]):
+            np.testing.assert_allclose(a, b, atol=tol, rtol=0)
+
+
 @pytest.mark.cuda
 def test_small_ce_replay_update_matches_cpu_on_card(monkeypatch):
     """A teacher-forced CE training rollout and its replay update (dropout

@@ -10,8 +10,11 @@ metrics, the REVERIE/SOON object envs' observations and metrics,
 Floyd graph through the native engine and the Python fallback, and the CE
 host layer (habitat geometry, the synthetic continuous env and its
 low-level controller, the ghost-node map, the VLN-CE loaders, the waypoint
-NMS and sampling), and the FIFO npz shard store behind the recollection
-stores. Arrays must be equal; floats computed
+NMS and sampling), the FIFO npz shard store behind the recollection
+stores, and the Habitat sensor stack's host layer (observation transforms,
+the sensor functions and top-down map, the habitat binding without towers
+and the MatterSim binding over the JAX tests' fake simulators, the
+precompute pipeline's synthetic frames and projection encoder). Arrays must be equal; floats computed
 by the same code in the same order must be equal too.
 """
 
@@ -39,8 +42,13 @@ COPIED = ("configs", "geometry", "data.nav_graph", "data.pathdata", "data.batchi
           "data.loader", "data.feature_db", "data.annotations", "nav.eval_utils", "native",
           "nav.graph_map", "nav.env", "nav.obj_env", "utils.logging", "ce.geometry_ce",
           "ce.env", "ce.graph_map", "ce.control", "ce.dataset", "ce.waypoint_predictor",
-          "ce.inference", "utils.mlabel", "models.surgery", "utils.npz_store", "ce.env_pool")
-LEFT_OUT = {"data.feature_db": {"fast_cast"}, "ce.waypoint_predictor": {"jax", "jnp"}}
+          "ce.inference", "utils.mlabel", "models.surgery", "utils.npz_store", "ce.env_pool",
+          "ce.obs_transforms", "ce.sensors", "ce.habitat_binding", "nav.mattersim_binding",
+          "precompute.pipeline")
+# ``precompute.pipeline`` runs the port's tower (``DeviceClipEncoder``) in
+# place of ``JaxClipEncoder``
+LEFT_OUT = {"data.feature_db": {"fast_cast"}, "ce.waypoint_predictor": {"jax", "jnp"},
+            "precompute.pipeline": {"JaxClipEncoder"}}
 FORBIDDEN = ("vln_bevbert_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
 
 
@@ -523,6 +531,135 @@ def check_surgery(tmp_path):
         assert_same(psg.hf_bert_to_tree(sd, 2), jsg.hf_bert_to_tree(sd, 2))
 
 
+def check_obs_transforms(tmp_path):
+    jot, pot = ce_pair("obs_transforms")
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (2, 30, 26, 3), dtype=np.uint8)
+    depth = rng.uniform(0, 1, (2, 30, 26, 1)).astype(np.float32)
+    for size in (16, (20, 24), (34, 30)):
+        assert_same(pot.center_crop(img, size), jot.center_crop(img, size))
+        assert_same(pot.resize(depth, size), jot.resize(depth, size))
+    faces = {f"rgb_{i}": rng.integers(0, 256, (8, 8, 3), dtype=np.uint8) for i in range(6)}
+    faces.update({f"depth_{i}": rng.uniform(0, 1, (8, 8, 1)).astype(np.float32) for i in range(6)})
+    outs = []
+    for mod in (jot, pot):
+        transforms = [
+            mod.CubeMap2Equirect([f"rgb_{i}" for i in range(6)] + [f"depth_{i}" for i in range(6)],
+                                 (12, 24), target_uuids=["rgb", "depth"]),
+            mod.ResizerPerSensor([("rgb", 10), ("depth", (6, 12))]),
+            mod.CenterCropperPerSensor([("rgb", 8)]),
+        ]
+        outs.append(mod.apply_obs_transforms(transforms, [dict(faces), dict(faces)]))
+        outs[-1].append(mod.cube_face_directions("left", (4, 5)))
+    assert outs[0][0]["rgb"].shape == (8, 8, 3) and outs[0][0]["depth"].shape == (6, 12, 1)
+    assert_same(outs[0], outs[1], "obs transforms")
+
+
+def check_sensors(tmp_path):
+    runs = []
+    for pkg in ("vln_bevbert_tpu", "vln_bevbert_tpu_torch"):
+        sensors = importlib.import_module(f"{pkg}.ce.sensors")
+        env_mod = importlib.import_module(f"{pkg}.ce.env")
+        env = env_mod.SyntheticContinuousEnv(
+            env_mod.make_synthetic_ce_episodes(np.random.default_rng(2), n=3), batch_size=2,
+            grid_hw=2, grid_feat_size=4, view_feat_size=4, depth_feat_shape=(2, 1, 1))
+        obs = env.reset()
+        env.teleport(1, env.batch[1].gt_positions[1] + 0.1)
+        obs = sensors.attach_sensors(env, env.observations())
+        ep = env.batch[0]
+        runs.append([
+            [{k: ob[k] for k in ("globalgps", "heading_sensor", "shortest_path_sensor",
+                                 "progress")} for ob in obs],
+            sensors.global_gps(obs[0]["position"], 2), sensors.rxr_instruction(ep),
+            sensors.render_top_down_map(ep.gt_positions[:3], ep.gt_positions, ep.goal,
+                                        resolution=48)])
+    assert_same(runs[0], runs[1], "sensors")
+
+
+def check_habitat_binding(tmp_path):
+    """Reset, observation assembly, the ring render's pose restore, control
+    with a collision, teleport, the oracle and episode metrics over the JAX
+    tests' fake habitat, without towers. The port's binding also has the
+    depth contract (``test_torch_habitat.py`` holds it with towers)."""
+    import sys
+    import types
+
+    from test_binding_mocks import _episode, _FakeHabitatEnv
+
+    runs = []
+    fake = types.ModuleType("habitat")
+    fake.Env = _FakeHabitatEnv
+    saved = sys.modules.get("habitat")
+    sys.modules["habitat"] = fake
+    try:
+        for pkg in ("vln_bevbert_tpu", "vln_bevbert_tpu_torch"):
+            hb = importlib.import_module(f"{pkg}.ce.habitat_binding")
+            env = hb.HabitatContinuousEnv(None, [_episode(0), _episode(1, start=(1.0, 0.0, 0.5))],
+                                          batch_size=2, num_views=4, grid_hw=2)
+            out = {"reset": env.reset(), "pose": (env.positions, env.headings)}
+            env.rotate(0, env.turn_unit)
+            out["free"] = env.forward_step(0)
+            env.envs[1].sim.wall_z = 0.4
+            out["wall"] = [env.forward_step(1), env.previous_step_collided(1)]
+            env.teleport(0, [1.0, 0.0, -1.0], heading=1.0)
+            out.update(obs=env.observations(), pose_after=(env.get_positions(),
+                                                           env.get_headings()),
+                       oracle=[env.dist_to_goal(1), env.dists_to_goal(0, [[2, 0, -2], [0, 0, 0]])],
+                       metrics=env.eval_episode(0, np.asarray(env.batch[0].reference_path)),
+                       size=env.size())
+            runs.append(out)
+            if pkg.endswith("torch"):
+                assert env.depth_feat_shape == (2, 2) and env.view_feat_size is None
+    finally:
+        if saved is None:
+            del sys.modules["habitat"]
+        else:
+            sys.modules["habitat"] = saved
+    assert runs[0]["wall"] == [True, True]
+    assert_same(runs[0], runs[1], "habitat binding")
+
+
+def check_mattersim_binding(tmp_path):
+    import sys
+    import types
+
+    from test_binding_mocks import _FakeMatterSim
+
+    fake = types.ModuleType("MatterSim")
+    fake.Simulator = _FakeMatterSim
+    saved = sys.modules.get("MatterSim")
+    sys.modules["MatterSim"] = fake
+    runs = []
+    try:
+        for mod in pair("nav.mattersim_binding"):
+            sim = mod.MatterSimSimulator("/conn", scan_data_dir="/scans")
+            sim.new_episode("scanA", "vp1", 1.25)
+            state = sim.get_state()
+            runs.append([sim.sim.calls, (state.scan, state.viewpoint, state.heading,
+                                         state.elevation),
+                         [v.viewpointId for v in sim.navigable_locations()]])
+    finally:
+        if saved is None:
+            del sys.modules["MatterSim"]
+        else:
+            sys.modules["MatterSim"] = saved
+    assert runs[0] == runs[1]
+
+
+def check_precompute_host(tmp_path):
+    jpl, ppl = pair("precompute.pipeline")
+    vps = {"s1": ["a", "b"], "s2": ["c"]}
+    frames = [list(mod.SyntheticImageSource(vps, image_hw=32, grid_hw=2, seed=4))
+              for mod in (jpl, ppl)]
+    assert_same(frames[0], frames[1], "synthetic frames")
+    encoded = []
+    for mod, pkg_frames in zip((jpl, ppl), frames):
+        enc = mod.RandomProjectionEncoder(grid_hw=2, seed=1)
+        encoded.append([(enc.encode_views(f["views36"]), enc.encode_grids(f["ring12"]))
+                        for _, _, f in pkg_frames])
+    assert_same(encoded[0], encoded[1], "projection encoder")
+
+
 CHECKS = {"configs": check_configs, "synthetic_world": check_synthetic_world,
           "nav_env": check_nav_env, "pretrain_loader": check_pretrain_loader,
           "dtw_and_floyd": check_dtw_and_floyd, "obj_env": check_obj_env,
@@ -530,7 +667,10 @@ CHECKS = {"configs": check_configs, "synthetic_world": check_synthetic_world,
           "ce_geometry_and_graph": check_ce_geometry_and_graph,
           "ce_env_and_control": check_ce_env_and_control, "ce_dataset": check_ce_dataset,
           "ce_waypoint_nms": check_ce_waypoint_nms, "mlabel": check_mlabel,
-          "surgery": check_surgery, "npz_store": check_npz_store}
+          "surgery": check_surgery, "npz_store": check_npz_store,
+          "obs_transforms": check_obs_transforms, "sensors": check_sensors,
+          "habitat_binding": check_habitat_binding, "mattersim_binding": check_mattersim_binding,
+          "precompute_host": check_precompute_host}
 
 
 @pytest.mark.parametrize("name", list(CHECKS))
@@ -584,9 +724,11 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
     run (eval, pretraining, pretraining over ``--data_root`` with validation
     and ``ralamb+lookahead`` under gradient accumulation, fine-tuning,
     REVERIE fine-tuning with its object slots, CE training with its
-    evaluation, and CE DAgger with the PREVALENT policy through a 2-worker
-    env pool) at a tiny configuration, in one process that loads no JAX
-    module and no module of the JAX package."""
+    evaluation, CE DAgger with the PREVALENT policy through a 2-worker
+    env pool, and one ``--habitat_config`` CE iteration over chip_smoke's
+    stand-in ``habitat`` with small CLIP and DDPPO checkpoints) at a tiny
+    configuration, in one process that loads no JAX module and no module of
+    the JAX package."""
     from test_torch_ce_cli import ce_configs
     from test_torch_finetune_cli import finetune_config
     from test_torch_pretrain_cli import write_data_root
@@ -598,6 +740,10 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
     real_cfg["valid_steps"] = 2
     (tmp_path / "real.json").write_text(json.dumps(real_cfg))
     write_data_root(tmp_path / "data", pt)
+    ce_cfg = ce_configs(tmp_path / "ce")[1]
+    hab_cfg = json.loads(open(ce_cfg).read())
+    hab_cfg["model"]["bev_grid_feat_size"] = 64  # the small CLIP tower's width
+    (tmp_path / "hab.json").write_text(json.dumps(hab_cfg))
 
     code = (
         "import importlib, json, pkgutil, sys\n"
@@ -607,7 +753,7 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "from vln_bevbert_tpu_torch.cli import finetune, pretrain\n"
-        "out, tiny, ft, pt, ce_cfg, real_cfg = sys.argv[1:7]\n"
+        "out, tiny, ft, pt, ce_cfg, real_cfg, hab_cfg = sys.argv[1:8]\n"
         "ev = finetune.main(['--synthetic', '--test', '--device', 'cpu', '--config', tiny,\n"
         "                    '--output_dir', out + '/eval'])\n"
         "pre = pretrain.main(['--synthetic', '--device', 'cpu', '--num_steps', '2',\n"
@@ -635,11 +781,21 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
         "                    '--trainer', 'dagger', '--policy', 'prevalent', '--dagger_iters',\n"
         "                    '1', '--update_size', '2', '--dagger_epochs', '1', '--n_episodes',\n"
         "                    '2', '--num_env_workers', '2', '--output_dir', out + '/dagger'])\n"
+        "import torch\n"
+        "sys.modules['habitat'] = chip_smoke.habitat_stand_in()\n"
+        "hab_yaml = chip_smoke.write_habitat_config(out + '/hab.yaml', rgb_hw=64, depth_hw=256,\n"
+        "                                           episodes=2)\n"
+        "torch.save(chip_smoke.hf_clip_state_dict(64, 128, 2, 16, 64), out + '/clip.pt')\n"
+        "torch.save(chip_smoke.ddppo_checkpoint(8, (1, 1, 1, 1), 32), out + '/ddppo.pth')\n"
+        "hab = ce_train.main(['--device', 'cpu', '--config', hab_cfg, '--allow_random_frozen',\n"
+        "                     '--habitat_config', hab_yaml, '--clip_ckpt', out + '/clip.pt',\n"
+        "                     '--ddppo_ckpt', out + '/ddppo.pth', '--iters', '1',\n"
+        "                     '--log_every', '1', '--output_dir', out + '/hab'])\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps({'bad': bad, 'names': names, 'sr': [ev['val_unseen']['sr'],\n"
         "                  tr['val_unseen']['sr'], rv['val_unseen']['sr'],\n"
         "                  rv['val_unseen']['rgs'], rv['val_unseen']['rgspl'],\n"
-        "                  100 * ce['success']],\n"
+        "                  100 * ce['success'], 100 * hab['success']],\n"
         "                  'loss': list(pre), 'pred_obj': all('predObjId' in p for p in dump),\n"
         "                  'real': list(real), 'val': val, 'count': ckpt['opt_state']['count'],\n"
         "                  'slow': 'lookahead_0' in ckpt['opt_state'],\n"
@@ -647,8 +803,8 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
     )
     proc = subprocess.run(
         [sys.executable, "-c", code, str(tmp_path), config_file(tmp_path, _tiny_config),
-         config_file(tmp_path, finetune_config), pt, ce_configs(tmp_path / "ce")[1],
-         str(tmp_path / "real.json")],
+         config_file(tmp_path, finetune_config), pt, ce_cfg, str(tmp_path / "real.json"),
+         str(tmp_path / "hab.json")],
         capture_output=True, text=True, timeout=400, cwd=REPO,
         env={**os.environ, "PYTHONPATH": REPO},
     )
@@ -661,7 +817,10 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
             "vln_bevbert_tpu_torch.nav.obj_env", "vln_bevbert_tpu_torch.ce.dagger",
             "vln_bevbert_tpu_torch.ce.env_pool", "vln_bevbert_tpu_torch.nav.recollection",
             "vln_bevbert_tpu_torch.models.legacy",
-            "vln_bevbert_tpu_torch.utils.npz_store"} <= set(out["names"])
+            "vln_bevbert_tpu_torch.utils.npz_store", "vln_bevbert_tpu_torch.models.clip",
+            "vln_bevbert_tpu_torch.models.depth_encoder",
+            "vln_bevbert_tpu_torch.ce.habitat_binding",
+            "vln_bevbert_tpu_torch.precompute.pipeline"} <= set(out["names"])
     assert all(0.0 <= sr <= 100.0 for sr in out["sr"]) and out["loss"] and out["pred_obj"]
     assert out["real"] and len(out["val"]) == 1 and np.isfinite(out["val"][0])
     assert out["count"] == 1 and out["slow"]  # 2 steps of accumulation: one update

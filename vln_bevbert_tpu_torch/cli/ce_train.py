@@ -13,6 +13,9 @@ directory; leaderboard inference; DAgger with a recollection store.
         --ckpt_path_dir runs/ce/ckpt_4
     python -m vln_bevbert_tpu_torch.cli.ce_train --allow_random_frozen --trainer dagger \\
         --policy prevalent --dagger_iters 2 --update_size 16 --num_env_workers 2
+    python -m vln_bevbert_tpu_torch.cli.ce_train --habitat_config r2r_ce.yaml \\
+        --clip_ckpt clip-vit-base-patch16.pt --ddppo_ckpt gibson-2plus-resnet50.pth \\
+        --waypoint_ckpt check_cwp_bestdist_hfov90
 
 Arguments are the JAX CLI's plus ``--device`` (default ``cuda``; a CUDA
 device that is missing raises, there is no CPU fallback). The world is the
@@ -34,8 +37,20 @@ Recurrent VLN-BERT policy by BPTT from a ``DaggerEpisodeStore``; ``bev`` and
 ``etp`` (the topo-only model) train the glocal ``CEAgent`` from a
 ``TeacherRecollectionStore``. ``--num_env_workers N`` runs the synthetic env
 in N spawned worker processes (``ce/env_pool.py``; the batch must divide
-by N). Not ported yet, and refused: ``--habitat_config`` and
-``--clip_ckpt``/``--ddppo_ckpt`` (the Habitat sensor stack).
+by N).
+
+``--habitat_config`` builds the env from a habitat config YAML
+(``ce/habitat_binding.py:make_habitat_env``; needs ``habitat``, real MP3D
+scenes and episodes): every step renders each env's 12-view ring and
+encodes it with the frozen towers on ``--device``, CLIP ViT-B/16
+(``--clip_ckpt``: ``pooled`` -> view features, ``grid`` -> the BEV's grid
+features) and the DDPPO ResNet-50 (``--ddppo_ckpt``: raw 256x256 depth ->
+the waypoint predictor's (128, 4, 4) maps). Their widths are read off the
+checkpoints. Both towers run in strict float32, as the JAX towers do: the
+CLI turns TF32 off for cuDNN convolutions (PyTorch's default is on) and for
+matmuls. ``--clip_ckpt``/``--ddppo_ckpt`` without ``--habitat_config``, and
+``--habitat_config`` with ``--num_env_workers``, are refused as the JAX CLI
+refuses them.
 """
 
 from __future__ import annotations
@@ -127,41 +142,60 @@ def parse_args(argv=None):
                    help="frozen waypoint-predictor checkpoint: a torch file in the "
                         "published ['predictor']['state_dict'] format, a bare state "
                         "dict, or an .npz flax tree")
-    p.add_argument("--ddppo_ckpt", default=None, help="not ported yet (Habitat sensor stack)")
-    p.add_argument("--clip_ckpt", default=None, help="not ported yet (Habitat sensor stack)")
+    p.add_argument("--ddppo_ckpt", default=None,
+                   help="frozen DDPPO point-nav depth ResNet50 checkpoint (torch "
+                        "gibson-2plus-resnet50.pth layout, .npz flax tree or the port's "
+                        "state dict); requires --habitat_config")
+    p.add_argument("--clip_ckpt", default=None,
+                   help="frozen CLIP-B/16 vision tower: HF model dir/name (local cache), "
+                        "torch state dict, .npz flax tree; requires --habitat_config")
     p.add_argument("--habitat_config", default=None,
-                   help="not ported yet (Habitat sensor stack)")
-    p.add_argument("--habitat_split", default="train")
+                   help="habitat config YAML: the real HabitatContinuousEnv instead of "
+                        "the synthetic world (ref run.py --exp-config; requires habitat)")
+    p.add_argument("--habitat_split", default="train",
+                   help="dataset split for --habitat_config episode loading")
     p.add_argument("--allow_random_frozen", action="store_true",
                    help="explicitly allow a RANDOM-initialised frozen waypoint "
                         "predictor (synthetic runs only)")
     return p.parse_args(argv)
 
 
-def refuse_later_slices(args) -> None:
-    """The JAX CLI's paths that this port does not have yet."""
-    if args.habitat_config or args.clip_ckpt or args.ddppo_ckpt:
-        raise SystemExit("--habitat_config, --clip_ckpt and --ddppo_ckpt are not ported yet: "
-                         "they come with the Habitat sensor stack in a later slice")
-
-
-def build_frozen(args):
-    """``--waypoint_ckpt`` -> a ``WaypointPredictor`` state dict, or None
-    (random) under ``--allow_random_frozen``; without either, refuse: a
-    random frozen predictor is useless for a real run (the reference loads
-    the published checkpoint unconditionally, ss_trainer_BEV.py:236-243)."""
+def build_frozen(args, device):
+    """(waypoint state dict, CLIP encoder, DDPPO encoder) from the
+    ``--waypoint_ckpt``/``--clip_ckpt``/``--ddppo_ckpt`` flags, the towers
+    on ``device``. Without ``--waypoint_ckpt`` the predictor is random
+    (None) under ``--allow_random_frozen`` and refused otherwise: a random
+    frozen predictor is useless for a real run (the reference loads the
+    published checkpoint unconditionally, ss_trainer_BEV.py:236-243)."""
+    wp_params = clip_encoder = depth_encoder = None
     if args.waypoint_ckpt:
         from ..ce.frozen import load_waypoint_params
 
-        return load_waypoint_params(args.waypoint_ckpt)
-    if not args.allow_random_frozen:
+        wp_params = load_waypoint_params(args.waypoint_ckpt)
+    elif not args.allow_random_frozen:
         raise SystemExit(
             "no --waypoint_ckpt: the frozen waypoint predictor would be "
             "RANDOM-initialised. Pass the published checkpoint "
             "(data/wp_pred/check_cwp_bestdist_hfov90) or opt in explicitly "
             "with --allow_random_frozen (synthetic runs only)."
         )
-    return None
+    if args.clip_ckpt or args.ddppo_ckpt:
+        if not args.habitat_config:
+            raise SystemExit(
+                "--clip_ckpt/--ddppo_ckpt configure the habitat sensor "
+                "stack and require --habitat_config (the synthetic env "
+                "synthesises features directly)"
+            )
+        if args.clip_ckpt:
+            from ..ce.frozen import load_clip_params
+            from ..precompute.pipeline import DeviceClipEncoder
+
+            clip_encoder = DeviceClipEncoder(load_clip_params(args.clip_ckpt), device=device)
+        if args.ddppo_ckpt:
+            from ..ce.frozen import DeviceDepthEncoder, load_depth_params
+
+            depth_encoder = DeviceDepthEncoder(load_depth_params(args.ddppo_ckpt), device=device)
+    return wp_params, clip_encoder, depth_encoder
 
 
 def make_config(args) -> FinetuneConfig:
@@ -186,11 +220,26 @@ def make_config(args) -> FinetuneConfig:
     return cfg
 
 
-def build_env(cfg: FinetuneConfig, args):
-    """The synthetic continuous environment over synthetic episodes, or over
-    the episodes of ``--data_path`` (with ``--gt_path``'s dense paths); with
-    ``--num_env_workers N`` a pool of N spawned workers, each with
-    ``batch_size / N`` slots over every N-th episode."""
+def build_env(cfg: FinetuneConfig, args, clip_encoder=None, depth_encoder=None):
+    """With ``--habitat_config`` the habitat binding over habitat's dataset
+    (``--data_path``/``--habitat_split`` override its path and split) with
+    the frozen towers; else the synthetic continuous environment over
+    synthetic episodes, or over the episodes of ``--data_path`` (with
+    ``--gt_path``'s dense paths); with ``--num_env_workers N`` a pool of N
+    spawned workers, each with ``batch_size / N`` slots over every N-th
+    episode."""
+    if args.habitat_config:
+        if args.num_env_workers > 0:
+            raise SystemExit(
+                "--habitat_config with --num_env_workers is not supported "
+                "yet: habitat env factories are not spawn-picklable here"
+            )
+        from ..ce.habitat_binding import make_habitat_env
+
+        return make_habitat_env(
+            args.habitat_config, batch_size=cfg.batch_size, data_path=args.data_path,
+            split=args.habitat_split, clip_encoder=clip_encoder, depth_encoder=depth_encoder,
+            grid_hw=cfg.shapes.grid_hw)
     if args.data_path:
         from ..ce.dataset import (apply_gt_paths, load_gt_paths, load_rxr_episodes,
                                   load_vlnce_episodes)
@@ -225,10 +274,13 @@ def build(args):
     ``--pretrain_ckpt``, transferred from that checkpoint
     (``agent.transferred`` counts the entries taken). A pool's workers are
     stopped if the agent cannot be built."""
-    refuse_later_slices(args)
     device = resolve_device(args.device)
-    # bf16 GEMMs accumulate in float32 end to end, as the JAX einsums do
+    # bf16 GEMMs accumulate in float32 end to end, as the JAX einsums do, and
+    # float32 convolutions and GEMMs (the frozen towers) stay strict float32:
+    # cuDNN's default is TF32
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     prevalent = args.trainer == "dagger" and args.policy == "prevalent"
     if prevalent and args.pretrain_ckpt:
         # PREVALENT loads torch-layout state dicts (vlnbert_init.py), not
@@ -236,8 +288,8 @@ def build(args):
         raise SystemExit("--pretrain_ckpt is the glocal pretrain tree; the prevalent policy "
                          "loads torch weights via models.legacy.prevalent_to_tree instead")
     cfg = make_config(args)
-    wp_params = build_frozen(args)
-    env = build_env(cfg, args)
+    wp_params, clip_encoder, depth_encoder = build_frozen(args, device)
+    env = build_env(cfg, args, clip_encoder, depth_encoder)
     try:
         if prevalent:
             agent = PrevalentDaggerAgent(cfg, env, seed=cfg.seed, device=device)

@@ -3,11 +3,17 @@
 The port's modules mirror the flax module names, so a parameter path maps
 one to one; only the leaves differ:
 
-- flax ``Dense.kernel`` (in, out)   <-> ``Dense.weight`` (out, in), transposed;
-- flax ``Dense.bias``               <-> ``Dense.bias``;
+- flax ``Dense.kernel`` (in, out)   <-> ``Dense.weight`` (out, in), transposed
+  (also ``nn.Linear``);
+- flax ``Conv.kernel`` (kH, kW, I, O) <-> ``nn.Conv2d.weight`` (O, I, kH, kW):
+  axes (3, 2, 0, 1), so each filter keeps its spatial layout (a plain ``.T``
+  would give (O, I, kW, kH): every filter transposed in space);
+- flax ``Dense.bias``/``Conv.bias`` <-> ``bias``;
 - flax ``Embed.embedding``          <-> ``Embed.weight``;
-- flax ``LayerNorm.scale``/``bias`` <-> ``LayerNorm.weight``/``bias``;
-- the MLM head's own ``bias`` stays ``bias``.
+- flax ``LayerNorm``/``GroupNorm`` ``scale``/``bias`` <-> ``weight``/``bias``;
+- the MLM head's own ``bias`` stays ``bias``; a module's raw parameters
+  (``RAW_LEAVES``: CLIP's ``class_embedding`` and ``position_embedding``)
+  keep their names and layouts.
 
 Fused projections (``qkv``, ``kv``) stay fused. The tree is nested dicts of
 numpy arrays (``jax.tree.map(np.asarray, params)``); a gradient tree has the
@@ -25,8 +31,20 @@ from torch import nn
 
 from .models.bert import Dense, Embed, LayerNorm, MlmHead
 
+RAW_LEAVES = ("class_embedding", "position_embedding")
 _LEAF_TO_TORCH = {"kernel": "weight", "embedding": "weight", "scale": "weight",
-                  "bias": "bias"}
+                  "bias": "bias", **{k: k for k in RAW_LEAVES}}
+
+
+def _kernel_to_torch(arr: np.ndarray) -> np.ndarray:
+    """flax kernel -> torch weight: (in, out) -> (out, in); (kH, kW, I, O)
+    -> (O, I, kH, kW)."""
+    return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+
+
+def _kernel_to_flax(arr: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``_kernel_to_torch``."""
+    return arr.permute(2, 3, 1, 0) if arr.dim() == 4 else arr.T
 
 
 def flax_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -42,7 +60,7 @@ def flax_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
                 raise KeyError(f"unknown flax parameter leaf: {prefix}{key}")
             arr = np.asarray(val, dtype=np.float32)
             if key == "kernel":
-                arr = arr.T
+                arr = _kernel_to_torch(arr)
             out[prefix + _LEAF_TO_TORCH[key]] = torch.tensor(arr)
 
     walk(tree, "")
@@ -72,15 +90,16 @@ def load_flax_params(module: nn.Module, tree: Mapping) -> None:
 
 def _flax_leaves(mod: nn.Module):
     """(flax leaf name, torch attribute) pairs of a parameter-owning module."""
-    if isinstance(mod, Dense):
-        return (("kernel", "weight"), ("bias", "bias"))
+    if isinstance(mod, (Dense, nn.Linear, nn.Conv2d)):
+        return (("kernel", "weight"),) + ((("bias", "bias"),) if mod.bias is not None else ())
     if isinstance(mod, Embed):
         return (("embedding", "weight"),)
-    if isinstance(mod, LayerNorm):
+    if isinstance(mod, (LayerNorm, nn.LayerNorm, nn.GroupNorm)):
         return (("scale", "weight"), ("bias", "bias"))
     if isinstance(mod, MlmHead):  # its own vocab bias beside its submodules
         return (("bias", "bias"),)
-    return ()
+    return tuple((name, name) for name, _ in mod.named_parameters(recurse=False)
+                 if name in RAW_LEAVES)
 
 
 def flax_paths(module: nn.Module) -> Dict[str, Tuple[str, ...]]:
@@ -106,5 +125,5 @@ def module_to_flax(module: nn.Module) -> Dict[str, Any]:
         for part in path[:-1]:
             node = node.setdefault(part, {})
         val = params[name].detach().float().cpu()
-        node[path[-1]] = (val.T if path[-1] == "kernel" else val).numpy().copy()
+        node[path[-1]] = (_kernel_to_flax(val) if path[-1] == "kernel" else val).numpy().copy()
     return tree

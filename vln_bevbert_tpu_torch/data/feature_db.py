@@ -25,6 +25,14 @@ except ImportError:  # pragma: no cover
     h5py = None
 
 
+# each store's dtype as the training readers consume it (data/pathdata.py:
+# views and depth float32, grids float16, semantics uint8), so that pack
+# reads never cast; ``write_synthetic_features`` and the precompute
+# pipeline's ``build_feature_files`` pack with it
+CONSUMER_DTYPE = {"img_ft": np.float32, "rgb": np.float16, "depth": np.float32,
+                  "sem": np.uint8}
+
+
 def cast_rows(arr: np.ndarray, dtype) -> np.ndarray:
     """``arr`` as ``dtype``, by numpy (float16 rows widen exactly); an array
     that already has the type is returned as it is."""
@@ -242,12 +250,8 @@ def write_synthetic_features(
         for f in files.values():
             f.close()
     if pack:
-        # packs carry the TRAINING-consumer dtype per store (pathdata reads:
-        # views/depth f32, grids f16, sem uint8) so pack reads never cast
-        consumer_dtype = {"img_ft": np.float32, "rgb": np.float16,
-                          "depth": np.float32, "sem": np.uint8}
         for k, p in paths.items():
-            db = H5FeatureDB(p, dtype=consumer_dtype[k])
+            db = H5FeatureDB(p, dtype=CONSUMER_DTYPE[k])
             db.build_pack()
             db.close()
     return paths
