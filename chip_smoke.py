@@ -4,8 +4,9 @@
 
 Drives the port's paths (eval, pretraining, fine-tuning, their object
 grounding variants, and continuous-environment pretraining, training, eval,
-inference and DAgger with its stores and env pool, and CE training over the
-Habitat sensor stack with the frozen CLIP and DDPPO towers) at full
+inference and DAgger with its stores and env pool, CE training over the
+Habitat sensor stack with the frozen CLIP and DDPPO towers, and
+data-parallel pretraining and fine-tuning) at full
 bert-base width with random seeded
 weights, through the hand-written CUDA kernels, in phases; each phase prints
 one line and a failing phase raises, so the script exits non-zero:
@@ -146,6 +147,37 @@ one line and a failing phase raises, so the script exits non-zero:
              seed: equal trajectories; no worker holds the card open; ms per
              rollout step (all three, and the range of one) and the env's
              host ms per step.
+16. dp_pretrain - data parallelism: full-width pretraining in two gloo
+             ranks sharing the one card (spawned; a ``file://`` store), 16
+             rows each, 4 steps at the first seed whose per-step task draws
+             include mlm, sap and masksem, against one process at 32 rows
+             from the same seed: per-step losses and gradient norms within
+             ``DP_PRETRAIN_RTOL``; on every rank the splat launches equal
+             its ``prepare_bev`` calls and the dropout launches its dropout
+             calls; per rank ms per step and the gradient all-reduce's ms
+             (gloo stages the 955.3 MB of float32 gradients through the
+             host: not a multi-card time), peak memory;
+    dp_replay - one full-width replay update from a teacher bundle of 8
+             rows (``cli.finetune --synthetic --batch_size 8``'s rollout,
+             whose splat launches must equal its gather-and-splat calls) in
+             two gloo ranks of 4 rows against one process of 8: loss,
+             gradient norm and the summed gradients within
+             ``DP_REPLAY_RTOL``, the dropout launches equal to the calls;
+    dp_nccl - the CLIs as users launch them, under ``torch.distributed.run
+             --standalone --nproc_per_node 1`` on NCCL at world size 1:
+             pretraining ``--synthetic --device cuda --num_steps 8``
+             (instrumented through this script's ``--torchrun-pretrain``
+             entry) writes ``ckpt_8``, then ``cli.finetune --iters 1`` from
+             it (through ``--torchrun-finetune``); in both runs the splat
+             and dropout launches must equal their calls; ms per step
+             against the ``train`` phase's for the same task, the
+             all-reduce's ms per step.
+
+The kernel phase also holds the splat at the dp one-process shapes: (32,
+2352, 441, 809) float16 (dp_pretrain) and dp_replay's teacher rollout at
+(8, <=18816, 441, 769) bf16; the dropout phase the attention probabilities
+at (32, 12, 441, 441) and (8, 12, 441, 441) bf16 and the replay panorama at
+(120, 44, 768) bf16.
 
 The dropout phase also holds the kernel to its plain version, forward and
 backward bitwise, at the PREVALENT update's sites (B=8, language bucket 32,
@@ -567,7 +599,11 @@ def kernel_phase() -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
     shapes = {  # (B, T, P, S, C, F, num_sem, feature dtype)
         "nav": (4, 15, 2352, 8, 441, 768, 0, torch.bfloat16),     # gather_and_splat
+        # dp_replay's teacher rollout at B=8
+        "nav_b8": (8, 15, 2352, 8, 441, 768, 0, torch.bfloat16),
         "pretrain": (16, 1, 2352, 1, 441, 768, 40, torch.float16),  # prepare_bev
+        # dp_pretrain's one process at the two ranks' global batch
+        "pretrain_b32": (32, 1, 2352, 1, 441, 768, 40, torch.float16),
         # the 11x11 CE map: a rollout step's gather_and_splat at B=8, and CE
         # pretraining's prepare_bev
         "ce_rollout": (8, 15, 2352, 8, 121, 768, 0, torch.bfloat16),
@@ -715,12 +751,18 @@ def dropout_phase() -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
     shapes = {  # the pretraining step's largest sites: (shape, dtype, rate)
         "attn_probs": ((16, 12, 441, 441), torch.bfloat16, 0.1),
+        # dp_pretrain's one process at the two ranks' global batch
+        "attn_probs_b32": ((32, 12, 441, 441), torch.bfloat16, 0.1),
         "hidden": ((16, 200, 768), torch.bfloat16, 0.1),
         "feat": ((16, 441, 768), torch.float32, 0.4),
         # the replay update's: a step's BEV attention at B=4, the panorama
         # encoder over T*B = 60 step-rows of 44 view slots
         "ft_attn_probs": ((4, 12, 441, 441), torch.bfloat16, 0.1),
         "ft_pano_hidden": ((60, 44, 768), torch.bfloat16, 0.1),
+        # dp_replay's one process at the two ranks' 8 rows (a rank's are
+        # the two above: the bundle is padded to T = max_action_len = 15)
+        "ft_attn_probs_b8": ((8, 12, 441, 441), torch.bfloat16, 0.1),
+        "ft_pano_hidden_b8": ((120, 44, 768), torch.bfloat16, 0.1),
         # object pretraining's: the object features (B, T = 8 steps, 20
         # objects, 768), and the panorama encoder over B*T step-rows of
         # P = 44 views + 20 objects
@@ -838,6 +880,27 @@ def dropout_phase() -> dict:
     return record
 
 
+def counting_dropout(seen: dict):
+    """A Dropout.forward that counts the kernel's forward and backward calls
+    into ``seen``. A backward is counted when the gradient reaches the
+    output, by a hook: the kernel's backward launches only where the loss
+    depends on the output (the last recurrent step's last self-attention
+    and FFN of PREVALENT feed nothing)."""
+    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
+
+    forward = drop_mod.Dropout.forward
+
+    def counted(self, x):
+        y = forward(self, x)
+        if self.training and self.rate > 0 and x.dim() >= 2:
+            seen["drop_fwd"] += 1
+            if y.requires_grad:
+                y.register_hook(lambda g: seen.__setitem__("drop_bwd", seen["drop_bwd"] + 1))
+        return y
+
+    return forward, counted
+
+
 def run_lengths(items):
     """[(item, length of its run)] of consecutive equal items."""
     out = []
@@ -869,13 +932,8 @@ def run_trainer(trainer, label: str, min_each: int, build_s: float) -> dict:
 
     seen = {"drop_fwd": 0, "drop_bwd": 0, "bev": 0, "val_bev": 0, "steps": [],
             "validations": [], "in_val": False}
-    forward, prepare = drop_mod.Dropout.forward, ts_mod.prepare_bev
-
-    def counted_forward(self, x):
-        if self.training and self.rate > 0 and x.dim() >= 2:
-            seen["drop_fwd"] += 1
-            seen["drop_bwd"] += bool(x.requires_grad and torch.is_grad_enabled())
-        return forward(self, x)
+    forward, counted_forward = counting_dropout(seen)
+    prepare = ts_mod.prepare_bev
 
     def counted_prepare(projector, batch):
         seen["val_bev" if seen["in_val"] else "bev"] += "depths" in batch
@@ -1362,18 +1420,13 @@ def finetune_phase(pretrain_ckpt: str, pretrain_names: set, out_dir: str,
     seen = {"gathers": 0, "drop_fwd": 0, "drop_bwd": 0, "rollouts": [], "updates": [],
             "agent": None, "start": None}
     cls = agent_mod.GMapNavAgent
-    gather, drop_forward = agent_mod.gather_and_splat, drop_mod.Dropout.forward
+    gather = agent_mod.gather_and_splat
+    drop_forward, counted_dropout = counting_dropout(seen)
     rollout, learn, init = cls._rollout, cls.learn_from_bundle, cls.init_params
 
     def counted_gather(*args):
         seen["gathers"] += 1
         return gather(*args)
-
-    def counted_dropout(self, x):
-        if self.training and self.rate > 0 and x.dim() >= 2:
-            seen["drop_fwd"] += 1
-            seen["drop_bwd"] += bool(x.requires_grad and torch.is_grad_enabled())
-        return drop_forward(self, x)
 
     def timed_rollout(self, feedback, train):
         t0 = time.perf_counter()
@@ -1595,19 +1648,14 @@ def ce_phase(label: str, out_dir: str, argv: list, pretrain_names: set,
     cls, base = ce_mod.CEAgent, nav_mod.GMapNavAgent
     seen = {"gathers": 0, "drop_fwd": 0, "drop_bwd": 0, "iters": [], "rollouts": [],
             "updates": [], "steps": 0, "agent": None, "start": None}
-    gather, drop_forward = ce_mod.gather_and_splat, drop_mod.Dropout.forward
+    gather = ce_mod.gather_and_splat
+    counted_dropout = counting_dropout(seen)[1]
     rollout, ce_rollout, gmap_var = cls.rollout, cls._ce_rollout, cls._ce_gmap_variable
     learn, init = base.learn_from_bundle, cls.init_params
 
     def counted_gather(*args):
         seen["gathers"] += 1
         return gather(*args)
-
-    def counted_dropout(self, x):
-        if self.training and self.rate > 0 and x.dim() >= 2:
-            seen["drop_fwd"] += 1
-            seen["drop_bwd"] += bool(x.requires_grad and torch.is_grad_enabled())
-        return drop_forward(self, x)
 
     def timed_iteration(self, feedback="sample", train=True, sample_ratio=None):
         torch.cuda.synchronize()
@@ -2085,22 +2133,12 @@ def dagger_phase(label: str, out_dir: str, argv: list, pretrain_names=None) -> d
     prev, ce, store = dagger_mod.PrevalentDaggerAgent, ce_mod.CEAgent, npz_store.NpzShardStore
     seen = {"gathers": 0, "drop_fwd": 0, "drop_bwd": 0, "rollouts": [], "events": [],
             "updates": [], "writes": [], "reads": [], "steps": 0, "agent": None, "start": None}
-    gather, drop_forward = ce_mod.gather_and_splat, drop_mod.Dropout.forward
+    gather = ce_mod.gather_and_splat
+    counted_dropout = counting_dropout(seen)[1]
 
     def counted_gather(*args):
         seen["gathers"] += 1
         return gather(*args)
-
-    def counted_dropout(self, x):
-        y = drop_forward(self, x)
-        if self.training and self.rate > 0 and x.dim() >= 2:
-            seen["drop_fwd"] += 1
-            if y.requires_grad:
-                # the backward launches only where the loss reaches this
-                # output: the last recurrent step's last FFN and
-                # self-attention block feed no later step
-                y.register_hook(lambda g: seen.__setitem__("drop_bwd", seen["drop_bwd"] + 1))
-        return y
 
     def host_timed(fn, key, sync=True):
         def wrapper(*args, **kw):
@@ -2395,6 +2433,466 @@ def ce_pool_phase(out_dir: str, workers=(2, 4), rollouts: int = 3) -> dict:
     return out
 
 
+# ------------------------------------------------------------- data parallel
+# Two gloo ranks share the one card: NCCL refuses two ranks on one device,
+# and the run needs one card. The parent has started CUDA, so the ranks are
+# spawned, not forked; the operator library is built (build_phase) before
+# any rank loads it. gloo's all-reduce of CUDA tensors stages them through
+# the host, so the ranks' step times are no multi-card number.
+DP_WORLD = 2
+DP_TIMEOUT_S = 300.0
+GLOO_NOTE = "gloo stages the float32 gradients through the host: not a multi-card time"
+# ranks against one process at the global batch: the same rows and dropout
+# masks, bf16 activations over another batch shape (16 against 32 rows, 4
+# against 8). Measured on the H100: pretraining losses within 4.5e-05 and
+# gradient norms within 3.7e-04 over 4 steps, the replay's loss equal, its
+# gradient norm within 6.7e-05 and its gradients' relative L2 difference
+# 1.6e-03; the bounds are ten times that or more. A wrong normaliser or
+# other masks move the first loss by far more.
+DP_PRETRAIN_RTOL = {"loss": 1e-3, "grad_norm": 5e-3}
+DP_REPLAY_RTOL = {"loss": 1e-3, "grad_norm": 1e-3, "grad_rel_l2": 2e-2}
+
+
+def _dp_rank(rank: int, fn, spec: dict) -> None:
+    """Rank ``rank`` of a gloo group on cuda:0 joined over ``spec["store"]``;
+    ``fn(spec)``'s result into ``<spec["work"]>/rank<rank>.pt``."""
+    from vln_bevbert_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize("cuda:0", backend="gloo", init_method="file://" + spec["store"],
+                           rank=rank, world_size=DP_WORLD, timeout_s=DP_TIMEOUT_S)
+    try:
+        torch.save(fn(spec), os.path.join(spec["work"], f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown()
+
+
+def dp_spawn(fn, spec: dict) -> list:
+    """``fn(spec)`` in DP_WORLD spawned gloo ranks on the one card; their
+    results, rank order. A rank that raises fails the call."""
+    import torch.multiprocessing as mp
+
+    os.makedirs(spec["work"], exist_ok=True)
+    spec = dict(spec, store=os.path.join(spec["work"], "store"))
+    mp.spawn(_dp_rank, args=(fn, spec), nprocs=DP_WORLD, join=True)
+    return [torch.load(os.path.join(spec["work"], f"rank{r}.pt"), weights_only=False)
+            for r in range(DP_WORLD)]
+
+
+def dp_pretrain_run(spec: dict) -> dict:
+    """``cli.pretrain`` built from ``spec["argv"]`` and trained (saved too
+    with ``spec["save"]``, as its ``main`` does) in this process, which may
+    be a rank: per step its task, loss, gradient norm and CUDA-event ms; the
+    kernels' launches against the dropout and ``prepare_bev`` calls; with
+    the gradient all-reduce timed, its CUDA-event ms per step; peak memory;
+    the process group it ran in."""
+    import torch.distributed as dist
+
+    from vln_bevbert_tpu_torch import _build
+    from vln_bevbert_tpu_torch.cli import pretrain
+    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
+    from vln_bevbert_tpu_torch.parallel import distributed
+    from vln_bevbert_tpu_torch.parallel import train_step as ts_mod
+
+    _build.load()
+    trainer = pretrain.build(pretrain.parse_args(spec["argv"]))
+    seen = {"drop_fwd": 0, "drop_bwd": 0, "bev": 0, "steps": [], "reduce": []}
+    forward, counted = counting_dropout(seen)
+    prepare, step_fn = ts_mod.prepare_bev, trainer.step_fn
+    reduce = ts_mod.TrainState.all_reduce_grads
+
+    def counted_prepare(projector, batch):
+        seen["bev"] += "depths" in batch
+        return prepare(projector, batch)
+
+    def timed_step(state, batch, task):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        metrics = step_fn(state, batch, task)
+        end.record()
+        seen["steps"].append((task, start, end, metrics))
+        return metrics
+
+    def timed_reduce(state):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        reduce(state)
+        end.record()
+        seen["reduce"].append((start, end))
+
+    drop_mod.Dropout.forward, ts_mod.prepare_bev = counted, counted_prepare
+    ts_mod.TrainState.all_reduce_grads = timed_reduce
+    trainer.step_fn = timed_step
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: _build.launches(k) for k in ("splat", "dropout")}
+    finally:
+        drop_mod.Dropout.forward, ts_mod.prepare_bev = forward, prepare
+        ts_mod.TrainState.all_reduce_grads = reduce
+    values = torch.stack([torch.stack([m["loss"], m["grad_norm"]])
+                          for *_, m in seen["steps"]]).tolist()
+    out = {"rank": distributed.rank(), "world": distributed.world_size(),
+           "backend": dist.get_backend() if distributed.active() else None,
+           "rows": trainer.train_loader.cfg.train_batch_size,
+           "tasks": [t for t, *_ in seen["steps"]], "loss": [v[0] for v in values],
+           "grad_norm": [v[1] for v in values],
+           "ms": [s.elapsed_time(e) for _, s, e, _ in seen["steps"]],
+           "reduce_ms": [s.elapsed_time(e) for s, e in seen["reduce"]],
+           "launches": launches, "drop_fwd": seen["drop_fwd"], "drop_bwd": seen["drop_bwd"],
+           "bev": seen["bev"], "peak_bytes": torch.cuda.max_memory_allocated(), "wall_s": wall,
+           "grad_bytes": sum(f.numel() * f.element_size() for f in trainer.state.flat_grads),
+           "n_params": sum(p.numel() for p in trainer.state.params)}
+    if spec.get("save"):
+        out["ckpt"] = trainer.save(trainer.state.step)
+    return out
+
+
+def check_dp_launches(label: str, run: dict) -> None:
+    """Both kernels launched, as often as the path called them."""
+    launches = run["launches"]
+    if launches["splat"] != run["bev"] or run["bev"] == 0:
+        raise AssertionError(f"{label}: {launches['splat']} splat launches for {run['bev']} "
+                             "prepare_bev calls")
+    if launches["dropout"] != run["drop_fwd"] + run["drop_bwd"] or run["drop_bwd"] == 0:
+        raise AssertionError(f"{label}: {launches['dropout']} dropout launches for "
+                             f"{run['drop_fwd']} forward and {run['drop_bwd']} backward calls")
+
+
+def rel_diff(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def dp_pretrain_phase(out_dir: str, steps: int = 4, per_rank: int = 16) -> dict:
+    """Full-width pretraining (``PretrainConfig()``, 238,831,719 parameters)
+    in two gloo ranks on the one card, ``per_rank`` rows each, for ``steps``
+    steps at the first seed whose per-step task draws (``task_block_size``
+    1) include mlm, sap and masksem; then one process at the global batch
+    from the same seed. The ranks compute what it computes: the same rows
+    and dropout masks; losses and gradient norms agree to bf16 rounding over
+    another batch shape (``DP_PRETRAIN_RTOL``)."""
+    from vln_bevbert_tpu_torch.configs import PretrainConfig
+    from vln_bevbert_tpu_torch.data.loader import MetaLoader
+
+    cfg = PretrainConfig()
+    seed = next(s for s in range(1000) if {"mlm", "sap", "masksem"} <= {
+        MetaLoader(cfg.tasks, cfg.mix_ratio, s).task_for_step(t) for t in range(steps)})
+    config = os.path.join(out_dir, "per_step_tasks.json")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(config, "w") as f:
+        json.dump({"task_block_size": 1}, f)
+    argv = ["--synthetic", "--device", "cuda", "--num_steps", str(steps), "--seed", str(seed),
+            "--config", config, "--output_dir", os.path.join(out_dir, "out")]
+    ranks = dp_spawn(dp_pretrain_run, {"work": os.path.join(out_dir, "ranks"),
+                                       "argv": argv + ["--batch_size", str(per_rank)]})
+    free_memory()
+    one = dp_pretrain_run({"argv": argv + ["--batch_size", str(DP_WORLD * per_rank)]})
+    for r in ranks:
+        if (r["world"], r["backend"], r["rows"], r["tasks"]) != (
+                DP_WORLD, "gloo", per_rank, one["tasks"]):
+            raise AssertionError(f"dp_pretrain: rank {r['rank']} ran {r['world']} "
+                                 f"{r['backend']} {r['rows']} {r['tasks']}")
+        if (r["loss"], r["grad_norm"]) != (ranks[0]["loss"], ranks[0]["grad_norm"]):
+            raise AssertionError("dp_pretrain: the ranks report different global numbers")
+        check_dp_launches(f"dp_pretrain rank {r['rank']}", r)
+    check_dp_launches("dp_pretrain one process", one)
+    diffs = {"loss": [rel_diff(a, b) for a, b in zip(ranks[0]["loss"], one["loss"])],
+             "grad_norm": [rel_diff(a, b) for a, b in zip(ranks[0]["grad_norm"],
+                                                          one["grad_norm"])]}
+    for key, tol in DP_PRETRAIN_RTOL.items():
+        if max(diffs[key]) > tol:
+            raise AssertionError(f"dp_pretrain: {key} differs from one process's by "
+                                 f"{diffs[key]} (rtol {tol})")
+    return {"seed": seed, "ranks": ranks, "one": one, "diffs": diffs}
+
+
+def dp_replay_run(spec: dict) -> dict:
+    """One replay update of a ``spec["cfg"]`` agent (random parameters from
+    ``spec["seed"]``) from this rank's rows of ``spec["rb"]``: the loss, the
+    gradient norm, the summed gradients before the clip (rank 0, on the
+    host), CUDA-event ms, the dropout launches against its calls."""
+    from vln_bevbert_tpu_torch import _build
+    from vln_bevbert_tpu_torch.nav.agent import make_replay_agent
+    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
+    from vln_bevbert_tpu_torch.parallel import distributed
+    from vln_bevbert_tpu_torch.parallel.mesh import shard_replay_bundle
+
+    _build.load()
+    rank, world = distributed.rank(), distributed.world_size()
+    rb = spec["rb"]
+    agent = make_replay_agent(spec["cfg"], rb["targets"].shape[1] // world, seed=spec["seed"],
+                              device="cuda")
+    state = agent.train_state
+    seen = {"drop_fwd": 0, "drop_bwd": 0}
+    apply = state.apply_gradients
+
+    def snapshot():
+        if rank == 0:
+            seen["grads"] = torch.cat([f.float().cpu() for f in state.flat_grads])
+        return apply()
+
+    forward, counted = counting_dropout(seen)
+    drop_mod.Dropout.forward, state.apply_gradients = counted, snapshot
+    local = shard_replay_bundle(rb, rank, world)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        loss = agent.learn_from_bundle(local)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        drop_mod.Dropout.forward = forward
+    return {"rank": rank, "world": world, "loss": loss, "grad_norm": agent.logs["grad_norm"][-1],
+            "grads": seen.get("grads"), "ms": start.elapsed_time(end),
+            "launches": {k: _build.launches(k) for k in ("splat", "dropout")},
+            "drop_fwd": seen["drop_fwd"], "drop_bwd": seen["drop_bwd"],
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "grad_bytes": sum(f.numel() * f.element_size() for f in state.flat_grads)}
+
+
+def dp_replay_phase(out_dir: str, batch: int = 8) -> dict:
+    """A teacher rollout of the full-width fine-tuning agent (``cli.finetune
+    --synthetic --batch_size 8``) packed as the replay bundle it trains from,
+    then one replay update from it in two gloo ranks (4 rows each) and in
+    one process (8 rows), all from the same random parameters: the same loss
+    and gradient up to bf16 rounding over another batch shape."""
+    from vln_bevbert_tpu_torch import _build
+    from vln_bevbert_tpu_torch.cli import finetune
+    from vln_bevbert_tpu_torch.nav import agent as agent_mod
+    from vln_bevbert_tpu_torch.nav.recollection import agent_build_bundle
+
+    cfg, _, _, agent = finetune.build(finetune.parse_args([
+        "--synthetic", "--device", "cuda", "--batch_size", str(batch), "--output_dir",
+        os.path.join(out_dir, "teacher")]))
+    gather, teacher = agent_mod.gather_and_splat, {"gathers": 0}
+
+    def counted_gather(*args):
+        teacher["gathers"] += 1
+        return gather(*args)
+
+    agent_mod.gather_and_splat = counted_gather
+    try:
+        _build.reset_launches()
+        with torch.no_grad():
+            _, lang, records = agent._rollout("teacher", True)
+        teacher["launches"] = _build.launches("splat")
+    finally:
+        agent_mod.gather_and_splat = gather
+    if teacher["launches"] != teacher["gathers"] or teacher["gathers"] == 0:
+        raise AssertionError(f"dp_replay teacher rollout: {teacher['launches']} splat launches "
+                             f"for {teacher['gathers']} gather-and-splat calls")
+    rb = agent_build_bundle(agent, lang, records)
+    del agent, records
+    free_memory()
+    spec = {"work": os.path.join(out_dir, "ranks"), "cfg": cfg, "rb": rb, "seed": cfg.seed}
+    ranks = dp_spawn(dp_replay_run, spec)
+    free_memory()
+    one = dp_replay_run(spec)
+    for r in ranks:
+        if (r["loss"], r["grad_norm"]) != (ranks[0]["loss"], ranks[0]["grad_norm"]):
+            raise AssertionError("dp_replay: the ranks report different global numbers")
+        launches = r["launches"]
+        if (launches["dropout"] != r["drop_fwd"] + r["drop_bwd"] or r["drop_bwd"] == 0
+                or launches["splat"] != 0):
+            raise AssertionError(f"dp_replay rank {r['rank']}: launches {launches} for "
+                                 f"{r['drop_fwd']} + {r['drop_bwd']} dropout calls")
+    g, g1 = ranks[0]["grads"], one["grads"]
+    diffs = {"loss": rel_diff(ranks[0]["loss"], one["loss"]),
+             "grad_norm": rel_diff(ranks[0]["grad_norm"], one["grad_norm"]),
+             "grad_rel_l2": float((g - g1).norm() / g1.norm()),
+             "grad_max_abs": float((g - g1).abs().max()), "grad_scale": float(g1.abs().max())}
+    for key, tol in DP_REPLAY_RTOL.items():
+        if diffs[key] > tol:
+            raise AssertionError(f"dp_replay: {key} {diffs[key]:.3e} against one process "
+                                 f"(tolerance {tol})")
+    for r in ranks + [one]:
+        r.pop("grads")
+    return {"ranks": ranks, "one": one, "diffs": diffs, "teacher": teacher,
+            "steps": int((rb["targets"] != -100).any(axis=1).sum())}
+
+
+def torchrun_pretrain(out_json: str, argv: list) -> None:
+    """The body of ``cli.pretrain``'s ``main`` (build, train, save) under
+    ``torch.distributed.run``, instrumented (``dp_pretrain_run``); the record
+    into ``out_json``."""
+    from vln_bevbert_tpu_torch.parallel import distributed
+
+    try:
+        record = dp_pretrain_run({"argv": argv, "save": True})
+    finally:
+        distributed.shutdown()
+    with open(out_json, "w") as f:
+        json.dump(record, f)
+
+
+def torchrun_finetune(out_json: str, argv: list) -> None:
+    """``cli.finetune``'s ``main`` under ``torch.distributed.run``, with
+    the splat launches counted against the gather-and-splat calls and the
+    dropout launches against its forward and backward calls (from 0 just
+    before it); the record into ``out_json``."""
+    import torch.distributed as dist
+
+    from vln_bevbert_tpu_torch import _build
+    from vln_bevbert_tpu_torch.cli import finetune
+    from vln_bevbert_tpu_torch.nav import agent as agent_mod
+    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
+    from vln_bevbert_tpu_torch.parallel import distributed
+
+    _build.load()
+    seen = {"gathers": 0, "drop_fwd": 0, "drop_bwd": 0}
+    gather = agent_mod.gather_and_splat
+    forward, counted = counting_dropout(seen)
+
+    def counted_gather(*args):
+        seen["gathers"] += 1
+        return gather(*args)
+
+    agent_mod.gather_and_splat, drop_mod.Dropout.forward = counted_gather, counted
+    try:
+        _build.reset_launches()
+        results = finetune.main(argv)
+        record = {**seen, "results": results, "rank": distributed.rank(),
+                  "world": distributed.world_size(),
+                  "backend": dist.get_backend() if distributed.active() else None,
+                  "launches": {k: _build.launches(k) for k in ("splat", "dropout")}}
+    finally:
+        agent_mod.gather_and_splat, drop_mod.Dropout.forward = gather, forward
+        distributed.shutdown()
+    with open(out_json, "w") as f:
+        json.dump(record, f)
+
+
+def dp_nccl_phase(out_dir: str, plain_ms_per_task: dict, timeout_s: float = 300.0) -> dict:
+    """The CLIs as users launch them, under ``torch.distributed.run`` at
+    world size 1 on NCCL: pretraining (``--synthetic --device cuda
+    --num_steps 8``, through ``torchrun_pretrain``), then ``cli.finetune
+    --iters 1`` from its checkpoint (through ``torchrun_finetune``). Per step
+    ms against the plain run's (the ``train`` phase's, same task) and the
+    gradient all-reduce's ms; both kernels' launches in both runs."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    launcher = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1"]
+    record = os.path.join(out_dir, "pretrain.json")
+    t0 = time.perf_counter()
+    subprocess.run(launcher + [os.path.abspath(__file__), "--torchrun-pretrain", record,
+                               "--synthetic", "--device", "cuda", "--num_steps", "8",
+                               "--output_dir", os.path.join(out_dir, "pretrain")],
+                   check=True, timeout=timeout_s, cwd=here, env=env)
+    pre_wall = time.perf_counter() - t0
+    with open(record) as f:
+        pre = json.load(f)
+    if (pre["backend"], pre["world"]) != ("nccl", 1) or not os.path.exists(pre["ckpt"]):
+        raise AssertionError(f"dp_nccl: ran {pre['backend']} at world {pre['world']}, "
+                             f"checkpoint {pre['ckpt']}")
+    check_dp_launches("dp_nccl", pre)
+    if len(pre["reduce_ms"]) != 8:
+        raise AssertionError(f"dp_nccl: {len(pre['reduce_ms'])} gradient all-reduces in 8 steps")
+    task = pre["tasks"][0]
+    ft_dir, ft_record = os.path.join(out_dir, "finetune"), os.path.join(out_dir, "finetune.json")
+    t0 = time.perf_counter()
+    subprocess.run(launcher + [os.path.abspath(__file__), "--torchrun-finetune", ft_record,
+                               "--synthetic", "--device", "cuda", "--pretrain_ckpt", pre["ckpt"],
+                               "--iters", "1", "--log_every", "1", "--output_dir", ft_dir],
+                   check=True, timeout=timeout_s, cwd=here, env=env)
+    ft_wall = time.perf_counter() - t0
+    with open(ft_record) as f:
+        ft = json.load(f)
+    if (ft["backend"], ft["world"]) != ("nccl", 1):
+        raise AssertionError(f"dp_nccl: fine-tuning ran {ft['backend']} at world {ft['world']}")
+    launches = ft["launches"]
+    if launches["splat"] != ft["gathers"] or ft["gathers"] == 0:
+        raise AssertionError(f"dp_nccl: fine-tuning made {launches['splat']} splat launches "
+                             f"for {ft['gathers']} gather-and-splat calls")
+    if launches["dropout"] != ft["drop_fwd"] + ft["drop_bwd"] or ft["drop_bwd"] == 0:
+        raise AssertionError(f"dp_nccl: fine-tuning made {launches['dropout']} dropout launches "
+                             f"for {ft['drop_fwd']} forward and {ft['drop_bwd']} backward calls")
+    with open(os.path.join(ft_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    il = [r["train/IL_loss"] for r in logged if "train/IL_loss" in r]
+    transferred = [r["pretrain/transferred"] for r in logged if "pretrain/transferred" in r]
+    if not (il and il[0] == il[0] and il[0] > 0 and transferred
+            and os.path.exists(os.path.join(ft_dir, "ckpt_latest"))):
+        raise AssertionError(f"dp_nccl: fine-tuning logged {logged}")
+    return {"pre": pre, "task": task, "ms": sum(pre["ms"][1:]) / len(pre["ms"][1:]),
+            "reduce_ms": sum(pre["reduce_ms"][1:]) / len(pre["reduce_ms"][1:]),
+            "plain_ms": plain_ms_per_task[task], "pre_wall_s": pre_wall,
+            "ft_wall_s": ft_wall, "il_loss": il[0], "transferred": transferred[0], "ft": ft}
+
+
+def dp_group(plain_ms_per_task: dict) -> tuple:
+    """The data-parallel phases, printed: dp_pretrain, dp_replay, dp_nccl
+    (against the plain run's ms per step and task)."""
+    free_memory()
+    work = tempfile.TemporaryDirectory()
+    dpp = dp_pretrain_phase(os.path.join(work.name, "dp_pretrain"))
+    one = dpp["one"]
+    for r in dpp["ranks"]:
+        phase("dp_pretrain", rank=r["rank"], world=r["world"], backend=r["backend"],
+              rows=r["rows"], seed=dpp["seed"], tasks=",".join(r["tasks"]),
+              splat_launches=r["launches"]["splat"], prepare_bev_calls=r["bev"],
+              dropout_launches=r["launches"]["dropout"],
+              dropout_calls=f"{r['drop_fwd']}+{r['drop_bwd']}",
+              ms_per_step=",".join(f"{v:.2f}" for v in r["ms"]),
+              allreduce_ms=",".join(f"{v:.2f}" for v in r["reduce_ms"]),
+              peak_mem_MiB=f"{r['peak_bytes'] / 2**20:.1f}", note=repr(GLOO_NOTE))
+    phase("dp_pretrain", one_process_rows=DP_WORLD * dpp["ranks"][0]["rows"],
+          params=one["n_params"], grad_MB=f"{one['grad_bytes'] / 1e6:.1f}",
+          first_loss=f"{dpp['ranks'][0]['loss'][0]:.6f}/{one['loss'][0]:.6f}",
+          first_grad_norm=f"{dpp['ranks'][0]['grad_norm'][0]:.6f}/{one['grad_norm'][0]:.6f}",
+          loss_ranks=",".join(f"{v:.6f}" for v in dpp["ranks"][0]["loss"]),
+          loss_one=",".join(f"{v:.6f}" for v in one["loss"]),
+          loss_rel_diff=",".join(f"{v:.2e}" for v in dpp["diffs"]["loss"]),
+          grad_norm_rel_diff=",".join(f"{v:.2e}" for v in dpp["diffs"]["grad_norm"]),
+          ms_per_step_one=",".join(f"{v:.2f}" for v in one["ms"]),
+          splat_launches_one=one["launches"]["splat"],
+          dropout_launches_one=one["launches"]["dropout"],
+          peak_mem_MiB_one=f"{one['peak_bytes'] / 2**20:.1f}")
+    free_memory()
+    dpr = dp_replay_phase(os.path.join(work.name, "dp_replay"))
+    for r in dpr["ranks"] + [dpr["one"]]:
+        phase("dp_replay", rank=r["rank"], world=r["world"], rows=8 // r["world"],
+              loss=f"{r['loss']:.6f}", grad_norm=f"{r['grad_norm']:.6f}",
+              dropout_launches=r["launches"]["dropout"],
+              dropout_calls=f"{r['drop_fwd']}+{r['drop_bwd']}",
+              splat_launches=r["launches"]["splat"], ms=f"{r['ms']:.2f}",
+              grad_MB=f"{r['grad_bytes'] / 1e6:.1f}",
+              peak_mem_MiB=f"{r['peak_bytes'] / 2**20:.1f}")
+    phase("dp_replay", teacher_rows=8, teacher_gathers=dpr["teacher"]["gathers"],
+          teacher_splat_launches=dpr["teacher"]["launches"])
+    phase("dp_replay", steps=dpr["steps"], **{k: f"{v:.3e}" for k, v in dpr["diffs"].items()},
+          note=repr(GLOO_NOTE))
+    free_memory()
+    nccl = dp_nccl_phase(os.path.join(work.name, "dp_nccl"), plain_ms_per_task)
+    pre = nccl["pre"]
+    phase("dp_nccl", backend=pre["backend"], world=pre["world"], task=nccl["task"],
+          steps=len(pre["ms"]), ms_per_step=f"{nccl['ms']:.2f}",
+          plain_ms_per_step=f"{nccl['plain_ms']:.2f}",
+          overhead_ms=f"{nccl['ms'] - nccl['plain_ms']:.2f}",
+          allreduce_ms_per_step=f"{nccl['reduce_ms']:.3f}",
+          grad_MB=f"{pre['grad_bytes'] / 1e6:.1f}", splat_launches=pre["launches"]["splat"],
+          dropout_launches=pre["launches"]["dropout"], ckpt=os.path.basename(pre["ckpt"]),
+          pretrain_wall_s=f"{nccl['pre_wall_s']:.1f}",
+          finetune_transferred=nccl["transferred"], finetune_IL_loss=f"{nccl['il_loss']:.4g}",
+          finetune_sr=f"{nccl['ft']['results']['val_unseen']['sr']:.2f}",
+          finetune_splat_launches=nccl["ft"]["launches"]["splat"],
+          finetune_gathers=nccl["ft"]["gathers"],
+          finetune_dropout_launches=nccl["ft"]["launches"]["dropout"],
+          finetune_dropout_calls=f"{nccl['ft']['drop_fwd']}+{nccl['ft']['drop_bwd']}",
+          finetune_wall_s=f"{nccl['ft_wall_s']:.1f}")
+    work.cleanup()
+    return dpp, dpr, nccl
+
+
 def main() -> None:
     kind = device_phase()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 references stay float32
@@ -2634,6 +3132,10 @@ def main() -> None:
               env_host_ms_per_step_pool=f"{r['pool']['env_ms_per_step']:.2f}")
     work.cleanup()
 
+    # data parallelism: two gloo ranks on the one card against one process at
+    # the global batch, then the CLIs under torch.distributed.run on NCCL
+    dpp, dpr, nccl = dp_group(train["ms_per_task"])
+
     loaded = sorted(k for k in sys.modules if k.split(".")[0] in
                     ("vln_bevbert_tpu", "jax", "jaxlib", "flax", "optax", "orbax"))
     if loaded:
@@ -2652,7 +3154,13 @@ def main() -> None:
          "launches_validate": val["launches"]["splat"], "launches_optim": opt["launches"]["splat"],
          "launches_r4r": cfg_runs["r4r_train"]["launches"]["splat"],
          "launches_rxr": cfg_runs["rxr_train"]["launches"]["splat"],
-         **{f"launches_dagger_{k}": r["launches"]["splat"] for k, r in dag.items()}},
+         **{f"launches_dagger_{k}": r["launches"]["splat"] for k, r in dag.items()},
+         "launches_dp_pretrain_ranks": [r["launches"]["splat"] for r in dpp["ranks"]],
+         "launches_dp_pretrain_one": dpp["one"]["launches"]["splat"],
+         "launches_dp_replay_ranks": [r["launches"]["splat"] for r in dpr["ranks"]],
+         "launches_dp_replay_teacher": dpr["teacher"]["launches"],
+         "launches_dp_nccl": nccl["pre"]["launches"]["splat"],
+         "launches_dp_nccl_finetune": nccl["ft"]["launches"]["splat"]},
         {**DROPOUT, "launches": train["launches"]["dropout"], **drop_record,
          "bound_by": "bytes", "launches_finetune": ft["launches"]["dropout"],
          "launches_obj_pretrain": obj["launches"]["dropout"],
@@ -2664,11 +3172,22 @@ def main() -> None:
          "launches_optim": opt["launches"]["dropout"],
          "launches_r4r": cfg_runs["r4r_train"]["launches"]["dropout"],
          "launches_rxr": cfg_runs["rxr_train"]["launches"]["dropout"],
-         **{f"launches_dagger_{k}": r["launches"]["dropout"] for k, r in dag.items()}},
+         **{f"launches_dagger_{k}": r["launches"]["dropout"] for k, r in dag.items()},
+         "launches_dp_pretrain_ranks": [r["launches"]["dropout"] for r in dpp["ranks"]],
+         "launches_dp_pretrain_one": dpp["one"]["launches"]["dropout"],
+         "launches_dp_replay_ranks": [r["launches"]["dropout"] for r in dpr["ranks"]],
+         "launches_dp_replay_one": dpr["one"]["launches"]["dropout"],
+         "launches_dp_nccl": nccl["pre"]["launches"]["dropout"],
+         "launches_dp_nccl_finetune": nccl["ft"]["launches"]["dropout"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--torchrun-pretrain"]:  # a rank of dp_nccl_phase's launch
+        torchrun_pretrain(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1:2] == ["--torchrun-finetune"]:  # likewise
+        torchrun_finetune(sys.argv[2], sys.argv[3:])
+    else:
+        main()

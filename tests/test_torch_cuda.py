@@ -764,3 +764,90 @@ def test_small_validate_matches_cpu_on_card(tmp_path):
     assert "val_unseen/sem/auc_macro" in results["cuda"]
     for key, val in results["cpu"].items():
         assert abs(results["cuda"][key] - val) <= 1e-4, (key, results["cuda"][key], val)
+
+
+def _small_dp_configs():
+    """A small float32 pretraining and fine-tuning configuration, dropout on."""
+    from vln_bevbert_tpu_torch.configs import (
+        FinetuneConfig,
+        ModelConfig,
+        OptimConfig,
+        PretrainConfig,
+        ShapeConfig,
+    )
+
+    model = ModelConfig(vocab_size=400, hidden_size=64, num_attention_heads=2,
+                        intermediate_size=128, num_l_layers=1, num_pano_layers=1,
+                        num_x_layers=1, image_feat_size=32, bev_grid_feat_size=24, bev_dim=5,
+                        num_sem_classes=7, dtype="float32", max_position_embeddings=64)
+    shapes = ShapeConfig(max_txt_len=16, max_steps=3, max_pano_len=8, max_gmap_len=10,
+                         max_local_len=6, max_objects=0, num_views=2, grid_hw=4,
+                         max_masked_tokens=4, max_pc_steps=2)
+    pre = PretrainConfig(model=model, shapes=shapes, optim=OptimConfig(warmup_steps=2),
+                         tasks=("mlm", "sap", "masksem"), train_batch_size=2)
+    ft = FinetuneConfig(model=model, shapes=shapes, batch_size=2, max_action_len=4,
+                        learning_rate=1e-4)
+    return pre, ft
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_pretrain_steps_match_one_process_on_card(tmp_path):
+    """Two data-parallel ranks on the one card (gloo over a file store, each
+    with its 2 rows of a B=4 batch) train three steps (mlm, sap, masksem,
+    dropout on) as one process at B=4 on the card does: both draw the same
+    dropout seeds from the CUDA generator and each rank keeps its rows', so
+    losses and gradient norms agree to float32 summation order (rtol 1e-4)
+    and parameters within 1e-4; every rank launches both kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    import dp_ranks
+    from vln_bevbert_tpu.data.synthetic import synthetic_pretrain_batch
+
+    cfg, _ = _small_dp_configs()
+    batch = synthetic_pretrain_batch(np.random.default_rng(3), 4, cfg.shapes, cfg.model,
+                                     with_objects=False, raw_bev=True)
+    for key in ("txt_ids", "mlm_tgt", "mlm_ids"):
+        batch[key] = (batch[key] % 300).astype(np.int32)
+    batch["bev_mrc_masks"][:, ::2] = True
+    spec = {"cfg": cfg, "seed": 7, "batch": batch, "tasks": cfg.tasks, "device": "cuda"}
+    ranks = dp_ranks.run(dp_ranks.pretrain_steps, 2, str(tmp_path), spec, device="cuda:0")
+    one = dp_ranks.pretrain_steps(0, 1, spec)
+    for r in ranks:
+        got = torch.tensor([[m["loss"], m["grad_norm"]] for m in r["metrics"]])
+        want = torch.tensor([[m["loss"], m["grad_norm"]] for m in one["metrics"]])
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+        assert r["launches"]["splat"] == 3 and r["launches"]["dropout"] > 0
+        for name, p in one["params"].items():
+            torch.testing.assert_close(r["params"][name], p, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_replay_update_matches_one_process_on_card(tmp_path):
+    """Two data-parallel ranks on the one card, each with 2 rows of a B=4
+    replay bundle (dropout on), against one process at B=4 on the card: the
+    loss at rtol 1e-4, the summed gradients at rtol 1e-3 atol 1e-5 (float32
+    sums over 2 against 4 rows), the updated parameters within 2 lr (AdamW
+    moves a weight whose gradient is rounding noise by up to lr either way)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    import dp_ranks
+    from vln_bevbert_tpu.data.synthetic import synthetic_replay_bundle
+
+    _, cfg = _small_dp_configs()
+    rb = synthetic_replay_bundle(np.random.default_rng(3), cfg, 4)
+    spec = {"cfg": cfg, "rb": rb, "seed": 3, "device": "cuda"}
+    ranks = dp_ranks.run(dp_ranks.replay, 2, str(tmp_path), spec, device="cuda:0")
+    one = dp_ranks.replay(0, 1, spec)
+    for r in ranks:
+        torch.testing.assert_close(torch.tensor(r["loss"]), torch.tensor(one["loss"]),
+                                   rtol=1e-4, atol=0)
+        assert r["launches"]["dropout"] > 0 and r["finite"]
+        for name, g in one["grads"].items():
+            torch.testing.assert_close(r["grads"][name], g, rtol=1e-3, atol=1e-5)
+        for name, p in one["params"].items():
+            torch.testing.assert_close(r["params"][name], p, rtol=0,
+                                       atol=2 * cfg.learning_rate + 1e-6)

@@ -50,6 +50,10 @@ COPIED = ("configs", "geometry", "data.nav_graph", "data.pathdata", "data.batchi
 LEFT_OUT = {"data.feature_db": {"fast_cast"}, "ce.waypoint_predictor": {"jax", "jnp"},
             "precompute.pipeline": {"JaxClipEncoder"}}
 FORBIDDEN = ("vln_bevbert_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
+# the CLI subprocesses run tiny models, as fast on two threads as on all
+# cores alone; with every core busy (the suite's files run in parallel) a
+# process of all-core parallel regions waits on its own threads, ~20x
+FEW_THREADS = {"OMP_NUM_THREADS": "2"}
 
 
 def config_file(tmp_path, make):
@@ -806,7 +810,7 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
          config_file(tmp_path, finetune_config), pt, ce_cfg, str(tmp_path / "real.json"),
          str(tmp_path / "hab.json")],
         capture_output=True, text=True, timeout=400, cwd=REPO,
-        env={**os.environ, "PYTHONPATH": REPO},
+        env={**os.environ, "PYTHONPATH": REPO, **FEW_THREADS},
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -820,8 +824,43 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
             "vln_bevbert_tpu_torch.utils.npz_store", "vln_bevbert_tpu_torch.models.clip",
             "vln_bevbert_tpu_torch.models.depth_encoder",
             "vln_bevbert_tpu_torch.ce.habitat_binding",
-            "vln_bevbert_tpu_torch.precompute.pipeline"} <= set(out["names"])
+            "vln_bevbert_tpu_torch.precompute.pipeline",
+            "vln_bevbert_tpu_torch.parallel.distributed",
+            "vln_bevbert_tpu_torch.parallel.mesh"} <= set(out["names"])
     assert all(0.0 <= sr <= 100.0 for sr in out["sr"]) and out["loss"] and out["pred_obj"]
     assert out["real"] and len(out["val"]) == 1 and np.isfinite(out["val"][0])
     assert out["count"] == 1 and out["slow"]  # 2 steps of accumulation: one update
     assert out["dagger"] == [2]
+
+
+def test_data_parallel_pretraining_loads_nothing_of_the_jax_package(tmp_path):
+    """``cli.pretrain`` over two data-parallel gloo ranks, spawned from a
+    process that imports the two process-group modules: neither that
+    process nor a rank loads a JAX module or a module of the JAX package,
+    and both ranks report the same global meters; rank 1 writes nothing.
+    A subprocess of its own: the one above runs close to its time limit
+    when the suite's files run in parallel."""
+    code = (
+        "import json, sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from vln_bevbert_tpu_torch.parallel import distributed, mesh\n"
+        "import dp_ranks\n"
+        "out, pt = sys.argv[1:3]\n"
+        "dp = dp_ranks.run(dp_ranks.cli, 2, out + '/dp_work', {'module': 'pretrain', 'argv': [\n"
+        "    '--synthetic', '--device', 'cpu', '--num_steps', '2', '--batch_size', '1',\n"
+        "    '--config', pt], 'out': [out + '/dp0', out + '/dp1']})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(json.dumps({'bad': bad, 'dp': [r['res'] for r in dp],\n"
+        "                  'dp_bad': [r['jax_modules'] for r in dp]}))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path), config_file(tmp_path, pretrain_config)],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env={**os.environ, "PYTHONPATH": REPO, **FEW_THREADS},
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == [] and out["dp_bad"] == [[], []]
+    assert out["dp"][0] == out["dp"][1] and all(np.isfinite(v) for v in out["dp"][0].values())
+    assert sorted(os.listdir(tmp_path / "dp0")) == ["ckpt_2", "metrics.jsonl"]
+    assert not (tmp_path / "dp1").exists()  # rank 1 writes nothing

@@ -11,15 +11,17 @@ module: it keeps its own copy of the host layer it runs (``configs``,
 Ported so far: the navigation-eval slice (``bevbert-finetune --test``), the
 pretraining train step (``bevbert-pretrain --synthetic``) and DAgger
 fine-tuning (``bevbert-finetune``), object grounding, pretraining as users
-run it, and continuous environments (``ce/``: SS-BEV/SS-ETP, eval,
-inference, and the DAgger trainer with its stores and env pool):
+run it, continuous environments (``ce/``: SS-BEV/SS-ETP, eval,
+inference, and the DAgger trainer with its stores and env pool), and
+data-parallel pretraining and fine-tuning (one process per card):
 
 - ``ops``      : masking, the BEV projector, the CUDA splat and dropout kernels
 - ``models``   : BERT blocks, the four encoders, the glocal backbone with its
                  pretraining heads and losses, the navigation model, and
                  Recurrent VLN-BERT (PREVALENT, ``models/legacy.py``)
 - ``convert``  : flax parameter tree <-> ``state_dict``
-- ``parallel`` : AdamW with a bf16 first moment, the train step
+- ``parallel`` : the optimizer family, the train step, the process group
+                 and a rank's rows (``distributed``, ``mesh``)
 - ``pretrain`` : the trainer over the MetaLoader task schedule
 - ``nav``      : the navigation agent and the teacher-recollection store
 - ``ce``       : continuous environments, the CE DAgger trainer, the env pool

@@ -21,6 +21,15 @@ slots to the model (``obj_feat_size`` 768 unless the config sets it) and
 object stores to the envs: synthetic ones in memory, or ``BBoxes.json`` and
 ``obj2vps.json`` under ``--data_root``; their evaluations add RGS and RGSPL
 and their prediction dumps ``predObjId``.
+
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N -m
+vln_bevbert_tpu_torch.cli.finetune ...``) every process is one
+data-parallel rank on ``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device
+cpu``). ``batch_size`` is per rank, as in the JAX CLI: each rank's envs hold
+its rows of the global envs of N times as many rows, the replay update sums
+the ranks' gradients (``nav/agent.py``), evaluations merge every rank's
+predictions before scoring them, and only rank 0 writes checkpoints,
+prediction dumps and metrics.
 """
 
 from __future__ import annotations
@@ -46,8 +55,9 @@ from ..data.nav_graph import (
 from ..nav.agent import GMapNavAgent
 from ..nav.env import R2RNavBatch
 from ..nav.obj_env import ObjectDB, ReverieObjectNavBatch, SoonObjectNavBatch
+from ..parallel import distributed
 from ..parallel.train_step import load_checkpoint
-from ..utils.logging import MetricLogger
+from ..utils.logging import make_logger
 
 Envs = Tuple[R2RNavBatch, Dict[str, R2RNavBatch], Optional[R2RNavBatch]]
 
@@ -97,6 +107,11 @@ def parse_args(argv=None):
                    help="annotation tokenizer variant (selects REVERIE "
                         "_enc vs _enc_xlmr files, ref reverie/data_utils.py:57-63)")
     return p.parse_args(argv)
+
+
+def _dp() -> dict:
+    """An env's data-parallel share: this process's rank and the world size."""
+    return {"rank": distributed.rank(), "world": distributed.world_size()}
 
 
 def synthetic_feature_dbs(rng: np.random.Generator, scan_viewpoints,
@@ -151,7 +166,7 @@ def build_synthetic_envs(cfg: FinetuneConfig, args) -> Envs:
     def make(annos, name, seed):
         return R2RNavBatch(annos, graphs, cands, batch_size=cfg.batch_size,
                            image_feat_size=cfg.model.image_feat_size, seed=seed,
-                           name=name, **dbs)
+                           name=name, **dbs, **_dp())
 
     aug_env = None
     if args.aug_path:
@@ -225,7 +240,7 @@ def build_envs(cfg: FinetuneConfig, args) -> Envs:
     def make(annos, name, seed):
         return R2RNavBatch(annos, graphs, cands, batch_size=cfg.batch_size,
                            image_feat_size=cfg.model.image_feat_size, seed=seed,
-                           name=name, **dbs)
+                           name=name, **dbs, **_dp())
 
     aug_env = make(aug_annos, "aug", args.seed + 2) if aug_annos else None
     val_envs = {name: make(annos, name, args.seed + 1 + i)
@@ -275,7 +290,7 @@ def _make_obj_envs(cfg: FinetuneConfig, args, graphs, cands, dbs, train_annos, v
                        image_feat_size=m.image_feat_size, seed=seed, name=name,
                        obj_db=ObjectDB(obj_data), obj2vps=obj2vps,
                        max_objects=cfg.shapes.max_objects,
-                       multi_endpoints=(name == "train"), **dbs)
+                       multi_endpoints=(name == "train"), **dbs, **_dp())
 
     val_envs = {name: make(annos, name, args.seed + 1 + i)
                 for i, (name, annos) in enumerate(val_annos.items())}
@@ -322,11 +337,14 @@ def build(args):
     taken in turn by iteration parity. The agent acts in the train env; its
     parameters are random from the seed or, with ``--pretrain_ckpt``,
     transferred from that checkpoint (``agent.transferred`` counts the
-    entries taken)."""
-    device = resolve_device(args.device)
+    entries taken). Under a launcher it joins the process group first and
+    ``cfg.batch_size`` becomes the global batch, per rank times the world
+    size (JAX ``cli/finetune.py:282-293``)."""
+    device = distributed.initialize(resolve_device(args.device))
     # bf16 GEMMs accumulate in float32 end to end, as the JAX einsums do
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     cfg = make_config(args)
+    cfg.batch_size *= distributed.world_size()
     if args.synthetic or not args.data_root:
         train_env, val_envs, aug_env = build_synthetic_envs(cfg, args)
     else:
@@ -357,11 +375,18 @@ def write_predictions(path: str, preds: List[dict]) -> None:
 
 def main(argv=None):
     """Evaluate (``--test``) or train with evaluation every ``log_every``
-    iterations; returns {split: metrics} of the last evaluation."""
+    iterations; returns {split: metrics} of the last evaluation, over every
+    rank's predictions."""
     args = parse_args(argv)
     cfg, train_envs, val_envs, agent = build(args)
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    logger = MetricLogger(cfg.output_dir)
+    primary = distributed.is_primary()
+    logger = make_logger(cfg.output_dir, primary)
+
+    def save(name: str) -> None:
+        if primary:
+            agent.save_ckpt(os.path.join(cfg.output_dir, name))
+        distributed.barrier()
+
     if agent.transferred is not None:
         logger.log(0, {"pretrain/transferred": agent.transferred,
                        "pretrain/params": len(agent.model.state_dict())})
@@ -370,11 +395,14 @@ def main(argv=None):
         results = {}
         for tag, env in val_envs.items():
             agent.env = env
-            preds = agent.test()
+            # the dedupe on instr_id drops the rows that pad a split's end
+            preds = distributed.merge_results(distributed.all_gather_objects(agent.test()))
             avg = env.eval_metrics(preds)[0] if env.gt_trajs else {}
             if avg:
                 logger.log(step, {f"{tag}/{k}": v for k, v in avg.items()})
-            write_predictions(os.path.join(cfg.output_dir, f"preds_{tag}_{step}.json"), preds)
+            if primary:
+                write_predictions(os.path.join(cfg.output_dir, f"preds_{tag}_{step}.json"),
+                                  preds)
             results[tag] = avg
         agent.env = train_envs[0]
         return results
@@ -402,11 +430,12 @@ def main(argv=None):
         score = avg.get("sr", 0.0) + avg.get("spl", 0.0)
         if score > best["score"]:
             best = {"score": score, "step": done, **avg}
-            agent.save_ckpt(os.path.join(cfg.output_dir, "ckpt_best"))
-    agent.save_ckpt(os.path.join(cfg.output_dir, "ckpt_latest"))
+            save("ckpt_best")
+    save("ckpt_latest")
     logger.log(done, {f"best/{k}": v for k, v in best.items() if k != "step"})
     return results
 
 
 if __name__ == "__main__":
     print(json.dumps(main()))
+    distributed.shutdown()

@@ -20,6 +20,12 @@ Parameters are random, from ``--seed``; ``--init_bert`` then replaces the
 language layers; it needs ``transformers`` and the weights in its local
 cache), and ``--resume <ckpt>`` restores a checkpoint (training then runs on
 to ``--num_steps``). The run ends by saving ``<output_dir>/ckpt_<step>``.
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N
+-m vln_bevbert_tpu_torch.cli.pretrain ...``) every process is one
+data-parallel rank on ``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``),
+``train_batch_size`` is per rank, as in the JAX CLI and the reference's
+per-GPU batch, and the ranks' rows make up one process's global batch of N
+times as many rows (``pretrain/trainer.py``).
 ``--dataset reverie|soon`` gives the model object slots (``obj_feat_size``
 768, ``obj_prob_size`` 1000 unless the config sets them), as the JAX CLI
 does; neither its synthetic world nor ``build_real_db`` has an object
@@ -49,6 +55,7 @@ from ..data.nav_graph import (
 )
 from ..data.pathdata import TextPathData
 from ..models import surgery
+from ..parallel import distributed
 from ..pretrain.trainer import PretrainTrainer
 from .finetune import resolve_device, synthetic_feature_dbs
 
@@ -167,8 +174,11 @@ def init_bert(trainer: PretrainTrainer) -> int:
 def build(args) -> PretrainTrainer:
     """A trainer on ``args.device`` over the synthetic world's or
     ``--data_root``'s loaders (train, and val_unseen for validation), with
-    random parameters, then ``--init_bert``'s, then those of ``--resume``."""
-    device = resolve_device(args.device)
+    random parameters, then ``--init_bert``'s, then those of ``--resume``.
+    Under a launcher it joins the process group first; the loaders then
+    hand this rank its rows of the global batch, ``train_batch_size`` times
+    the world size (val_unseen's from ``seed + 1``)."""
+    device = distributed.initialize(resolve_device(args.device))
     # bf16 GEMMs accumulate in float32 end to end, as the JAX einsums do
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
@@ -192,8 +202,11 @@ def build(args) -> PretrainTrainer:
                                _split_files(args.train_files))
         val_db = build_real_db(cfg, args.data_root, args.dataset, "val_unseen",
                                _split_files(args.val_files))
-    loader = PretrainLoader(nav_db, cfg, seed=cfg.seed, num_workers=cfg.num_workers)
-    val_loader = PretrainLoader(val_db, cfg, seed=cfg.seed + 1, prefetch=0)
+    # train_batch_size is per rank; the loaders draw the global batch
+    dp = dict(n_devices=distributed.world_size(),
+              dp_rank=distributed.rank() if distributed.active() else None)
+    loader = PretrainLoader(nav_db, cfg, seed=cfg.seed, num_workers=cfg.num_workers, **dp)
+    val_loader = PretrainLoader(val_db, cfg, seed=cfg.seed + 1, prefetch=0, **dp)
     trainer = PretrainTrainer(cfg, loader, device, val_loaders={"val_unseen": val_loader})
     if args.init_bert:
         init_bert(trainer)
@@ -213,3 +226,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     print(json.dumps(main()))
+    distributed.shutdown()

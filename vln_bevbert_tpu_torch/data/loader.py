@@ -20,6 +20,7 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 
 from ..configs import ModelConfig, PretrainConfig, ShapeConfig
+from ..parallel.mesh import shard_batch
 from .batching import make_pretrain_batch
 from .pathdata import TextPathData
 
@@ -83,10 +84,15 @@ class PretrainLoader:
         prefetch: int = 2,
         n_devices: int = 1,
         num_workers: int = 0,
+        dp_rank: Optional[int] = None,
     ):
         """``cfg.train_batch_size`` is PER CHIP (matching the reference's
         per-GPU batch, configs/r2r_pretrain.json:8); the loader builds the
-        global batch = per_chip x n_devices for the dp mesh to shard.
+        global batch = per_chip x n_devices; with ``dp_rank`` it yields that
+        data-parallel rank's rows of it (``parallel.mesh.shard_batch``). The
+        global batch's draws run on every rank, so the ranks' batches,
+        concatenated, are the global batch bit for bit. ``rank`` keys the
+        draws, as in the JAX loader, and is the same on every dp rank.
 
         ``num_workers`` > 0 fans batch construction out over forked worker
         processes (the reference's DataLoader num_workers role,
@@ -96,6 +102,9 @@ class PretrainLoader:
         self.nav_db = nav_db
         self.cfg = cfg
         self.n_devices = max(int(n_devices), 1)
+        if dp_rank is not None and not 0 <= dp_rank < self.n_devices:
+            raise ValueError(f"dp_rank {dp_rank} outside {self.n_devices} devices")
+        self.dp_rank = dp_rank
         self.meta = MetaLoader(
             cfg.tasks, cfg.mix_ratio, seed,
             block_size=getattr(cfg, "task_block_size", 1),
@@ -137,6 +146,8 @@ class PretrainLoader:
             bev_mrc_mask_prob=self.cfg.bev_mrc_mask_prob,
             obj_mrc_mask_prob=self.cfg.mrc_mask_prob,
         )
+        if self.dp_rank is not None:
+            batch = shard_batch(batch, self.dp_rank, self.n_devices)
         return task, batch
 
     def __iter__(self) -> Iterator[Tuple[str, Dict[str, np.ndarray]]]:

@@ -18,6 +18,7 @@ from torch import nn
 
 from ..configs import ModelConfig
 from ..ops.dropout import Dropout
+from ..parallel import distributed
 from ..ops.masking import attn_bias, masked_fill_neg
 from .bert import BertEmbeddings, MlmHead, TwoLayerHead, _dt
 from .encoders import GlobalMapEncoder, ImageEmbeddings, LanguageEncoder, LocalBEVEncoder
@@ -208,13 +209,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int 
     return torch.where(valid, nll, torch.zeros_like(nll)), valid
 
 
-def _count(valid: torch.Tensor) -> torch.Tensor:
-    """max(number of True, 1), as a device tensor."""
-    return valid.sum().clamp_min(1)
+def _global_counts(*counts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``counts`` (int64 device scalars) summed over the data-parallel
+    ranks, in one collective; one process: as they are."""
+    if not distributed.active():
+        return counts
+    return tuple(distributed.all_reduce_(torch.stack(counts)).unbind())
 
 
-def _accuracy(logits, labels, valid, n) -> torch.Tensor:
-    return ((logits.argmax(-1) == labels) & valid).sum() / n
+def _hits(logits, labels, valid) -> torch.Tensor:
+    return ((logits.argmax(-1) == labels) & valid).sum()
 
 
 class GlocalTextPathCMTPreTraining(nn.Module):
@@ -276,9 +280,9 @@ class GlocalTextPathCMTPreTraining(nn.Module):
         tgt = batch["mlm_tgt"].reshape(-1).long()
         labels = torch.where(batch["mlm_valid"].reshape(-1), tgt, torch.full_like(tgt, -100))
         loss, valid = cross_entropy(logits.reshape(b * m, v), labels)
-        n = _count(valid)
-        acc = _accuracy(logits.reshape(b * m, v), tgt, valid, n)
-        return loss.sum() / n, {"mlm_acc": acc, "mlm_n": n}
+        n, hits = _global_counts(valid.sum(), _hits(logits.reshape(b * m, v), tgt, valid))
+        n = n.clamp_min(1)
+        return loss.sum() / n, {"mlm_acc": hits / n, "mlm_n": n}
 
     def forward_sap(self, batch: Batch):
         gmap_embeds, bev_embeds, _, _ = self.bert(batch)
@@ -290,14 +294,15 @@ class GlocalTextPathCMTPreTraining(nn.Module):
         g_loss, g_valid = cross_entropy(global_logits, glabels)
         l_loss, l_valid = cross_entropy(local_logits, llabels)
         f_loss, _ = cross_entropy(fused_logits, glabels)
-        n = _count(g_valid)  # -100 rows drop out of all three
-        loss = (g_loss + l_loss + f_loss).sum() / max(glabels.shape[0], 1)
-        return loss, {
-            "sap_gacc": _accuracy(global_logits, glabels, g_valid, n),
-            "sap_lacc": _accuracy(local_logits, llabels, l_valid, n),
-            "sap_facc": _accuracy(fused_logits, glabels, g_valid, n),
-            "sap_n": n,
-        }
+        # -100 rows drop out of all three
+        n, g_hits, l_hits, f_hits = _global_counts(
+            g_valid.sum(), _hits(global_logits, glabels, g_valid),
+            _hits(local_logits, llabels, l_valid), _hits(fused_logits, glabels, g_valid))
+        n = n.clamp_min(1)
+        rows = glabels.shape[0] * distributed.world_size()
+        loss = (g_loss + l_loss + f_loss).sum() / max(rows, 1)
+        return loss, {"sap_gacc": g_hits / n, "sap_lacc": l_hits / n,
+                      "sap_facc": f_hits / n, "sap_n": n}
 
     def forward_og(self, batch: Batch):
         """Object grounding: cross-entropy over the last step's object slots."""
@@ -305,8 +310,9 @@ class GlocalTextPathCMTPreTraining(nn.Module):
         logits = masked_fill_neg(self.og_head(obj_embeds)[..., 0], ~obj_masks)
         labels = batch["obj_labels"].long()
         loss, valid = cross_entropy(logits, labels)
-        n = _count(valid)
-        return loss.sum() / n, {"og_acc": _accuracy(logits, labels, valid, n), "og_n": n}
+        n, hits = _global_counts(valid.sum(), _hits(logits, labels, valid))
+        n = n.clamp_min(1)
+        return loss.sum() / n, {"og_acc": hits / n, "og_n": n}
 
     def forward_mrc(self, batch: Batch):
         """Masked region classification: KL(obj_probs || prediction) summed
@@ -316,7 +322,8 @@ class GlocalTextPathCMTPreTraining(nn.Module):
         targets = batch["obj_probs"].float()
         kl = (targets * (torch.log(targets.clamp_min(1e-12)) - logp)).sum(-1)
         sel = batch["obj_mrc_masks"] & obj_masks
-        n = _count(sel)
+        (n,) = _global_counts(sel.sum())
+        n = n.clamp_min(1)
         return torch.where(sel, kl, torch.zeros_like(kl)).sum() / n, {"mrc_n": n}
 
     def _sem_loss(self, bev_embeds: torch.Tensor, batch: Batch, sel: torch.Tensor):
@@ -324,10 +331,14 @@ class GlocalTextPathCMTPreTraining(nn.Module):
         logits = self.local_sem_head(bev_embeds)  # (B, C, num_sem) float32
         labels = batch["bev_sems"].float()
         bce = logits.clamp_min(0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
-        n = _count(sel)
+        (n,) = _global_counts(sel.sum())
+        n = n.clamp_min(1)
         loss = torch.where(sel[..., None], bce, torch.zeros_like(bce)).sum() / (
             n * labels.shape[-1])
-        return loss, {"sem_n": n, "sem_logits_mean": logits.mean()}
+        mean = logits.mean()
+        if distributed.active():  # every rank holds as many logits
+            mean = distributed.all_reduce_(mean.detach()) / distributed.world_size()
+        return loss, {"sem_n": n, "sem_logits_mean": mean}
 
     def forward_sem(self, batch: Batch):
         bev_embeds = self.bert.forward_sem(batch, self.sem_pred_token)

@@ -24,8 +24,21 @@ adds the object cross-entropy against ``_teacher_object``.
 
 The host helpers (``_language_variable`` ... ``_make_equiv_action``) repeat
 the JAX agent's: the port imports nothing of the JAX package. The
-teacher-recollection store is ``nav/recollection.py``; the mesh-sharded
-replay and the scan-block bench probes are not ported yet.
+teacher-recollection store is ``nav/recollection.py``; the scan-block bench
+probes are not ported yet.
+
+Data parallelism (JAX's ``mesh=``; the reference fine-tunes under DDP,
+agent_base.py:121-123): rank ``rank`` of ``world`` processes acts in an env
+that holds its rows of the global batch (``R2RNavBatch(rank=, world=)``),
+and every decision that the one process at the global batch takes over all
+rows is taken over all rows here too, so that the ranks together compute
+what it computes: the text bucket's length, the end of a rollout, the
+sampled and exploring actions (drawn from ``np_rng`` over the gathered
+global rows, each rank keeping its own), the evaluation's end, and which
+replay steps are all padding. The replay runs on the rank's rows: its loss
+scales by ``ml_weight`` over the global batch, dropout draws the global
+rows' seeds (``ops/dropout.py``), and the gradients are summed over the
+ranks before the clip and AdamW (``TrainState.all_reduce_grads``).
 """
 
 from __future__ import annotations
@@ -49,7 +62,9 @@ from ..models.glocal import cross_entropy
 from ..models.nav import GlocalTextPathNavCMT
 from ..models.surgery import count_transferred, transfer_pretrained
 from ..ops.bev import BevProjector
-from ..ops.dropout import set_dropout_generator
+from ..ops.dropout import set_dropout_generator, step_rows
+from ..parallel import distributed
+from ..parallel.mesh import replicate_module
 from ..parallel.optim import finetune_optim
 from ..parallel.train_step import TrainState, load_checkpoint, save_checkpoint
 from ..utils.device import to_device
@@ -139,10 +154,14 @@ def gather_and_splat(projector: BevProjector, pc_buf, valid_buf, feat_buf,
 class GMapNavAgent:
     def __init__(self, cfg: FinetuneConfig, env: R2RNavBatch, seed: int = 0,
                  device="cuda"):
+        """In a process group (``parallel.distributed.initialize``) the agent
+        is its process's data-parallel rank and ``env`` holds that rank's
+        rows."""
         self.cfg = cfg
         self.env = env
         self.seed = seed
         self.device = torch.device(device)
+        self.rank, self.world = distributed.rank(), distributed.world_size()
         self.model = GlocalTextPathNavCMT(cfg.model, device=self.device).eval()
         self.projector = BevProjector(
             vfov=math.radians(90.0),
@@ -156,7 +175,8 @@ class GMapNavAgent:
         self.polar = bev_polar_pos(cfg.model.bev_dim).reshape(-1, 3)
         self.np_rng = np.random.default_rng(seed)
         # dropout in the replay draws its per-row seeds from here
-        set_dropout_generator(self.model, train_generator(seed, self.device))
+        set_dropout_generator(self.model, train_generator(seed, self.device), self.rank,
+                              self.world)
         self._state: Optional[TrainState] = None
         self.transferred: Optional[int] = None
         self.logs: Dict[str, List[float]] = {"IL_loss": [], "grad_norm": [], "entropy": []}
@@ -168,13 +188,15 @@ class GMapNavAgent:
         with ``pretrained`` (a state dict, e.g. a pretraining model's), every
         entry of it whose name and shape the navigation model shares replaces
         the fresh value. Returns how many entries were transferred, or None
-        (also kept as ``self.transferred``)."""
+        (also kept as ``self.transferred``). Under data parallelism rank 0's
+        values are broadcast."""
         init_params(self.model, generator or make_generator(self.seed, self.device))
         self.transferred = None
         if pretrained is not None:
             fresh = self.model.state_dict()
             self.model.load_state_dict(transfer_pretrained(pretrained, fresh))
             self.transferred = count_transferred(pretrained, fresh)
+        replicate_module(self.model)
         return self.transferred
 
     @property
@@ -196,10 +218,34 @@ class GMapNavAgent:
         """One model call ('language' / 'panorama' / 'navigation')."""
         return self.model(mode, {k: self._upload(v) for k, v in batch.items()})
 
+    # ------------------------------------------------------ data parallelism
+    def _global_rows(self, x: np.ndarray) -> np.ndarray:
+        """Every rank's rows of ``x``, in rank order (one process: ``x``)."""
+        if self.world == 1:
+            return x
+        return np.concatenate(distributed.all_gather_objects(np.asarray(x)))
+
+    def _own_rows(self, x: np.ndarray) -> np.ndarray:
+        """This rank's rows of a global ``x``."""
+        if self.world == 1:
+            return x
+        b = len(x) // self.world
+        return x[self.rank * b:(self.rank + 1) * b]
+
+    def _all_ranks(self, flags: np.ndarray) -> np.ndarray:
+        """``flags`` (per step or one) true on every rank."""
+        if self.world == 1:
+            return flags
+        flags = np.asarray(flags)
+        return distributed.all_reduce_host((~flags).astype(np.int64)) == 0
+
     # ------------------------------------------------------------- variables
     def _language_variable(self, obs):
-        # bucket text length to multiples of 32, as the JAX agent does
+        # bucket text length to multiples of 32, as the JAX agent does, over
+        # the global batch's rows
         raw = max(len(ob["instr_encoding"]) for ob in obs)
+        if self.world > 1:
+            raw = int(distributed.all_reduce_host(np.array([raw], np.int64), "max")[0])
         L = min(((raw + 31) // 32) * 32, self.cfg.max_instr_len)
         B = len(obs)
         ids = np.zeros((B, L), np.int32)
@@ -697,18 +743,19 @@ class GMapNavAgent:
                 if not ended[i]:
                     gmaps[i].update_graph(ob)
             ended |= np.array([a is None for a in actions])
-            if ended.all():
+            if self._all_ranks(ended.all()):
                 break
         return traj, lang, records
 
     def _pick_actions(self, feedback, targets, nav_logits, nav_probs, nav_g, nav_b):
         """The step's action index per sample; draws from ``np_rng`` in the
-        JAX agent's order."""
+        JAX agent's order, over the global batch's rows."""
         if feedback == "teacher":
             return targets
         a_t = nav_logits.argmax(-1)
         if feedback == "sample":
-            a_t = np.array([self.np_rng.choice(len(p), p=p) for p in nav_probs])
+            nav_probs = self._global_rows(nav_probs)
+            a_t = self._own_rows(np.array([self.np_rng.choice(len(p), p=p) for p in nav_probs]))
             with np.errstate(divide="ignore", invalid="ignore"):
                 ent = -np.nansum(np.where(nav_probs > 0, nav_probs * np.log(nav_probs), 0.0), -1)
             self.logs["entropy"].append(float(ent.sum()))
@@ -717,10 +764,12 @@ class GMapNavAgent:
                 actionable = np.asarray(nav_b["bev_nav_masks"], bool)
             else:
                 actionable = nav_g["gmap_masks"] & ~nav_g["gmap_visited_masks"]
+            a_t, actionable = self._global_rows(a_t), self._global_rows(actionable)
             explore = self.np_rng.random(len(a_t)) > self.cfg.expl_max_ratio
             for i in range(len(a_t)):
                 if explore[i] and actionable[i].any():
                     a_t[i] = self.np_rng.choice(np.arange(actionable.shape[1])[actionable[i]])
+            a_t = self._own_rows(a_t)
         return a_t
 
     def _policy_node_embeds(self, gmap_agg, pano_store, B):
@@ -790,7 +839,9 @@ class GMapNavAgent:
         sum-reduction cross-entropy with IGNORE_ID on the fusion-selected
         head, plus, with objects, on ``obj_logits`` against ``obj_targets``
         (the step's object slots of the masked pano tokens are the local
-        branch's object tokens); the total is scaled by ``ml_weight / B``."""
+        branch's object tokens); the total is scaled by ``ml_weight / B``.
+        Under data parallelism ``rb`` holds this rank's rows, B is the global
+        batch, and the panorama's T*B rows are step-major for dropout."""
         cfg = self.cfg
         use_bev = cfg.model.use_bev
         dev = {k: self._upload(v) for k, v in rb.items()}
@@ -801,9 +852,10 @@ class GMapNavAgent:
         pano_keys = ("view_fts", "loc_fts", "nav_types", "view_lens")
         if with_objects:
             pano_keys += ("obj_fts", "obj_lens")
-        pano_embeds, pano_masks = self.model("panorama", {
-            k: dev[k].reshape(T * B, *dev[k].shape[2:]) for k in pano_keys
-        })
+        with step_rows(T):
+            pano_embeds, pano_masks = self.model("panorama", {
+                k: dev[k].reshape(T * B, *dev[k].shape[2:]) for k in pano_keys
+            })
         P, D = pano_embeds.shape[1:]
         V = dev["view_fts"].shape[2]
         steps = (pano_embeds * pano_masks[..., None]).reshape(T, B, P, D)
@@ -812,12 +864,15 @@ class GMapNavAgent:
         ignored = np.asarray(rb["targets"]) == IGNORE_ID
         if with_objects:
             ignored &= np.asarray(rb["obj_targets"]) == IGNORE_ID
+        # a step whose targets are all IGNORE_ID (the padding after an
+        # episode's last step) adds exactly zero to the loss and the
+        # gradient: the JAX scan runs it, the port skips it. Over every
+        # rank's rows: a rank runs a step that another rank needs, so that
+        # its dropout generator advances as the one process's does
+        skip = self._all_ranks(ignored.all(axis=1))
         total = torch.zeros((), device=self.device)
         for t in range(T):
-            # a step whose targets are all IGNORE_ID (the padding after an
-            # episode's last step) adds exactly zero to the loss and the
-            # gradient: the JAX scan runs it, the port skips it
-            if ignored[t].all():
+            if skip[t]:
                 continue
             nav_in = {
                 "txt_embeds": txt_embeds, "txt_masks": txt_masks,
@@ -839,7 +894,7 @@ class GMapNavAgent:
             total = total + cross_entropy(outs[logits_key], dev["targets"][t])[0].sum()
             if with_objects:
                 total = total + cross_entropy(outs["obj_logits"], dev["obj_targets"][t])[0].sum()
-        return total * cfg.ml_weight / B
+        return total * cfg.ml_weight / (B * self.world)
 
     @contextlib.contextmanager
     def _training(self):
@@ -852,15 +907,18 @@ class GMapNavAgent:
     def learn_from_bundle(self, rb: Mapping[str, Any]) -> float:
         """One replay update from a bundle (``_learn``'s, or any in its
         layout, e.g. ``vln_bevbert_tpu.data.synthetic.synthetic_replay_bundle``):
-        the episode loss with dropout on, its backward, the float32
-        global-norm clip and AdamW. Reads back once, as the JAX agent reads
-        its loss: the loss and the gradient norm, appended to ``logs``."""
+        the episode loss with dropout on, its backward, the gradients summed
+        over the data-parallel ranks, the float32 global-norm clip and AdamW.
+        Reads back once, as the JAX agent reads its loss: the (global) loss
+        and the gradient norm, appended to ``logs``."""
         state = self.train_state
         with self._training():
             loss = self._episode_loss(rb)
         loss.backward()
+        state.all_reduce_grads()
         gnorm = state.apply_gradients()
-        loss_val, gnorm_val = torch.stack([loss.detach(), gnorm]).tolist()
+        loss = distributed.all_reduce_(loss.detach())
+        loss_val, gnorm_val = torch.stack([loss, gnorm]).tolist()
         self.logs["IL_loss"].append(loss_val)
         self.logs["grad_norm"].append(gnorm_val)
         return loss_val
@@ -890,7 +948,9 @@ class GMapNavAgent:
 
     # ------------------------------------------------------------------ test
     def test(self, max_batches: Optional[int] = None):
-        """Greedy evaluation over the dataset until it wraps."""
+        """Greedy evaluation over the dataset until it wraps (on any rank:
+        every rank stops after the same batch). Returns this rank's
+        trajectories; ``distributed.merge_results`` joins the ranks'."""
         self.env.reset_epoch(shuffle=False)
         results = {}
         n = 0
@@ -903,7 +963,7 @@ class GMapNavAgent:
                 else:
                     results[tr["instr_id"]] = tr
             n += 1
-            if looped or (max_batches and n >= max_batches):
+            if not self._all_ranks(np.array(not looped)) or (max_batches and n >= max_batches):
                 break
         return [
             {"instr_id": k, "trajectory": v["path"], "pred_objid": v.get("pred_objid")}
@@ -921,7 +981,8 @@ class _EnvStub:
 def make_replay_agent(cfg: FinetuneConfig, batch_size: int, seed: int = 0,
                       device="cpu") -> GMapNavAgent:
     """An env-less agent with random parameters, for replay updates from
-    prepared bundles."""
+    prepared bundles (in a process group, the rank's rows:
+    ``parallel.mesh.shard_replay_bundle`` cuts them)."""
     agent = GMapNavAgent(cfg, _EnvStub(batch_size), seed=seed, device=device)
     agent.init_params()
     return agent

@@ -11,7 +11,10 @@ graph math lives in native/ (optional, same semantics).
 
 ``R2RNavBatch`` provides minibatch cycling, candidate construction, agent
 observations (with the rgb/depth camera-ring roll to agent-relative order,
-ref env.py:246-262) and the navigation metrics (env.py:308-377).
+ref env.py:246-262) and the navigation metrics (env.py:308-377). As
+data-parallel rank ``rank`` of ``world`` it cycles the global batch of
+``batch_size`` episodes, with every draw over its rows, and simulates rows
+``[rank * b, (rank + 1) * b)`` of it, b = ``batch_size / world``.
 """
 
 from __future__ import annotations
@@ -111,11 +114,16 @@ class R2RNavBatch:
         image_feat_size: int = 512,
         seed: int = 0,
         name: str = "train",
+        rank: int = 0,
+        world: int = 1,
     ):
+        if batch_size % world or not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of {world} cannot hold a share of batch {batch_size}")
         self.data = list(instr_data)
         self.graphs = graphs
         self.scanvp_cands = scanvp_cands
-        self.env = EnvBatch(graphs, view_db, grid_db, depth_db, batch_size)
+        self.rank, self.world = rank, world
+        self.env = EnvBatch(graphs, view_db, grid_db, depth_db, batch_size // world)
         self.batch_size = batch_size
         self.angle_feat_size = angle_feat_size
         self.image_feat_size = image_feat_size
@@ -239,6 +247,8 @@ class R2RNavBatch:
 
     def reset(self) -> List[dict]:
         self.next_minibatch()
+        b = self.batch_size // self.world
+        self.batch = self.batch[self.rank * b:(self.rank + 1) * b]
         self.env.new_episodes(
             [b["scan"] for b in self.batch],
             [b["path"][0] for b in self.batch],

@@ -14,7 +14,14 @@ computes the same function with int64 tensor arithmetic, bit for bit.
 
 ``Dropout`` in training mode draws its seeds with ``torch.randint`` from the
 generator it was handed (a CUDA generator for CUDA tensors: no host sync) and
-calls ``dropout``. On CUDA tensors ``dropout`` calls the operator
+calls ``dropout``. Under data parallelism (``set_dropout_generator``'s
+``rank`` and ``world``) it draws the seeds of the global rows and keeps its
+rank's, so that every rank's masks are those of one process at the global
+batch and every rank's generator advances alike; this takes the place of the
+JAX kernel's ``custom_partitioning`` rule. Rows are batch-major unless
+``step_rows(T)`` says that the leading axis is T steps of the batch
+flattened step-major, as the replay's panorama is: the local row ``(t, j)``
+of rank ``r`` is then global row ``t * B + r * b + j``. On CUDA tensors ``dropout`` calls the operator
 ``torch.ops.bevbert.seeded_dropout`` (``csrc/ops.cpp``), whose C++ autograd
 saves only the seeds and relaunches the kernel on ``dy``; its checks and
 launch run in C++, so a call costs one operator dispatch. CPU tensors take
@@ -25,8 +32,10 @@ parity.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 from torch import nn
@@ -124,18 +133,42 @@ def draw_seeds(rows: int, generator: torch.Generator, device) -> torch.Tensor:
                          device=device, dtype=torch.int32)
 
 
+#: leading rows of the inputs seen under ``step_rows``: steps x batch
+_STEPS = contextvars.ContextVar("dropout_steps", default=1)
+
+
+@contextlib.contextmanager
+def step_rows(steps: int) -> Iterator[None]:
+    """Inside the block, a Dropout's leading axis is ``steps`` steps of the
+    batch, flattened step-major ((T, B) -> T * B)."""
+    token = _STEPS.set(int(steps))
+    try:
+        yield
+    finally:
+        _STEPS.reset(token)
+
+
+def rank_rows(full: torch.Tensor, rank: int, world: int, steps: int = 1) -> torch.Tensor:
+    """Rank ``rank``'s rows of ``full``, drawn for ``world`` ranks' rows:
+    a contiguous block of each of the ``steps`` steps."""
+    per_step = full.reshape(steps, world, -1, *full.shape[1:])
+    return per_step[:, rank].reshape(-1, *full.shape[1:]).contiguous()
+
+
 class Dropout(nn.Module):
     """Identity in eval mode (the JAX modules' ``deterministic`` flag);
     in training mode seeded dropout of a rank >= 2 input, one seed per
     leading row. A rank-1 input takes ``torch.bernoulli``, as the JAX
     package keeps rank-1 inputs on its plain path. ``site`` names the call
-    site in messages."""
+    site in messages. ``rank`` of ``world`` draws for every rank's rows and
+    keeps its own."""
 
     def __init__(self, rate: float, site: str = "generic"):
         super().__init__()
         self.rate = float(rate)
         self.site = site
         self.generator: Optional[torch.Generator] = None
+        self.rank, self.world = 0, 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -145,18 +178,26 @@ class Dropout(nn.Module):
                 f"Dropout({self.site}) in training mode needs a generator: "
                 "see set_dropout_generator"
             )
+        rows = x.shape[0] * self.world
         if x.dim() < 2:
             keep = torch.bernoulli(
-                torch.full_like(x, 1.0 - self.rate, dtype=torch.float32),
+                torch.full((rows,), 1.0 - self.rate, device=x.device),
                 generator=self.generator,
             ).bool()
+            if self.world > 1:
+                keep = rank_rows(keep, self.rank, self.world, _STEPS.get())
             return torch.where(keep, x * (1.0 / (1.0 - self.rate)), torch.zeros_like(x))
-        seeds = draw_seeds(x.shape[0], self.generator, x.device)
+        seeds = draw_seeds(rows, self.generator, x.device)
+        if self.world > 1:
+            seeds = rank_rows(seeds, self.rank, self.world, _STEPS.get())
         return dropout(x.contiguous(), seeds, self.rate)
 
 
-def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """Hand ``generator`` to every Dropout inside ``module``."""
+def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator],
+                          rank: int = 0, world: int = 1) -> None:
+    """Hand ``generator`` to every Dropout inside ``module``, as rank
+    ``rank`` of ``world`` data-parallel ranks."""
     for m in module.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+            m.rank, m.world = rank, world

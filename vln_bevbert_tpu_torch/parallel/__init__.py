@@ -1,1 +1,2 @@
-"""Pretraining step: optimizer and train step (CUDA card or CPU)."""
+"""Pretraining step: optimizer and train step (CUDA card or CPU); data
+parallelism over ``torch.distributed`` (``distributed``, ``mesh``)."""

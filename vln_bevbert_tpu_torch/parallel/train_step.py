@@ -19,6 +19,15 @@ device, and batches are uploaded through pinned memory.
 ``TrainState`` also serves the fine-tuning agent's replay update;
 ``save_checkpoint``/``load_checkpoint`` write and read one torch file with
 the parameters and the optimizer state of either.
+
+Under data parallelism (``distributed.initialize``) each rank runs the step
+on its rows: the losses divide by global counts (``models/glocal.py``), the
+gradient buffers, one flat buffer per dtype, are summed over the ranks in
+one all-reduce before the clip, so the clip sees the global norm and every
+rank applies the same update, and the reported loss is the global one. The
+model is not wrapped in ``DistributedDataParallel``: the fine-tuning replay
+calls sub-modules and runs the navigation forward T times before one
+backward, which DDP's hooks do not follow; the all-reduce is JAX's psum.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from ..ops.bev import BevProjector
 from ..ops.dropout import set_dropout_generator
 from ..utils.device import to_device
 from ..utils.rng import make_generator, train_generator
+from . import distributed
 from .optim import Optimizer, decay_mask
 
 Batch = Dict[str, Any]
@@ -53,12 +63,28 @@ class TrainState:
         mask = None if decay_all else decay_mask(model)
         self.names = list(names)
         self.params = list(params)
-        for p in self.params:
-            # zeros, not None: a parameter the task's forward does not reach
-            # still gets its moment decay and weight decay, as in optax
-            p.grad = torch.zeros_like(p)
+        # zeros, not None: a parameter the task's forward does not reach
+        # still gets its moment decay and weight decay, as in optax, and
+        # enters the all-reduce as zeros. The buffers are views of one flat
+        # buffer per dtype, which autograd accumulates into in place.
+        self.flat_grads = []
+        for dtype in dict.fromkeys(p.dtype for p in self.params):
+            group = [p for p in self.params if p.dtype == dtype]
+            flat = torch.zeros(sum(p.numel() for p in group), dtype=dtype,
+                               device=group[0].device)
+            offset = 0
+            for p in group:
+                p.grad = flat[offset:offset + p.numel()].view_as(p)
+                offset += p.numel()
+            self.flat_grads.append(flat)
         self.tx = Optimizer(self.params, [mask is None or mask[n] for n in names], cfg)
         self.clip_norm = float(cfg.grad_norm)
+
+    def all_reduce_grads(self) -> None:
+        """Sum the gradient buffers over the data-parallel ranks, one
+        collective per dtype; at one process nothing happens."""
+        for flat in self.flat_grads:
+            distributed.all_reduce_(flat)
 
     @property
     def step(self) -> int:
@@ -144,12 +170,14 @@ def upload(batch: Dict[str, np.ndarray], device: torch.device) -> Batch:
 def init_pretrain_state(cfg: PretrainConfig, seed: int = 0, device="cpu"
                         ) -> Tuple[GlocalTextPathCMTPreTraining, BevProjector, TrainState]:
     """Model (random parameters from ``seed``, training mode, dropout drawing
-    from a generator on ``device``), projector and optimizer state."""
+    from a generator on ``device`` as this process's data-parallel rank),
+    projector and optimizer state."""
     device = torch.device(device)
     model = GlocalTextPathCMTPreTraining(cfg.model, tuple(cfg.tasks), cfg.sem_pred_token,
                                          device=device)
     init_params(model, make_generator(seed, device))
-    set_dropout_generator(model, train_generator(seed, device))
+    set_dropout_generator(model, train_generator(seed, device), distributed.rank(),
+                          distributed.world_size())
     model.train()
     return model, build_projector(cfg.model, cfg.shapes, device), TrainState(model, cfg.optim)
 
@@ -169,7 +197,8 @@ def make_eval_fn(model: GlocalTextPathCMTPreTraining, projector: BevProjector
                  ) -> Callable[[Batch, str], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
     """Validation's forward (``eval_fn`` of JAX ``PretrainTrainer.eval_step``):
     ``loss_fn``'s mlm ids and lift-splat, the model in eval mode (no dropout)
-    under ``torch.inference_mode()``, then training mode as it was."""
+    under ``torch.inference_mode()``, then training mode as it was. Under
+    data parallelism the loss and metrics are the global ones."""
     loss_fn = make_loss_fn(model, projector)
 
     def eval_fn(batch: Batch, task: str):
@@ -177,7 +206,8 @@ def make_eval_fn(model: GlocalTextPathCMTPreTraining, projector: BevProjector
         model.eval()
         try:
             with torch.inference_mode():
-                return loss_fn(batch, task)
+                loss, metrics = loss_fn(batch, task)
+                return distributed.all_reduce_(loss), metrics
         finally:
             model.train(training)
 
@@ -187,13 +217,15 @@ def make_eval_fn(model: GlocalTextPathCMTPreTraining, projector: BevProjector
 def make_pretrain_step(model: GlocalTextPathCMTPreTraining, projector: BevProjector
                        ) -> Callable[[TrainState, Batch, str], Dict[str, torch.Tensor]]:
     """Returns step(state, batch, task) -> metrics (device tensors, with
-    ``loss`` and ``grad_norm``); ``batch`` lies on the model's device."""
+    ``loss`` and ``grad_norm``, global under data parallelism); ``batch``
+    lies on the model's device and holds this rank's rows."""
     loss_fn = make_loss_fn(model, projector)
 
     def step(state: TrainState, batch: Batch, task: str) -> Dict[str, torch.Tensor]:
         loss, metrics = loss_fn(batch, task)
         loss.backward()
+        state.all_reduce_grads()
         gnorm = state.apply_gradients()
-        return {**metrics, "loss": loss.detach(), "grad_norm": gnorm}
+        return {**metrics, "loss": distributed.all_reduce_(loss.detach()), "grad_norm": gnorm}
 
     return step

@@ -9,6 +9,13 @@ The loop reads each step's metrics back only after it has queued the next
 step, so the card never waits for the host's readback. Validation runs the
 model in eval mode under ``torch.inference_mode()``: no dropout, so it draws
 nothing from the dropout generator and leaves training's stream as it was.
+
+Under data parallelism (``parallel.distributed.initialize``; the loaders
+built with ``dp_rank``) every rank trains on its rows of the global batch:
+the parameters are broadcast from rank 0 at construction, the step's
+gradients and metrics are global, validation's losses and metrics are
+global and its semantic scores and labels are gathered before the AUC/F1,
+and only rank 0 logs and writes checkpoints, which every rank reads.
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ import torch
 
 from ..configs import PretrainConfig
 from ..data.loader import PretrainLoader
-from ..parallel import train_step
+from ..parallel import distributed, train_step
+from ..parallel.mesh import replicate_module
 from ..parallel.train_step import (
     init_pretrain_state,
     load_checkpoint,
@@ -32,7 +40,7 @@ from ..parallel.train_step import (
     save_checkpoint,
     upload,
 )
-from ..utils.logging import MetricLogger, RunningMeter
+from ..utils.logging import RunningMeter, make_logger
 from ..utils.mlabel import MP3D_CATEGORIES, multilabel_report
 
 
@@ -45,17 +53,21 @@ class PretrainTrainer:
         self.val_loaders = val_loaders or {}
         self.device = torch.device(device)
         self.output_dir = output_dir or cfg.output_dir
-        self.logger = MetricLogger(self.output_dir)
-        self.model, self.projector, self.state = init_pretrain_state(cfg, cfg.seed,
-                                                                     self.device)
+        self.logger = make_logger(self.output_dir, distributed.is_primary())
+        self.model, self.projector, self.state = init_pretrain_state(cfg, cfg.seed, self.device)
+        replicate_module(self.model)
         self.step_fn = make_pretrain_step(self.model, self.projector)
         self.eval_fn = make_eval_fn(self.model, self.projector)
 
     # ------------------------------------------------------------ checkpoints
     def save(self, step: int) -> str:
-        """Parameters, optimizer state and step as ``<output_dir>/ckpt_<step>``."""
+        """Parameters, optimizer state and step as ``<output_dir>/ckpt_<step>``,
+        written by rank 0; every rank waits for it."""
         path = os.path.join(self.output_dir, f"ckpt_{step}")
-        return save_checkpoint(path, self.model, self.state, step=self.state.step)
+        if distributed.is_primary():
+            save_checkpoint(path, self.model, self.state, step=self.state.step)
+        distributed.barrier()
+        return path
 
     def restore(self, path: str) -> None:
         """Parameters and optimizer state, whose counts give the step."""
@@ -124,7 +136,8 @@ class PretrainTrainer:
         every task (batch ``i * num_batches + j`` of task ``i``), and for
         sem/masksem the macro AUC and F1 over the supervised cells (the JAX
         trainer's ``validate``); logged at ``step`` and returned as
-        "<split>/<task>/<metric>"."""
+        "<split>/<task>/<metric>". Under data parallelism each rank runs its
+        rows of every batch and the numbers are the global batches'."""
         results: Dict[str, float] = {}
         for split, loader in self.val_loaders.items():
             agg = defaultdict(list)
@@ -145,6 +158,11 @@ class PretrainTrainer:
                         sem_labels.append(labels)
             results.update({k: float(np.mean(v)) for k, v in agg.items()})
             if sem_scores:
+                # batch by batch, each batch's rows in rank order: the one
+                # process's order at the global batch
+                ranks = distributed.all_gather_objects((sem_scores, sem_labels))
+                sem_scores = [s[j] for j in range(len(sem_scores)) for s, _ in ranks]
+                sem_labels = [l[j] for j in range(len(sem_labels)) for _, l in ranks]
                 report = multilabel_report(
                     np.concatenate(sem_scores), np.concatenate(sem_labels),
                     class_names=MP3D_CATEGORIES[: self.cfg.model.num_sem_classes])

@@ -88,3 +88,16 @@ class MetricLogger:
             f"{k}={v:.4g}" for k, v in list(metrics.items())[:8]
         )
         self.logger.info("step %d: %s", step, short)
+
+
+class NullLogger:
+    """``MetricLogger``'s surface on a data-parallel rank other than 0:
+    writes nothing, creates no directory."""
+
+    def log(self, step: int, metrics: Dict[str, float]):
+        pass
+
+
+def make_logger(output_dir: str, primary: bool = True):
+    """A ``MetricLogger`` for the primary rank, a ``NullLogger`` otherwise."""
+    return MetricLogger(output_dir) if primary else NullLogger()
