@@ -6,7 +6,7 @@ Drives the port's paths (eval, pretraining, fine-tuning, their object
 grounding variants, and continuous-environment pretraining, training, eval,
 inference and DAgger with its stores and env pool, CE training over the
 Habitat sensor stack with the frozen CLIP and DDPPO towers, and
-data-parallel pretraining and fine-tuning) at full
+data-parallel pretraining, fine-tuning and CE training) at full
 bert-base width with random seeded
 weights, through the hand-written CUDA kernels, in phases; each phase prints
 one line and a failing phase raises, so the script exits non-zero:
@@ -105,7 +105,10 @@ one line and a failing phase raises, so the script exits non-zero:
              checkpoint files (control back-tracking) and ``--run_type
              inference`` from the last, which must cover every episode; ms
              per training iteration, per training-rollout and eval step, the
-             waypoint predictor's device ms per call, peak memory;
+             waypoint predictor's device ms per call, peak memory; then one
+             sampled training rollout and one replay update, each traced by
+             ``utils/profiling.trace`` (host and CUDA activities, an
+             ``annotate`` span): wall ms and the device's busy share;
 13. ce_etp - the same with ``--trainer ss-etp --iters 2 --log_every 2``: the
              topo-only model, so the splat must launch 0 times;
     habitat - the Habitat sensor stack over a stand-in ``habitat`` module
@@ -163,25 +166,40 @@ one line and a failing phase raises, so the script exits non-zero:
              two gloo ranks of 4 rows against one process of 8: loss,
              gradient norm and the summed gradients within
              ``DP_REPLAY_RTOL``, the dropout launches equal to the calls;
+    dp_ce  - CE under data parallelism at full width (``cli.ce_train``'s
+             defaults, float32 activations): two gloo ranks of 4 rows
+             against one process of 8, from the same seeds: an SS-BEV
+             sampled training rollout (waypoint sampling, ghost noise) with
+             its replay update, a merged greedy evaluation, an SS-ETP sampled
+             rollout; equal trajectories and ``np_rng`` states, the update
+             within ``DP_REPLAY_RTOL``, equal eval metrics; on every rank the
+             splat launches equal its gather-and-splat calls and the dropout
+             launches its dropout calls;
     dp_nccl - the CLIs as users launch them, under ``torch.distributed.run
              --standalone --nproc_per_node 1`` on NCCL at world size 1:
              pretraining ``--synthetic --device cuda --num_steps 8``
              (instrumented through this script's ``--torchrun-pretrain``
              entry) writes ``ckpt_8``, then ``cli.finetune --iters 1`` from
-             it (through ``--torchrun-finetune``); in both runs the splat
-             and dropout launches must equal their calls; ms per step
+             it (through ``--torchrun-finetune``), then ``cli.ce_train
+             --iters 1`` at B=8 (through ``--torchrun-ce``); in every run the
+             splat and dropout launches must equal their calls; ms per step
              against the ``train`` phase's for the same task, the
              all-reduce's ms per step.
 
 The kernel phase also holds the splat at the dp one-process shapes: (32,
 2352, 441, 809) float16 (dp_pretrain) and dp_replay's teacher rollout at
-(8, <=18816, 441, 769) bf16; the dropout phase the attention probabilities
-at (32, 12, 441, 441) and (8, 12, 441, 441) bf16 and the replay panorama at
-(120, 44, 768) bf16.
+(8, <=18816, 441, 769) bf16, and at a dp_ce rank's rollout step (4,
+<=18816, 121, 769) bf16; the dropout phase the attention probabilities
+at (32, 12, 441, 441) and (8, 12, 441, 441) bf16, the replay panorama at
+(120, 44, 768) bf16, and dp_ce's float32 replay sites, a rank's (4, 12,
+121, 121) and (60, 44, 768) and the one process's (8, 12, 121, 121) and
+(120, 44, 768).
 
 The dropout phase also holds the kernel to its plain version, forward and
 backward bitwise, at the PREVALENT update's sites (B=8, language bucket 32,
-7 [state; vision] rows).
+7 [state; vision] rows), and at the ``Critic``'s two sites ((8, 768) and
+(8, 512) float32, rate 0.5), and the full-width ``Critic`` in training mode
+bitwise against its plain version on the seeds it draws.
 
 Launch counts are the operators' own (C++, ``_build.launches``), set to 0
 just before each path and read just after it. The second-to-last line is a
@@ -192,7 +210,10 @@ the run checks that none of their modules was loaded.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import gc
+import itertools
 import json
 import os
 import subprocess
@@ -222,6 +243,12 @@ PREVALENT_SITES = {
     "prev_x_hidden": ((8, 7, 768), torch.bfloat16, 0.1),
 }
 OG_SHIFT_INVARIANT = ("og_head.fc2.bias", "og_head.ln.bias")
+CRITIC_SITES = {
+    "critic_state": ((8, 768), torch.float32, 0.5),
+    "critic_hidden": ((8, 512), torch.float32, 0.5),
+}
+DROPOUT_COPIES = 64  # the most input copies a dropout site is timed over
+H100_L2_BYTES = 50 << 20  # where the device properties lack the L2's size
 
 
 def free_memory() -> None:
@@ -249,6 +276,22 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def with_device_events(session):
+    """``session()`` (a profiled run returning its profiler and a result)
+    until its profiler holds device events, at most six times: the tracer
+    has returned sessions without them. Returns (device events, result)."""
+    for attempt in range(6):
+        if attempt:
+            time.sleep(0.2)
+        prof, out = session()
+        # kernels and copies; not the device-side spans of record_function
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        if events:
+            return events, out
+    raise RuntimeError("torch.profiler recorded no device time in six sessions")
+
+
 def device_ms_by_kernel(fn, iters: int = 10) -> dict:
     """Mean device milliseconds per call of each kernel (and copy) that
     ``fn`` runs, by torch.profiler: their own time, without the gaps in
@@ -258,21 +301,43 @@ def device_ms_by_kernel(fn, iters: int = 10) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(6):  # the tracer has returned sessions without device events
-        if attempt:
-            time.sleep(0.2)
+
+    def session():
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                r = e.time_range
-                by_name[e.name] = by_name.get(e.name, 0.0) + (r.end - r.start) / 1e3 / iters
-        if by_name:
-            return by_name
-    raise RuntimeError("torch.profiler recorded no device time in six sessions")
+        return prof, None
+
+    by_name = {}
+    for e in with_device_events(session)[0]:
+        r = e.time_range
+        by_name[e.name] = by_name.get(e.name, 0.0) + (r.end - r.start) / 1e3 / iters
+    return by_name
+
+
+def traced_busy(fn, label: str, log_dir: str) -> tuple:
+    """``fn()`` under ``utils.profiling.trace`` (host and CUDA activities,
+    a Chrome trace into ``log_dir``) inside an ``annotate(label)`` span:
+    (its result, {wall ms to the end of its device work, the device's busy
+    ms (the union of the kernel and copy intervals) and share of the
+    wall}). A retried session runs ``fn`` again."""
+    from vln_bevbert_tpu_torch.cli.profile_eval import device_busy_us
+    from vln_bevbert_tpu_torch.utils import profiling
+
+    def session():
+        torch.cuda.synchronize()
+        with profiling.trace(log_dir) as prof:
+            t0 = time.perf_counter()
+            with profiling.annotate(label):
+                out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return prof, (out, wall)
+
+    events, (out, wall) = with_device_events(session)
+    busy_s = device_busy_us(events) / 1e6
+    return out, {"wall_ms": 1e3 * wall, "busy_ms": 1e3 * busy_s, "busy_share": busy_s / wall}
 
 
 def device_ms(fn, iters: int = 10) -> float:
@@ -608,6 +673,9 @@ def kernel_phase() -> dict:
         # pretraining's prepare_bev
         "ce_rollout": (8, 15, 2352, 8, 121, 768, 0, torch.bfloat16),
         "ce_pretrain": (16, 1, 2352, 1, 121, 768, 40, torch.float16),
+        # a dp_ce rank's rollout step, 4 of the 8 rows (the one process's
+        # is ce_rollout)
+        "ce_rollout_b4": (4, 15, 2352, 8, 121, 768, 0, torch.bfloat16),
     }
     record = {"max_abs_err": 0.0}
     for label, (b, t, p, s, c, f, num_sem, dtype) in shapes.items():
@@ -775,6 +843,12 @@ def dropout_phase() -> dict:
         "ce_feat": ((16, 121, 768), torch.float32, 0.4),
         "ce_replay_attn_probs": ((8, 12, 121, 121), torch.bfloat16, 0.1),
         "ce_replay_pano_hidden": ((120, 44, 768), torch.bfloat16, 0.1),
+        # dp_ce's float32 replay: a rank's 4 rows (T*b = 60 panorama rows)
+        # and the one process's 8
+        "dp_ce_attn_probs_b4": ((4, 12, 121, 121), torch.float32, 0.1),
+        "dp_ce_pano_hidden_b4": ((60, 44, 768), torch.float32, 0.1),
+        "dp_ce_attn_probs_b8": ((8, 12, 121, 121), torch.float32, 0.1),
+        "dp_ce_pano_hidden_b8": ((120, 44, 768), torch.float32, 0.1),
         # the PREVALENT BPTT update's at B=8 and the language bucket L=32:
         # the embeddings and the 9 language layers' outputs and attention
         # probabilities, then per recurrent step the candidate embeddings
@@ -783,8 +857,17 @@ def dropout_phase() -> dict:
         # into the L-1 language keys, the self-attention probabilities and
         # the cross, self and FFN outputs
         **PREVALENT_SITES,
+        # the Critic's two sites (B=8, float32, rate 0.5): the state and
+        # fc1's ReLU output
+        **CRITIC_SITES,
     }
-    record = {"max_abs_err": 0.0, "sites": {}}
+    # the timed calls cycle over copies of the input and keep as many
+    # outputs alive, enough that the other calls move twice the L2 between
+    # two uses of a block (a site that one copy keeps in L2 would be timed
+    # cache-warm); at most DROPOUT_COPIES copies, so sites under ~1.6 MB
+    # stay warm (they are bound by their launch)
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", H100_L2_BYTES)
+    record = {"max_abs_err": 0.0, "sites": {}, "l2_bytes": l2}
     for label, (shape, dtype, rate) in shapes.items():
         x = torch.randn(shape, generator=g, device="cuda").to(dtype)
         seeds = draw_seeds(shape[0], g, "cuda")
@@ -796,14 +879,26 @@ def dropout_phase() -> dict:
         sd = math.sqrt(rate * (1 - rate) / x.numel())
         if abs(keep - (1 - rate)) > 5 * sd:
             raise AssertionError(f"dropout {label}: P(keep) {keep} vs {1 - rate}")
-        ms = cuda_ms(lambda: dropout(x, seeds, rate), iters=20)
-        lib_ms = cuda_ms(lambda: F.dropout(x, rate), iters=20)
+        moved = 2 * x.numel() * x.element_size()
+        n_copies = min(DROPOUT_COPIES, 2 + -(-2 * l2 // moved))
+        # between two uses of a block the other calls move twice the L2
+        cold = (n_copies - 1) * moved >= 2 * l2
+        xs = [x] + [x.clone() for _ in range(n_copies - 1)]
+        turn, outs = itertools.count(), collections.deque(maxlen=n_copies)
+
+        def cycled(fn, xs=xs, turn=turn, outs=outs):
+            return lambda: outs.append(fn(xs[next(turn) % len(xs)]))
+
+        ms = cuda_ms(cycled(lambda v: dropout(v, seeds, rate)), iters=20)
+        lib_ms = cuda_ms(cycled(lambda v: F.dropout(v, rate)), iters=20)
         plain_ms = cuda_ms(lambda: dropout_ref(x, seeds, rate), iters=3, warmup=1)
-        dev_ms = device_ms(lambda: dropout(x, seeds, rate))
-        lib_dev_ms = device_ms(lambda: F.dropout(x, rate))
-        bound = bound_ms(2 * x.numel() * x.element_size() + seeds.numel() * 4)
+        dev_ms = device_ms(cycled(lambda v: dropout(v, seeds, rate)))
+        lib_dev_ms = device_ms(cycled(lambda v: F.dropout(v, rate)))
+        del xs, outs
+        bound = bound_ms(moved + seeds.numel() * 4)
         row = {"ms": ms, "device_ms": dev_ms, "F_dropout_ms": lib_ms,
-               "F_dropout_device_ms": lib_dev_ms, "plain_ms": plain_ms, "bound_ms": bound}
+               "F_dropout_device_ms": lib_dev_ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "copies": n_copies, "cache": "cold" if cold else "warm"}
         extra = {}
         if label in ("hidden", "ft_pano_hidden", "obj_pano_hidden", "ce_replay_pano_hidden",
                      "prev_x_hidden"):
@@ -815,7 +910,8 @@ def dropout_phase() -> dict:
               rate=rate, bitwise="equal", keep=f"{keep:.6f}", ms=f"{ms:.4f}",
               F_dropout_ms=f"{lib_ms:.4f}", device_ms=f"{dev_ms:.4f}",
               F_dropout_device_ms=f"{lib_dev_ms:.4f}", bound_us=f"{1e3 * bound:.1f}",
-              bound_share=f"{bound / dev_ms:.1%}", plain_ms=f"{plain_ms:.4f}", **extra)
+              bound_share=f"{bound / dev_ms:.1%}" if cold else "n/a", copies=n_copies,
+              cache=row["cache"], plain_ms=f"{plain_ms:.4f}", **extra)
         record["max_abs_err"] = max(record["max_abs_err"], err)
         record["sites"][label] = row
         if label == "attn_probs":
@@ -877,6 +973,36 @@ def dropout_phase() -> dict:
             raise AssertionError(f"dropout {label}: the backward differs from the plain version")
     phase("dropout", prevalent_sites=",".join(PREVALENT_SITES), forward="bitwise",
           backward="bitwise")
+
+    # the Critic module in training mode at full width: both of its sites
+    # through the kernel, against its plain version on the seeds the
+    # module draws (a copy of its generator)
+    from vln_bevbert_tpu_torch.configs import ModelConfig
+    from vln_bevbert_tpu_torch.models import Critic
+    from vln_bevbert_tpu_torch.models.bert import init_params
+    from vln_bevbert_tpu_torch.ops.dropout import set_dropout_generator
+
+    cfg = ModelConfig(dtype="float32")
+    critic = Critic(cfg, device="cuda").train()
+    init_params(critic, torch.Generator(device="cuda").manual_seed(1))
+    set_dropout_generator(critic, g)
+    (b, width), _, rate = CRITIC_SITES["critic_state"]
+    state = torch.randn(b, width, generator=g, device="cuda").requires_grad_()
+    replay = torch.Generator(device="cuda")
+    replay.set_state(g.get_state())
+    before = _build.launches("dropout")
+    value = critic(state)
+    value.sum().backward()
+    launches = _build.launches("dropout") - before
+    with torch.no_grad():
+        x = dropout_ref(state, draw_seeds(b, replay, "cuda"), rate)
+        h = torch.relu(critic.fc1(x))
+        want = critic.fc2(dropout_ref(h, draw_seeds(b, replay, "cuda"), rate))[..., 0]
+    if not torch.equal(value.detach(), want) or launches != 4 or state.grad is None:
+        raise AssertionError(f"dropout critic: {launches} launches, value differs from the "
+                             f"plain version by {(value.detach() - want).abs().max().item()}")
+    phase("dropout", critic_sites=",".join(CRITIC_SITES), module="Critic(train)",
+          value="bitwise", launches=f"{launches} (2 forward + 2 backward)")
     return record
 
 
@@ -899,6 +1025,18 @@ def counting_dropout(seen: dict):
         return y
 
     return forward, counted
+
+
+def counted_gathers(seen: dict, module):
+    """(``module.gather_and_splat``, a stand-in that counts its calls into
+    ``seen["gathers"]``); ``module`` is the agent module that calls it."""
+    gather = module.gather_and_splat
+
+    def counted(*args):
+        seen["gathers"] += 1
+        return gather(*args)
+
+    return gather, counted
 
 
 def run_lengths(items):
@@ -1420,13 +1558,9 @@ def finetune_phase(pretrain_ckpt: str, pretrain_names: set, out_dir: str,
     seen = {"gathers": 0, "drop_fwd": 0, "drop_bwd": 0, "rollouts": [], "updates": [],
             "agent": None, "start": None}
     cls = agent_mod.GMapNavAgent
-    gather = agent_mod.gather_and_splat
+    gather, counted_gather = counted_gathers(seen, agent_mod)
     drop_forward, counted_dropout = counting_dropout(seen)
     rollout, learn, init = cls._rollout, cls.learn_from_bundle, cls.init_params
-
-    def counted_gather(*args):
-        seen["gathers"] += 1
-        return gather(*args)
 
     def timed_rollout(self, feedback, train):
         t0 = time.perf_counter()
@@ -1648,14 +1782,10 @@ def ce_phase(label: str, out_dir: str, argv: list, pretrain_names: set,
     cls, base = ce_mod.CEAgent, nav_mod.GMapNavAgent
     seen = {"gathers": 0, "drop_fwd": 0, "drop_bwd": 0, "iters": [], "rollouts": [],
             "updates": [], "steps": 0, "agent": None, "start": None}
-    gather = ce_mod.gather_and_splat
+    counted_gather = counted_gathers(seen, ce_mod)[1]
     counted_dropout = counting_dropout(seen)[1]
     rollout, ce_rollout, gmap_var = cls.rollout, cls._ce_rollout, cls._ce_gmap_variable
     learn, init = base.learn_from_bundle, cls.init_params
-
-    def counted_gather(*args):
-        seen["gathers"] += 1
-        return gather(*args)
 
     def timed_iteration(self, feedback="sample", train=True, sample_ratio=None):
         torch.cuda.synchronize()
@@ -1743,6 +1873,19 @@ def ce_phase(label: str, out_dir: str, argv: list, pretrain_names: set,
         for _ in range(3):
             agent.env.observations()
         env_obs_ms = 1e3 * (time.perf_counter() - t0) / 3
+        if eval_and_infer:
+            # a sampled training rollout (its bundle kept) and a replay
+            # update from it, each traced through utils/profiling
+            bundles, steps0 = [], seen["steps"]
+            agent.learn_from_bundle = lambda rb: bundles.append(rb) or 0.0
+            try:
+                _, trace_rollout = traced_busy(lambda: agent.rollout("sample", True), "ce_rollout",
+                                               os.path.join(out_dir, "trace"))
+            finally:
+                del agent.learn_from_bundle
+            trace_rollout["steps"] = seen["steps"] - steps0
+            _, trace_update = traced_busy(lambda: agent.learn_from_bundle(bundles[-1]),
+                                          "ce_replay_update", os.path.join(out_dir, "trace"))
         out = {"wall_s": wall, "launches": launches, "gathers": gathers,
                "drop_fwd": drop_calls[0], "drop_bwd": drop_calls[1], "peak_bytes": peak,
                "transferred": agent.transferred, "params": len(nav_names), "losses": losses,
@@ -1758,6 +1901,7 @@ def ce_phase(label: str, out_dir: str, argv: list, pretrain_names: set,
             out[f"ms_per_{kind}_step"] = 1e3 * sum(s for s, _ in runs) / sum(n for _, n in runs)
         if not eval_and_infer:
             return out
+        out.update(trace_rollout=trace_rollout, trace_update=trace_update)
 
         # every checkpoint of the run, evaluated with low-level control
         seen["gathers"] = 0
@@ -1806,6 +1950,15 @@ def print_ce(label: str, run: dict) -> None:
           IL_loss=",".join(f"{v:.4g}" for v in run["losses"]),
           grad_norm=",".join(f"{v:.4g}" for v in run["grad_norms"]),
           **{k: f"{v:.2f}" for k, v in run["scores"].items()})
+    if "trace_rollout" in run:
+        roll, upd = run["trace_rollout"], run["trace_update"]
+        phase(label, traced="utils.profiling.trace", rollout_steps=roll["steps"],
+              rollout_ms_per_step=f"{roll['wall_ms'] / roll['steps']:.2f}",
+              rollout_device_busy_ms_per_step=f"{roll['busy_ms'] / roll['steps']:.2f}",
+              rollout_device_busy_share=f"{roll['busy_share']:.2%}",
+              replay_update_ms=f"{upd['wall_ms']:.2f}",
+              replay_update_device_busy_ms=f"{upd['busy_ms']:.2f}",
+              replay_update_device_busy_share=f"{upd['busy_share']:.2%}")
     if "eval" in run:
         phase(label, run_type="eval", checkpoints=",".join(sorted(run["eval"])),
               splat_launches=run["eval_gathers"], back_algo="control",
@@ -2013,11 +2166,13 @@ def habitat_phase(out_dir: str, pretrain_ckpt: str, pretrain_names: set) -> dict
         cx, cz, r = ctrl_env.envs[0].sim.obstacles[0]
         ctrl_env.teleport(0, [cx, 0.0, cz + r + 0.3], heading=0.0)
         free_start = ctrl_env.positions[1].copy()
-        collided = []
+        collided, walk_s = [], 0.0
         for slot, ghost in ((0, [cx, 0.0, cz - r - 1.0]), (1, free_start + [1.5, 0.0, -1.5])):
             start = ctrl_env.positions[slot].copy()
+            t0 = time.perf_counter()
             ctrl.execute(slot, {"act": 4, "back_path": None, "front_pos": start,
                                 "ghost_pos": np.asarray(ghost), "tryout": True})
+            walk_s += time.perf_counter() - t0
             collided.append(ctrl_env.previous_step_collided(slot))
         moved = np.linalg.norm(ctrl_env.positions - np.stack([[cx, 0.0, cz + r + 0.3],
                                                               free_start]), axis=1)
@@ -2039,7 +2194,8 @@ def habitat_phase(out_dir: str, pretrain_ckpt: str, pretrain_names: set) -> dict
                              f"counts {cli_counts}")
     run.update(errs=errs, tower_params=tower_params, counts=cli_counts, clip_ms=clip_ms,
                control={**ctrl_counts, "moved_m": moved.round(2).tolist(),
-                        "last_step_collided": collided},
+                        "last_step_collided": collided,
+                        "ms_per_call": 1e3 * walk_s / sum(ctrl_counts.values())},
                ddppo_ms=ddppo_ms, round_trip_ms=round_trip_ms, render_ms=render_ms,
                preprocess_ms=preprocess_ms, clip_path=clip_path, ddppo_path=ddppo_path,
                clip_calls_per_step=cli_counts["clip"] / steps,
@@ -2066,7 +2222,8 @@ def print_habitat(run: dict) -> None:
           control_check_forward_steps=run["control"]["forward_step"],
           control_check_rotations=run["control"]["rotate"],
           control_check_moved_m=",".join(map(str, run["control"]["moved_m"])),
-          control_check_last_step_collided=",".join(map(str, run["control"]["last_step_collided"])))
+          control_check_last_step_collided=",".join(map(str, run["control"]["last_step_collided"])),
+          control_check_ms_per_sim_call=f"{run['control']['ms_per_call']:.4f}")
 
 
 def precompute_phase(clip_path: str, ddppo_path: str, viewpoints: int = 4) -> dict:
@@ -2133,12 +2290,8 @@ def dagger_phase(label: str, out_dir: str, argv: list, pretrain_names=None) -> d
     prev, ce, store = dagger_mod.PrevalentDaggerAgent, ce_mod.CEAgent, npz_store.NpzShardStore
     seen = {"gathers": 0, "drop_fwd": 0, "drop_bwd": 0, "rollouts": [], "events": [],
             "updates": [], "writes": [], "reads": [], "steps": 0, "agent": None, "start": None}
-    gather = ce_mod.gather_and_splat
+    counted_gather = counted_gathers(seen, ce_mod)[1]
     counted_dropout = counting_dropout(seen)[1]
-
-    def counted_gather(*args):
-        seen["gathers"] += 1
-        return gather(*args)
 
     def host_timed(fn, key, sync=True):
         def wrapper(*args, **kw):
@@ -2673,11 +2826,8 @@ def dp_replay_phase(out_dir: str, batch: int = 8) -> dict:
     cfg, _, _, agent = finetune.build(finetune.parse_args([
         "--synthetic", "--device", "cuda", "--batch_size", str(batch), "--output_dir",
         os.path.join(out_dir, "teacher")]))
-    gather, teacher = agent_mod.gather_and_splat, {"gathers": 0}
-
-    def counted_gather(*args):
-        teacher["gathers"] += 1
-        return gather(*args)
+    teacher = {"gathers": 0}
+    gather, counted_gather = counted_gathers(teacher, agent_mod)
 
     agent_mod.gather_and_splat = counted_gather
     try:
@@ -2720,6 +2870,186 @@ def dp_replay_phase(out_dir: str, batch: int = 8) -> dict:
             "steps": int((rb["targets"] != -100).any(axis=1).sum())}
 
 
+# dp_ce runs float32 activations: the ranks' GEMMs run at 4 rows where the
+# one process's run at 8, so bf16 rounding would differ between them, and
+# the rollout's sampled actions and waypoints are discrete draws from those
+# numbers. In float32 (TF32 off) they differ by ~1e-7, far below a draw's
+# chance of landing on a boundary. The waypoint head is sharpened (x100),
+# as in the small phase, so that its NMS peaks stand far apart.
+DP_CE_CONFIG = {"model": {"dtype": "float32"}}
+DP_CE_ROWS = 4  # per rank
+
+
+@contextlib.contextmanager
+def eval_moves_timed(moves: dict, env):
+    """Within: host ms in ``CEAgent._act`` (the step's moves: this rank's
+    low-level control) and in ``_in_rank_turns`` (those moves plus the
+    wait for the other ranks' turns and the coin-count gathers), the
+    ``_act`` calls, and ``env``'s control steps, added into ``moves``."""
+    from vln_bevbert_tpu_torch.ce.agent import CEAgent
+
+    def timed(fn, key, count=None):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                moves[key] += 1e3 * (time.perf_counter() - t0)
+                if count:
+                    moves[count] += 1
+        return wrapper
+
+    def counted(fn, key):
+        def wrapper(*args, **kw):
+            moves[key] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    act, turns = CEAgent._act, CEAgent._in_rank_turns
+    CEAgent._act, CEAgent._in_rank_turns = timed(act, "act_ms", "act"), timed(turns, "turns_ms")
+    for key in ("forward_step", "rotate"):
+        setattr(env, key, counted(getattr(env, key), key))
+    try:
+        yield
+    finally:
+        CEAgent._act, CEAgent._in_rank_turns = act, turns
+        for key in ("forward_step", "rotate"):
+            delattr(env, key)
+
+
+def dp_ce_run(spec: dict) -> dict:
+    """In this process (a rank, or the one process at the global batch):
+    ``cli.ce_train``'s SS-BEV and SS-ETP agents built from ``spec["argv"]``
+    (the batch per rank), the waypoint heads sharpened, ``np_rng`` seeded
+    11; an SS-BEV sampled training rollout (waypoint sampling, ghost noise,
+    sample ratio 0.5) with its replay update, a merged greedy evaluation
+    (low-level control), then an SS-ETP sampled training rollout (its bundle
+    kept, not trained on). Trajectories, ``np_rng`` states, the update's
+    loss, gradient norm and summed gradients before the clip (rank 0, on the
+    host), the eval metrics; gather-and-splat and dropout calls against the
+    kernels' launches over the whole run; ms of each part."""
+    import numpy as np
+
+    from vln_bevbert_tpu_torch import _build
+    from vln_bevbert_tpu_torch.ce import agent as ce_mod
+    from vln_bevbert_tpu_torch.cli import ce_train
+    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
+    from vln_bevbert_tpu_torch.parallel import distributed
+    from vln_bevbert_tpu_torch.parallel.train_step import TrainState
+
+    _build.load()
+    rank = distributed.rank()
+    agents = {}
+    for trainer in ("ss-bev", "ss-etp"):
+        _, agent = ce_train.build(ce_train.parse_args(spec["argv"] + ["--trainer", trainer]))
+        with torch.no_grad():
+            agent.wp_model.cls_fc2.weight.mul_(100.0)
+        agent.np_rng = np.random.default_rng(11)
+        agents[trainer] = agent
+    seen = {"gathers": 0, "drop_fwd": 0, "drop_bwd": 0}
+    forward, counted = counting_dropout(seen)
+    gather, gathers = counted_gathers(seen, ce_mod)
+    apply = TrainState.apply_gradients
+
+    def snapshot(state):
+        if rank == 0:
+            seen["grads"] = torch.cat([f.float().cpu() for f in state.flat_grads])
+        return apply(state)
+
+    def paths(trajs):
+        return [(tr["instr_id"], np.stack(tr["positions"]).tolist(), list(tr["headings"]))
+                for tr in trajs]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    out = {"rank": rank, "world": distributed.world_size()}
+    drop_mod.Dropout.forward, ce_mod.gather_and_splat = counted, gathers
+    TrainState.apply_gradients = snapshot
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        bev, etp = agents["ss-bev"], agents["ss-etp"]
+        (trajs, loss), out["bev_ms"] = timed(lambda: bev.rollout("sample", True, 0.5))
+        out.update(bev_paths=paths(trajs), bev_rng=bev.np_rng.bit_generator.state, loss=loss,
+                   grad_norm=bev.logs["grad_norm"][-1], grads=seen.pop("grads", None))
+        moves = {"act_ms": 0.0, "turns_ms": 0.0, "act": 0, "forward_step": 0, "rotate": 0}
+        with eval_moves_timed(moves, bev.env):
+            out["eval"], out["eval_ms"] = timed(lambda: bev.evaluate(num_batches=1))
+        out.update(eval_rng=bev.np_rng.bit_generator.state, eval_moves=moves)
+        etp.learn_from_bundle = lambda rb: 0.0  # the rollout alone
+        (trajs, _), out["etp_ms"] = timed(lambda: etp.rollout("sample", True, 0.5))
+        out.update(etp_paths=paths(trajs), etp_rng=etp.np_rng.bit_generator.state)
+        torch.cuda.synchronize()
+        out["launches"] = {k: _build.launches(k) for k in ("splat", "dropout")}
+    finally:
+        drop_mod.Dropout.forward, ce_mod.gather_and_splat = forward, gather
+        TrainState.apply_gradients = apply
+    out.update(gathers=seen["gathers"], drop_fwd=seen["drop_fwd"], drop_bwd=seen["drop_bwd"],
+               peak_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def dp_ce_phase(out_dir: str) -> dict:
+    """CE under data parallelism at full width (``cli.ce_train``'s defaults
+    but float32 activations, ``DP_CE_CONFIG``): two gloo ranks of
+    ``DP_CE_ROWS`` rows on the one card against one process at the global
+    batch (``dp_ce_run``). The ranks' trajectories, concatenated, equal the
+    one process's, every rank's ``np_rng`` ends where its does, the update's
+    loss, gradient norm and gradients are within ``DP_REPLAY_RTOL``, the
+    merged eval metrics agree to float rounding; on every rank the splat
+    launches equal its gather-and-splat calls and the dropout launches its
+    dropout calls."""
+    os.makedirs(out_dir, exist_ok=True)
+    config = os.path.join(out_dir, "dp_ce.json")
+    with open(config, "w") as f:
+        json.dump(DP_CE_CONFIG, f)
+    argv = ["--device", "cuda", "--config", config, "--allow_random_frozen", "--n_episodes",
+            "16", "--ghost_aug", "0.3", "--output_dir", os.path.join(out_dir, "out")]
+    ranks = dp_spawn(dp_ce_run, {"work": os.path.join(out_dir, "ranks"),
+                                 "argv": argv + ["--batch_size", str(DP_CE_ROWS)]})
+    free_memory()
+    one = dp_ce_run({"argv": argv + ["--batch_size", str(DP_WORLD * DP_CE_ROWS)]})
+    for key in ("bev", "etp"):
+        if sum((r[f"{key}_paths"] for r in ranks), []) != one[f"{key}_paths"]:
+            raise AssertionError(f"dp_ce: the ranks' {key} trajectories differ from one process's")
+        if any(r[f"{key}_rng"] != one[f"{key}_rng"] for r in ranks):
+            raise AssertionError(f"dp_ce: a rank's np_rng differs after the {key} rollout")
+    if any(r["eval_rng"] != one["eval_rng"] for r in ranks):
+        raise AssertionError("dp_ce: a rank's np_rng differs after the evaluation")
+    for r in ranks:
+        if (r["loss"], r["grad_norm"], r["eval"]) != (ranks[0]["loss"], ranks[0]["grad_norm"],
+                                                      ranks[0]["eval"]):
+            raise AssertionError("dp_ce: the ranks report different global numbers")
+    for r in ranks + [one]:
+        launches = r["launches"]
+        if launches["splat"] != r["gathers"] or r["gathers"] == 0:
+            raise AssertionError(f"dp_ce rank {r['rank']}: {launches['splat']} splat launches "
+                                 f"for {r['gathers']} gather-and-splat calls")
+        if launches["dropout"] != r["drop_fwd"] + r["drop_bwd"] or r["drop_bwd"] == 0:
+            raise AssertionError(f"dp_ce rank {r['rank']}: {launches['dropout']} dropout "
+                                 f"launches for {r['drop_fwd']} + {r['drop_bwd']} calls")
+    g, g1 = ranks[0]["grads"], one["grads"]
+    diffs = {"loss": rel_diff(ranks[0]["loss"], one["loss"]),
+             "grad_norm": rel_diff(ranks[0]["grad_norm"], one["grad_norm"]),
+             "grad_rel_l2": float((g - g1).norm() / g1.norm())}
+    for key, tol in DP_REPLAY_RTOL.items():
+        if diffs[key] > tol:
+            raise AssertionError(f"dp_ce: {key} {diffs[key]:.3e} against one process "
+                                 f"(tolerance {tol})")
+    diffs["eval"] = max(rel_diff(ranks[0]["eval"][k], v) for k, v in one["eval"].items())
+    if diffs["eval"] > 1e-9:
+        raise AssertionError(f"dp_ce: merged eval metrics {ranks[0]['eval']} against "
+                             f"{one['eval']}")
+    for r in ranks + [one]:
+        r.pop("grads")
+    return {"ranks": ranks, "one": one, "diffs": diffs}
+
+
 def torchrun_pretrain(out_json: str, argv: list) -> None:
     """The body of ``cli.pretrain``'s ``main`` (build, train, save) under
     ``torch.distributed.run``, instrumented (``dp_pretrain_run``); the record
@@ -2749,12 +3079,8 @@ def torchrun_finetune(out_json: str, argv: list) -> None:
 
     _build.load()
     seen = {"gathers": 0, "drop_fwd": 0, "drop_bwd": 0}
-    gather = agent_mod.gather_and_splat
+    gather, counted_gather = counted_gathers(seen, agent_mod)
     forward, counted = counting_dropout(seen)
-
-    def counted_gather(*args):
-        seen["gathers"] += 1
-        return gather(*args)
 
     agent_mod.gather_and_splat, drop_mod.Dropout.forward = counted_gather, counted
     try:
@@ -2766,6 +3092,39 @@ def torchrun_finetune(out_json: str, argv: list) -> None:
                   "launches": {k: _build.launches(k) for k in ("splat", "dropout")}}
     finally:
         agent_mod.gather_and_splat, drop_mod.Dropout.forward = gather, forward
+        distributed.shutdown()
+    with open(out_json, "w") as f:
+        json.dump(record, f)
+
+
+def torchrun_ce(out_json: str, argv: list) -> None:
+    """``cli.ce_train``'s ``main`` under ``torch.distributed.run``, with the
+    splat launches counted against the gather-and-splat calls and the
+    dropout launches against its forward and backward calls (from 0 just
+    before it); the record into ``out_json``."""
+    import torch.distributed as dist
+
+    from vln_bevbert_tpu_torch import _build
+    from vln_bevbert_tpu_torch.ce import agent as ce_mod
+    from vln_bevbert_tpu_torch.cli import ce_train
+    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
+    from vln_bevbert_tpu_torch.parallel import distributed
+
+    _build.load()
+    seen = {"gathers": 0, "drop_fwd": 0, "drop_bwd": 0}
+    forward, counted = counting_dropout(seen)
+    gather, gathers = counted_gathers(seen, ce_mod)
+    ce_mod.gather_and_splat, drop_mod.Dropout.forward = gathers, counted
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        results = ce_train.main(argv)
+        record = {**seen, "results": results, "rank": distributed.rank(),
+                  "world": distributed.world_size(), "wall_s": time.perf_counter() - t0,
+                  "backend": dist.get_backend() if distributed.active() else None,
+                  "launches": {k: _build.launches(k) for k in ("splat", "dropout")}}
+    finally:
+        ce_mod.gather_and_splat, drop_mod.Dropout.forward = gather, forward
         distributed.shutdown()
     with open(out_json, "w") as f:
         json.dump(record, f)
@@ -2823,10 +3182,47 @@ def dp_nccl_phase(out_dir: str, plain_ms_per_task: dict, timeout_s: float = 300.
     if not (il and il[0] == il[0] and il[0] > 0 and transferred
             and os.path.exists(os.path.join(ft_dir, "ckpt_latest"))):
         raise AssertionError(f"dp_nccl: fine-tuning logged {logged}")
+    ce, ce_loss = dp_nccl_ce(out_dir, timeout_s)
     return {"pre": pre, "task": task, "ms": sum(pre["ms"][1:]) / len(pre["ms"][1:]),
             "reduce_ms": sum(pre["reduce_ms"][1:]) / len(pre["reduce_ms"][1:]),
             "plain_ms": plain_ms_per_task[task], "pre_wall_s": pre_wall,
-            "ft_wall_s": ft_wall, "il_loss": il[0], "transferred": transferred[0], "ft": ft}
+            "ft_wall_s": ft_wall, "il_loss": il[0], "transferred": transferred[0], "ft": ft,
+            "ce": ce, "ce_loss": ce_loss}
+
+
+def dp_nccl_ce(out_dir: str, timeout_s: float = 300.0) -> tuple:
+    """``cli.ce_train`` (SS-BEV at the CLI's defaults, B=8: one iteration,
+    its evaluation and ``ckpt_1``) under ``torch.distributed.run`` at world
+    size 1 on NCCL, through ``torchrun_ce``: (its record, its loss); both
+    kernels' launches equal their calls."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    launcher = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1"]
+    ce_dir, ce_record = os.path.join(out_dir, "ce"), os.path.join(out_dir, "ce.json")
+    subprocess.run(launcher + [os.path.abspath(__file__), "--torchrun-ce", ce_record,
+                               "--device", "cuda", "--batch_size", "8", "--allow_random_frozen",
+                               "--n_episodes", "16", "--iters", "1", "--log_every", "1",
+                               "--output_dir", ce_dir],
+                   check=True, timeout=timeout_s, cwd=here, env=env)
+    with open(ce_record) as f:
+        ce = json.load(f)
+    if (ce["backend"], ce["world"]) != ("nccl", 1):
+        raise AssertionError(f"dp_nccl: CE training ran {ce['backend']} at world {ce['world']}")
+    launches = ce["launches"]
+    if launches["splat"] != ce["gathers"] or ce["gathers"] == 0:
+        raise AssertionError(f"dp_nccl: CE training made {launches['splat']} splat launches "
+                             f"for {ce['gathers']} gather-and-splat calls")
+    if launches["dropout"] != ce["drop_fwd"] + ce["drop_bwd"] or ce["drop_bwd"] == 0:
+        raise AssertionError(f"dp_nccl: CE training made {launches['dropout']} dropout launches "
+                             f"for {ce['drop_fwd']} forward and {ce['drop_bwd']} backward calls")
+    with open(os.path.join(ce_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    loss = [r["train/loss"] for r in logged if "train/loss" in r]
+    if not (loss and loss[0] == loss[0] and loss[0] > 0
+            and os.path.exists(os.path.join(ce_dir, "ckpt_1"))):
+        raise AssertionError(f"dp_nccl: CE training logged {logged}")
+    return ce, loss[0]
 
 
 def dp_group(plain_ms_per_task: dict) -> tuple:
@@ -2872,6 +3268,28 @@ def dp_group(plain_ms_per_task: dict) -> tuple:
     phase("dp_replay", steps=dpr["steps"], **{k: f"{v:.3e}" for k, v in dpr["diffs"].items()},
           note=repr(GLOO_NOTE))
     free_memory()
+    dce = dp_ce_phase(os.path.join(work.name, "dp_ce"))
+    for r in dce["ranks"] + [dce["one"]]:
+        phase("dp_ce", rank=r["rank"], world=r["world"], rows=DP_WORLD * DP_CE_ROWS // r["world"],
+              dtype="float32", loss=f"{r['loss']:.6f}", grad_norm=f"{r['grad_norm']:.6f}",
+              gathers=r["gathers"], splat_launches=r["launches"]["splat"],
+              dropout_calls=f"{r['drop_fwd']}+{r['drop_bwd']}",
+              dropout_launches=r["launches"]["dropout"], ss_bev_ms=f"{r['bev_ms']:.1f}",
+              eval_ms=f"{r['eval_ms']:.1f}", ss_etp_ms=f"{r['etp_ms']:.1f}",
+              eval_success=f"{r['eval']['success']:.4f}",
+              peak_mem_MiB=f"{r['peak_bytes'] / 2**20:.1f}")
+    for r in dce["ranks"] + [dce["one"]]:
+        m = r["eval_moves"]
+        phase("dp_ce", rank=r["rank"], world=r["world"], eval_steps=m["act"],
+              eval_ms=f"{r['eval_ms']:.1f}", act_ms=f"{m['act_ms']:.1f}",
+              act_share=f"{m['act_ms'] / r['eval_ms']:.2%}",
+              turns_ms=f"{m['turns_ms']:.1f}",
+              turns_share=f"{m['turns_ms'] / r['eval_ms']:.2%}",
+              turn_wait_ms=f"{m['turns_ms'] - m['act_ms']:.1f}",
+              control_forward_steps=m["forward_step"], control_rotations=m["rotate"])
+    phase("dp_ce", trajectories="equal", np_rng="equal",
+          **{k: f"{v:.3e}" for k, v in dce["diffs"].items()}, note=repr(GLOO_NOTE))
+    free_memory()
     nccl = dp_nccl_phase(os.path.join(work.name, "dp_nccl"), plain_ms_per_task)
     pre = nccl["pre"]
     phase("dp_nccl", backend=pre["backend"], world=pre["world"], task=nccl["task"],
@@ -2889,8 +3307,14 @@ def dp_group(plain_ms_per_task: dict) -> tuple:
           finetune_dropout_launches=nccl["ft"]["launches"]["dropout"],
           finetune_dropout_calls=f"{nccl['ft']['drop_fwd']}+{nccl['ft']['drop_bwd']}",
           finetune_wall_s=f"{nccl['ft_wall_s']:.1f}")
+    ce = nccl["ce"]
+    phase("dp_nccl", ce_backend=ce["backend"], ce_world=ce["world"], ce_iters=1,
+          ce_loss=f"{nccl['ce_loss']:.4g}", ce_success=f"{ce['results']['success']:.4f}",
+          ce_gathers=ce["gathers"], ce_splat_launches=ce["launches"]["splat"],
+          ce_dropout_calls=f"{ce['drop_fwd']}+{ce['drop_bwd']}",
+          ce_dropout_launches=ce["launches"]["dropout"], ce_wall_s=f"{ce['wall_s']:.1f}")
     work.cleanup()
-    return dpp, dpr, nccl
+    return dpp, dpr, dce, nccl
 
 
 def main() -> None:
@@ -3134,7 +3558,7 @@ def main() -> None:
 
     # data parallelism: two gloo ranks on the one card against one process at
     # the global batch, then the CLIs under torch.distributed.run on NCCL
-    dpp, dpr, nccl = dp_group(train["ms_per_task"])
+    dpp, dpr, dce, nccl = dp_group(train["ms_per_task"])
 
     loaded = sorted(k for k in sys.modules if k.split(".")[0] in
                     ("vln_bevbert_tpu", "jax", "jaxlib", "flax", "optax", "orbax"))
@@ -3160,7 +3584,10 @@ def main() -> None:
          "launches_dp_replay_ranks": [r["launches"]["splat"] for r in dpr["ranks"]],
          "launches_dp_replay_teacher": dpr["teacher"]["launches"],
          "launches_dp_nccl": nccl["pre"]["launches"]["splat"],
-         "launches_dp_nccl_finetune": nccl["ft"]["launches"]["splat"]},
+         "launches_dp_nccl_finetune": nccl["ft"]["launches"]["splat"],
+         "launches_dp_ce_ranks": [r["launches"]["splat"] for r in dce["ranks"]],
+         "launches_dp_ce_one": dce["one"]["launches"]["splat"],
+         "launches_dp_nccl_ce": nccl["ce"]["launches"]["splat"]},
         {**DROPOUT, "launches": train["launches"]["dropout"], **drop_record,
          "bound_by": "bytes", "launches_finetune": ft["launches"]["dropout"],
          "launches_obj_pretrain": obj["launches"]["dropout"],
@@ -3178,7 +3605,10 @@ def main() -> None:
          "launches_dp_replay_ranks": [r["launches"]["dropout"] for r in dpr["ranks"]],
          "launches_dp_replay_one": dpr["one"]["launches"]["dropout"],
          "launches_dp_nccl": nccl["pre"]["launches"]["dropout"],
-         "launches_dp_nccl_finetune": nccl["ft"]["launches"]["dropout"]},
+         "launches_dp_nccl_finetune": nccl["ft"]["launches"]["dropout"],
+         "launches_dp_ce_ranks": [r["launches"]["dropout"] for r in dce["ranks"]],
+         "launches_dp_ce_one": dce["one"]["launches"]["dropout"],
+         "launches_dp_nccl_ce": nccl["ce"]["launches"]["dropout"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -3189,5 +3619,7 @@ if __name__ == "__main__":
         torchrun_pretrain(sys.argv[2], sys.argv[3:])
     elif sys.argv[1:2] == ["--torchrun-finetune"]:  # likewise
         torchrun_finetune(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1:2] == ["--torchrun-ce"]:  # likewise
+        torchrun_ce(sys.argv[2], sys.argv[3:])
     else:
         main()

@@ -131,6 +131,21 @@ def pretrain_steps(rank: int, world: int, spec) -> dict:
                        for n, p in model.named_parameters()}}
 
 
+def _loss_and_grads(agent, rb) -> tuple:
+    """The episode loss of ``rb`` in training mode, its gradients summed
+    over the ranks (then cleared)."""
+    state = agent.train_state
+    with agent._training():
+        loss = agent._episode_loss(rb)
+    loss.backward()
+    state.all_reduce_grads()
+    loss = float(distributed.all_reduce_(loss.detach()))
+    grads = {n: p.grad.to("cpu", copy=True) for n, p in agent.model.named_parameters()}
+    for flat in state.flat_grads:
+        flat.zero_()
+    return loss, grads
+
+
 def replay(rank: int, world: int, spec) -> dict:
     """The episode loss of the rank's rows of the replay bundle
     ``spec["rb"]`` in training mode, its gradients summed over the ranks,
@@ -146,15 +161,7 @@ def replay(rank: int, world: int, spec) -> dict:
     if spec.get("params") is not None:
         agent.model.load_state_dict(spec["params"])
     local = shard_replay_bundle(rb, rank, world)
-    state = agent.train_state
-    with agent._training():
-        loss = agent._episode_loss(local)
-    loss.backward()
-    state.all_reduce_grads()
-    loss = float(distributed.all_reduce_(loss.detach()))
-    grads = {n: p.grad.to("cpu", copy=True) for n, p in agent.model.named_parameters()}
-    for flat in state.flat_grads:
-        flat.zero_()
+    loss, grads = _loss_and_grads(agent, local)
     update_loss = agent.learn_from_bundle(local)
     return {"loss": loss, "grads": grads, "update_loss": update_loss,
             "launches": _launches(torch.device(spec.get("device", "cpu"))),
@@ -189,3 +196,114 @@ def pick(rank: int, world: int, spec) -> dict:
            for fb in ("sample", "expl_sample", "argmax")}
     return {**out, "entropy": agent.logs["entropy"],
             "rng": agent.np_rng.bit_generator.state}
+
+
+# ------------------------------------------------------- CE scenarios
+def _ce_agent(rank: int, world: int, spec):
+    """A ``CEAgent`` of ``spec["cfg"]`` (its batch the global one) in the
+    rank's share of a synthetic continuous env, parameters from
+    ``spec["params"]`` and ``spec["wp_params"]``, ``np_rng`` seeded
+    ``spec["rng_seed"]``."""
+    import numpy as np
+
+    from vln_bevbert_tpu_torch.ce.agent import CEAgent
+    from vln_bevbert_tpu_torch.ce.env import SyntheticContinuousEnv, make_synthetic_ce_episodes
+
+    cfg = spec["cfg"]
+    episodes = make_synthetic_ce_episodes(np.random.default_rng(3), n=spec["n_episodes"])
+    env = SyntheticContinuousEnv(episodes, batch_size=cfg.batch_size, rank=rank, world=world,
+                                 **spec["env"])
+    agent = CEAgent(cfg, env, ghost_aug=spec.get("ghost_aug", 0.0), device="cpu")
+    agent.init_params(wp_params=spec["wp_params"])
+    agent.model.load_state_dict(spec["params"])
+    agent.np_rng = np.random.default_rng(spec["rng_seed"])
+    return agent
+
+
+def _paths(trajs) -> list:
+    import numpy as np
+
+    return [(tr["instr_id"], np.stack(tr["positions"]), list(tr["headings"])) for tr in trajs]
+
+
+def _captured_rollout(agent, **kw):
+    """A training rollout whose replay bundle is kept, not trained on."""
+    bundles = []
+    agent.learn_from_bundle = lambda rb: bundles.append(rb) or 0.0
+    try:
+        trajs, _ = agent.rollout(train=True, **kw)
+    finally:
+        del agent.learn_from_bundle
+    return trajs, bundles[0]
+
+
+def ce_train(rank: int, world: int, spec) -> dict:
+    """A sampled training rollout (``spec["sample_ratio"]``, waypoint
+    sampling, ghost noise) whose bundle is kept: its trajectories and the
+    ``np_rng`` state after it; with ``spec["replay"]`` then that bundle's
+    loss and summed gradients, and one ``learn_from_bundle`` update."""
+    agent = _ce_agent(rank, world, spec)
+    trajs, rb = _captured_rollout(agent, feedback="sample", sample_ratio=spec["sample_ratio"])
+    out = {"paths": _paths(trajs), "rng": agent.np_rng.bit_generator.state,
+           "steps": int(rb["step_idx"].shape[0])}
+    if spec.get("replay"):
+        out["loss"], out["grads"] = _loss_and_grads(agent, rb)
+        out["update_loss"] = agent.learn_from_bundle(rb)
+        out["grad_norm"] = agent.logs["grad_norm"][-1]
+        out["params"] = {n: p.detach().to("cpu", copy=True)
+                         for n, p in agent.model.named_parameters()}
+    return out
+
+
+def ce_teacher(rank: int, world: int, spec) -> dict:
+    """A teacher training rollout's replay loss and summed gradients."""
+    agent = _ce_agent(rank, world, spec)
+    trajs, rb = _captured_rollout(agent, feedback="teacher")
+    loss, grads = _loss_and_grads(agent, rb)
+    return {"paths": _paths(trajs), "loss": loss, "grads": grads}
+
+
+def ce_eval(rank: int, world: int, spec) -> dict:
+    """``evaluate`` (low-level control with tryout) and
+    ``collect_predictions`` over the split, and ``np_rng``'s state after
+    each."""
+    from vln_bevbert_tpu_torch.ce.inference import collect_predictions
+
+    agent = _ce_agent(rank, world, spec)
+    metrics = agent.evaluate(num_batches=2)
+    rng = agent.np_rng.bit_generator.state
+    path_eps = collect_predictions(agent)
+    return {"metrics": metrics, "rng": rng, "path_eps": path_eps,
+            "rng_after_predictions": agent.np_rng.bit_generator.state}
+
+
+def ce_dagger(rank: int, world: int, spec) -> dict:
+    """``run_dagger`` with the glocal BEV policy (one iteration) into a
+    store under ``spec["store"]``: its history and the store's spill dir."""
+    from vln_bevbert_tpu_torch.ce.dagger import run_dagger
+
+    agent = _ce_agent(rank, world, spec)
+    history = run_dagger(agent, spec["store"], policy="bev", dagger_iters=1,
+                         update_size=spec["update_size"], p=0.75, epochs=1)
+    return {"history": history, "store": sorted(os.listdir(spec["store"])),
+            "rng": agent.np_rng.bit_generator.state}
+
+
+def refusal(rank: int, world: int, spec) -> dict:
+    """The error of ``cli.<spec["module"]>.main(spec["argv"])`` and of a
+    ``PrevalentDaggerAgent`` built in this process group, if any."""
+    import importlib
+
+    from vln_bevbert_tpu_torch.ce.dagger import PrevalentDaggerAgent
+
+    module = importlib.import_module(f"vln_bevbert_tpu_torch.cli.{spec['module']}")
+    out = {"cli": None, "agent": None}
+    try:
+        module.main(spec["argv"])
+    except SystemExit as e:
+        out["cli"] = str(e)
+    try:
+        PrevalentDaggerAgent(spec["cfg"], None, device="cpu")
+    except RuntimeError as e:
+        out["agent"] = str(e)
+    return out

@@ -14,7 +14,8 @@ NMS and sampling), the FIFO npz shard store behind the recollection
 stores, and the Habitat sensor stack's host layer (observation transforms,
 the sensor functions and top-down map, the habitat binding without towers
 and the MatterSim binding over the JAX tests' fake simulators, the
-precompute pipeline's synthetic frames and projection encoder). Arrays must be equal; floats computed
+precompute pipeline's synthetic frames and projection encoder), and the BEV
+and trajectory renders of ``utils/visualize.py``. Arrays must be equal; floats computed
 by the same code in the same order must be equal too.
 """
 
@@ -44,7 +45,7 @@ COPIED = ("configs", "geometry", "data.nav_graph", "data.pathdata", "data.batchi
           "ce.env", "ce.graph_map", "ce.control", "ce.dataset", "ce.waypoint_predictor",
           "ce.inference", "utils.mlabel", "models.surgery", "utils.npz_store", "ce.env_pool",
           "ce.obs_transforms", "ce.sensors", "ce.habitat_binding", "nav.mattersim_binding",
-          "precompute.pipeline")
+          "precompute.pipeline", "utils.visualize")
 # ``precompute.pipeline`` runs the port's tower (``DeviceClipEncoder``) in
 # place of ``JaxClipEncoder``
 LEFT_OUT = {"data.feature_db": {"fast_cast"}, "ce.waypoint_predictor": {"jax", "jnp"},
@@ -662,6 +663,25 @@ def check_precompute_host(tmp_path):
         encoded.append([(enc.encode_views(f["views36"]), enc.encode_grids(f["ring12"]))
                         for _, _, f in pkg_frames])
     assert_same(encoded[0], encoded[1], "projection encoder")
+    # the port's tower takes JAX's from_hf entry, with its default model
+    import inspect
+
+    defaults = [inspect.signature(cls.from_hf).parameters["model_name"].default
+                for cls in (jpl.JaxClipEncoder, ppl.DeviceClipEncoder)]
+    assert defaults[0] == defaults[1] == "openai/clip-vit-base-patch16"
+
+
+def check_visualize(tmp_path):
+    jvis, pvis = pair("utils.visualize")
+    occ = np.random.default_rng(5).random(121) < 0.3
+    walked = np.random.default_rng(6).normal(size=(9, 3)) * 4
+    out = []
+    for mod in (jvis, pvis):
+        out.append([mod.render_bev_mask(occ, cand_cells=[60, 3, 120]),
+                    mod.render_bev_mask(occ.reshape(11, 11), scale=3),
+                    mod.render_topdown_traj(walked, walked[::2] + 1, size=96),
+                    mod.render_topdown_traj(walked[:2])])
+    assert_same(out[0], out[1], "visualize")
 
 
 CHECKS = {"configs": check_configs, "synthetic_world": check_synthetic_world,
@@ -674,7 +694,7 @@ CHECKS = {"configs": check_configs, "synthetic_world": check_synthetic_world,
           "surgery": check_surgery, "npz_store": check_npz_store,
           "obs_transforms": check_obs_transforms, "sensors": check_sensors,
           "habitat_binding": check_habitat_binding, "mattersim_binding": check_mattersim_binding,
-          "precompute_host": check_precompute_host}
+          "precompute_host": check_precompute_host, "visualize": check_visualize}
 
 
 @pytest.mark.parametrize("name", list(CHECKS))
@@ -826,7 +846,8 @@ def test_port_loads_nothing_of_the_jax_package(tmp_path):
             "vln_bevbert_tpu_torch.ce.habitat_binding",
             "vln_bevbert_tpu_torch.precompute.pipeline",
             "vln_bevbert_tpu_torch.parallel.distributed",
-            "vln_bevbert_tpu_torch.parallel.mesh"} <= set(out["names"])
+            "vln_bevbert_tpu_torch.parallel.mesh", "vln_bevbert_tpu_torch.utils.profiling",
+            "vln_bevbert_tpu_torch.utils.visualize"} <= set(out["names"])
     assert all(0.0 <= sr <= 100.0 for sr in out["sr"]) and out["loss"] and out["pred_obj"]
     assert out["real"] and len(out["val"]) == 1 and np.isfinite(out["val"][0])
     assert out["count"] == 1 and out["slow"]  # 2 steps of accumulation: one update

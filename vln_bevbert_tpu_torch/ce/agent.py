@@ -23,10 +23,22 @@ The frozen predictor is ``self.wp_model``: outside ``self.model``, so outside
 the optimizer and the agent's checkpoints. Every host draw comes from one
 ``np_rng``, in the JAX agent's order: the waypoint sampling, the ghost
 noise, the action sample and the teacher coin, the controller's tryout side.
+
+Data parallelism (JAX's ``mesh=``): rank ``rank`` of ``world`` acts in an env
+that holds its rows of the global batch, and every rank makes the draws of
+every row in the one process's order and keeps its own: the waypoint
+sampling runs over the gathered heatmaps, the ghost noise over the gathered
+ghost counts, the action sample and the teacher coin over the gathered
+probabilities, and the controller's tryout coins in rank turns. The rollout
+ends when every rank's rows have ended, and ``evaluate`` averages the
+episodes of every rank. So W ranks of b rows take the trajectories, and
+leave ``np_rng`` in the state, of one process at W * b rows.
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 import math
 from typing import Dict, List, Mapping, Optional
 
@@ -37,6 +49,7 @@ from ..configs import FinetuneConfig
 from ..geometry import angle_features, se3_from_xyzhe
 from ..models.bert import init_params
 from ..nav.agent import IGNORE_ID, GMapNavAgent, StepRecord, gather_and_splat
+from ..parallel import distributed
 from ..utils.rng import make_generator
 from .control import LowLevelController
 from .env import SUCCESS_DISTANCE, SyntheticContinuousEnv
@@ -83,10 +96,15 @@ class CEAgent(GMapNavAgent):
             len(obs) * env.num_views, *env.depth_feat_shape)
         with torch.inference_mode():
             heat = self.wp_model(self._upload(depth)).cpu().numpy()
+        sampled = train and self.waypoint_aug
+        # sampling draws per peak of every row: over the global rows
         angles, dists, _ = extract_waypoints(
-            heat, max_candidates=min(5, self.cfg.shapes.max_local_len - 1),
-            in_train=train and self.waypoint_aug, rng=self.np_rng,
+            self._global_rows(heat) if sampled else heat,
+            max_candidates=min(5, self.cfg.shapes.max_local_len - 1),
+            in_train=sampled, rng=self.np_rng,
         )
+        if sampled:
+            angles, dists = self._own_rows(angles), self._own_rows(dists)
         return angles, dists, heat
 
     def _ce_panorama_variable(self, obs, cand_angles, cand_dists):
@@ -313,8 +331,9 @@ class CEAgent(GMapNavAgent):
         B = len(obs)
         T = cfg.max_action_len
 
-        gmaps = [CEGraphMap(loc_noise=self.loc_noise, ghost_aug=self.ghost_aug if train else 0.0,
-                            rng=self.np_rng) for _ in range(B)]
+        ghost_aug = self.ghost_aug if train else 0.0
+        gmaps = [CEGraphMap(loc_noise=self.loc_noise, ghost_aug=ghost_aug, rng=self.np_rng)
+                 for _ in range(B)]
         embed_refs: List[Dict[str, list]] = [dict() for _ in range(B)]
         prev_vp: List[Optional[str]] = [None] * B
         walked = [[obs[i]["position"].copy()] for i in range(B)]
@@ -361,7 +380,7 @@ class CEAgent(GMapNavAgent):
                     obs[i]["position"], obs[i]["orientation"], cand_angles[i], cand_dists[i])
                 assignments = gmap.update_graph(
                     prev_vp[i], t + 1, cur_vp, obs[i]["position"], None, cand_vp, cand_pos,
-                    [pano_np[i, j] for j in range(len(cand_vp))],
+                    [pano_np[i, j] for j in range(len(cand_vp))], augment=False,
                 )
                 # visited node = its pano's mean; ghosts accumulate their
                 # candidate-slot sightings (ref graph_utils.py:231-239)
@@ -371,6 +390,9 @@ class CEAgent(GMapNavAgent):
                         embed_refs[i].setdefault(assigned, []).append((t, j))
                 gmap.set_node_pc(cur_vp, t)
                 prev_vp[i] = cur_vp
+            # the ghost noise, drawn after every map's update
+            if ghost_aug:
+                self._augment_ghosts(gmaps, ended)
 
             # 5. navigation forward
             nav_g = self._ce_gmap_variable(obs, gmaps, embed_refs, pano_store)
@@ -425,69 +447,19 @@ class CEAgent(GMapNavAgent):
             elif feedback == "teacher":
                 a_t = targets
             else:
-                a_t = np.array([self.np_rng.choice(len(p), p=p) for p in nav_probs])
-                use_teacher = self.np_rng.uniform(size=B) < sample_ratio
+                probs = self._global_rows(nav_probs)
+                a_t = np.array([self.np_rng.choice(len(p), p=p) for p in probs])
+                use_teacher = self.np_rng.uniform(size=len(probs)) < sample_ratio
+                a_t, use_teacher = self._own_rows(a_t), self._own_rows(use_teacher)
                 a_t = np.where((targets != IGNORE_ID) & use_teacher, targets, a_t)
 
-            for i, gmap in enumerate(gmaps):
-                if ended[i]:
-                    continue
-                choice = int(a_t[i])
-                stop = (choice == 0 or nav_g["no_vp_left"][i] or t == T - 1
-                        or choice == IGNORE_ID)
-                cur_vp = nav_g["cur_vps"][i]
-
-                def back_path_to(dest_vp):
-                    if dest_vp == cur_vp:
-                        return None
-                    return [(p, gmap.node_pos[p]) for p in gmap.graph.path(cur_vp, dest_vp)]
-
-                if stop:
-                    # argmax only: go back to the node of the best stop score
-                    best_vp, best_sc = None, -math.inf
-                    for vp, sc in gmap.node_stop_scores.items():
-                        if sc > best_sc:
-                            best_vp, best_sc = vp, sc
-                    if best_vp is not None and best_vp != cur_vp and feedback == "argmax":
-                        if use_control:
-                            log_move(i, ctrl.execute(i, {
-                                "act": 0, "back_path": back_path_to(best_vp),
-                                "stop_pos": gmap.node_pos[best_vp], "tryout": cfg.ce_tryout,
-                            }))
-                        else:
-                            env.teleport(i, gmap.node_pos[best_vp])
-                            log_move(i, [gmap.node_pos[best_vp].copy()])
-                    env.stop(i)
-                    ended[i] = True
-                    continue
-                vp = nav_g["gmap_vpids"][i][choice]
-                if vp is None or not vp.startswith("g"):
-                    # only ghosts are actionable
-                    ended[i] = True
-                    env.stop(i)
-                    continue
-                front_dis, front_vp = gmap.front_to_ghost_dist(vp)
-                target_pos = gmap.ghost_mean_pos[vp].copy()
-                if use_control:
-                    # back to the front node along the map, then low-level
-                    # control to the ghost (ref environments.py:449-460)
-                    log_move(i, ctrl.execute(i, {
-                        "act": 4, "back_path": back_path_to(front_vp),
-                        "front_pos": gmap.node_pos[front_vp], "ghost_pos": target_pos,
-                        "tryout": cfg.ce_tryout,
-                    }))
-                else:
-                    # through the front node, then to the ghost
-                    if front_vp != cur_vp:
-                        log_move(i, [gmap.node_pos[front_vp].copy()])
-                    heading = math.atan2(
-                        -(target_pos[0] - gmap.node_pos[front_vp][0]),
-                        -(target_pos[2] - gmap.node_pos[front_vp][2]),
-                    ) % (2 * math.pi)
-                    env.teleport(i, target_pos, heading)
-                    log_move(i, [target_pos.copy()])
-                gmap.delete_ghost(vp)
-            if ended.all():
+            act = functools.partial(self._act, gmaps, a_t, nav_g, ended, t, feedback, ctrl,
+                                    log_move)
+            if use_control:
+                self._in_rank_turns(ctrl, act)
+            else:
+                act()
+            if self._all_ranks(ended.all()):
                 break
             # a subprocess pool (ce/env_pool.py) synthesises the sensors in
             # its workers: dispatch now, then gather
@@ -496,14 +468,132 @@ class CEAgent(GMapNavAgent):
             obs = env.observations()
         return traj, lang, records
 
+    def _act(self, gmaps, a_t, nav_g, ended, t, feedback, ctrl, log_move):
+        """Carry out the step's actions of the rows that have not ended:
+        stop (an argmax stop first goes back to the node of the best stop
+        score) or move to the chosen ghost, by teleport or, with ``ctrl``,
+        low-level control."""
+        cfg, env = self.cfg, self.env
+        T = cfg.max_action_len
+        use_control = ctrl is not None
+        for i, gmap in enumerate(gmaps):
+            if ended[i]:
+                continue
+            choice = int(a_t[i])
+            stop = (choice == 0 or nav_g["no_vp_left"][i] or t == T - 1
+                    or choice == IGNORE_ID)
+            cur_vp = nav_g["cur_vps"][i]
+
+            def back_path_to(dest_vp):
+                if dest_vp == cur_vp:
+                    return None
+                return [(p, gmap.node_pos[p]) for p in gmap.graph.path(cur_vp, dest_vp)]
+
+            if stop:
+                # argmax only: go back to the node of the best stop score
+                best_vp, best_sc = None, -math.inf
+                for vp, sc in gmap.node_stop_scores.items():
+                    if sc > best_sc:
+                        best_vp, best_sc = vp, sc
+                if best_vp is not None and best_vp != cur_vp and feedback == "argmax":
+                    if use_control:
+                        log_move(i, ctrl.execute(i, {
+                            "act": 0, "back_path": back_path_to(best_vp),
+                            "stop_pos": gmap.node_pos[best_vp], "tryout": cfg.ce_tryout,
+                        }))
+                    else:
+                        env.teleport(i, gmap.node_pos[best_vp])
+                        log_move(i, [gmap.node_pos[best_vp].copy()])
+                env.stop(i)
+                ended[i] = True
+                continue
+            vp = nav_g["gmap_vpids"][i][choice]
+            if vp is None or not vp.startswith("g"):
+                # only ghosts are actionable
+                ended[i] = True
+                env.stop(i)
+                continue
+            front_dis, front_vp = gmap.front_to_ghost_dist(vp)
+            target_pos = gmap.ghost_mean_pos[vp].copy()
+            if use_control:
+                # back to the front node along the map, then low-level
+                # control to the ghost (ref environments.py:449-460)
+                log_move(i, ctrl.execute(i, {
+                    "act": 4, "back_path": back_path_to(front_vp),
+                    "front_pos": gmap.node_pos[front_vp], "ghost_pos": target_pos,
+                    "tryout": cfg.ce_tryout,
+                }))
+            else:
+                # through the front node, then to the ghost
+                if front_vp != cur_vp:
+                    log_move(i, [gmap.node_pos[front_vp].copy()])
+                heading = math.atan2(
+                    -(target_pos[0] - gmap.node_pos[front_vp][0]),
+                    -(target_pos[2] - gmap.node_pos[front_vp][2]),
+                ) % (2 * math.pi)
+                env.teleport(i, target_pos, heading)
+                log_move(i, [target_pos.copy()])
+            gmap.delete_ghost(vp)
+
+    # ------------------------------------------------------ data parallelism
+    def _augment_ghosts(self, gmaps, ended) -> None:
+        """The ghost noise of a step, drawn as the one process draws it: row
+        by row over the global rows, one ``normal(0, ghost_aug, 3)`` per
+        ghost of each row's map that was updated; each rank applies its own
+        rows' draws (an ended row's map was not updated and keeps its
+        ghosts)."""
+        counts = np.array([0 if ended[i] else len(g.ghost_mean_pos) for i, g in enumerate(gmaps)])
+        b = len(gmaps)
+        for row, n in enumerate(self._global_rows(counts)):
+            draws = [self.np_rng.normal(0.0, self.ghost_aug, 3) for _ in range(n)]
+            i = row - self.rank * b
+            if 0 <= i < b and not ended[i]:
+                gmaps[i].augment_ghosts(iter(draws))
+
+    def _in_rank_turns(self, ctrl: LowLevelController, act) -> None:
+        """``act()`` (this rank's low-level moves) with the tryout coins the
+        one process would give these rows: the ranks take turns in rank
+        order, each drawing from one copy of ``np_rng`` after the coins that
+        the ranks before it drew; then every rank's ``np_rng`` stands where
+        the copy does."""
+        coins = copy.deepcopy(self.np_rng)
+        for turn in range(self.world):
+            n = 0
+            if turn == self.rank:
+                ctrl.rng = counted = _CountedCoins(coins)
+                try:
+                    act()
+                finally:
+                    ctrl.rng = self.np_rng
+                n = counted.n
+            n = distributed.all_gather_objects(n)[turn]
+            if turn != self.rank:
+                for _ in range(n):
+                    coins.choice([True, False])
+        self.np_rng.bit_generator.state = coins.bit_generator.state
+
     # ------------------------------------------------------------------ eval
     def evaluate(self, num_batches: int = 2) -> Dict[str, float]:
         """Mean episode metrics of ``num_batches`` greedy rollouts from the
-        start of the env's split."""
+        start of the env's split, over every rank's episodes in the one
+        process's order (batch by batch, rank by rank)."""
         self.env.reset_epoch()
-        metrics = []
+        batches = []
         for _ in range(num_batches):
             trajs, _ = self.rollout(feedback="argmax", train=False)
-            for i, tr in enumerate(trajs):
-                metrics.append(self.env.eval_episode(i, tr["positions"]))
+            batches.append([self.env.eval_episode(i, tr["positions"])
+                            for i, tr in enumerate(trajs)])
+        ranks = distributed.all_gather_objects(batches)
+        metrics = [m for n in range(num_batches) for mine in ranks for m in mine[n]]
         return {k: float(np.mean([m[k] for m in metrics])) for k in metrics[0]}
+
+
+class _CountedCoins:
+    """The controller's tryout coins from ``rng``, counted."""
+
+    def __init__(self, rng: np.random.Generator):
+        self.rng, self.n = rng, 0
+
+    def choice(self, options):
+        self.n += 1
+        return self.rng.choice(options)

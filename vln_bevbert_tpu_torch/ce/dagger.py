@@ -45,6 +45,7 @@ from ..geometry import angle_features
 from ..models.bert import Dense, LayerNorm, init_params
 from ..models.legacy import RecurrentVLNBert, prevalent_to_state_dict
 from ..ops.dropout import Dropout, set_dropout_generator
+from ..parallel import distributed
 from ..parallel.optim import finetune_optim
 from ..parallel.train_step import TrainState, load_checkpoint, save_checkpoint
 from ..utils.device import to_device
@@ -131,11 +132,22 @@ def _bucket_language(encodings) -> Tuple[np.ndarray, np.ndarray]:
     return ids, masks
 
 
+#: why PREVALENT DAgger refuses a process group of more than one rank
+PREVALENT_WORLD_ONE = (
+    "PREVALENT DAgger runs in one process: JAX builds it without a mesh and trains the "
+    "global batch on one device, its episode store mixing every row into each BPTT batch. "
+    "Run it at world size 1 with --batch_size W*b, which computes what W ranks of b rows "
+    "would.")
+
+
 class PrevalentDaggerAgent:
-    """Collects episodes and trains the PREVALENT policy in the CE env."""
+    """Collects episodes and trains the PREVALENT policy in the CE env, in
+    one process (a process group of more than one rank is refused)."""
 
     def __init__(self, cfg: FinetuneConfig, env, seed: int = 0, max_candidates: int = 5,
                  grad_norm: float = 40.0, device="cuda"):
+        if distributed.world_size() > 1:
+            raise RuntimeError(PREVALENT_WORLD_ONE)
         # grad_norm 40: ref dagger_trainer.py:458 clips the VLNBERT branch at
         # 40 (the glocal trainers clip at 5)
         self.cfg = cfg
@@ -392,7 +404,9 @@ def run_dagger(agent, store_dir: str, *, policy: str, dagger_iters: int = 3,
     ``agent`` is a PrevalentDaggerAgent (policy 'prevalent') or a glocal
     CEAgent (policy 'bev' or 'etp', collected through the
     TeacherRecollectionStore, which spills every bundle to ``store_dir`` and
-    trains through ``learn_from_bundle``)."""
+    trains through ``learn_from_bundle``). The rollouts per iteration and
+    ``collected`` count episodes of the env's global batch (under data
+    parallelism a rank's env holds a share of its rows)."""
     history: Dict[str, Any] = {"collected": [], "losses": [], "betas": []}
     if policy == "prevalent":
         store = DaggerEpisodeStore(store_dir, capacity=capacity)

@@ -39,7 +39,13 @@ class SyntheticContinuousEnv:
     """Open-plane world: geodesic == euclidean; per-pose sensor features are
     deterministic functions of (episode, position) so rollouts are
     reproducible. One instance manages B episode slots (the reference's
-    VectorEnv role)."""
+    VectorEnv role).
+
+    Under data parallelism rank ``rank`` of ``world`` holds b = B / world
+    slots: ``reset`` cycles the global batch of ``batch_size`` episodes and
+    keeps its rows ``[rank * b, (rank + 1) * b)`` (``nav/env.py``'s
+    ``R2RNavBatch`` does the same). The sensors key on the episode and the
+    position, not the slot, so a row draws what it draws in the global env."""
 
     def __init__(
         self,
@@ -52,9 +58,15 @@ class SyntheticContinuousEnv:
         depth_feat_shape=(128, 4, 4),
         seed: int = 0,
         obstacles: Optional[Sequence] = None,
+        rank: int = 0,
+        world: int = 1,
     ):
+        if batch_size % world or not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of {world} cannot hold a share of batch {batch_size}")
         self.episodes = list(episodes)
         self.batch_size = batch_size
+        self.rank, self.world = rank, world
+        slots = batch_size // world
         self.num_views = num_views
         self.grid_hw = grid_hw
         self.grid_feat_size = grid_feat_size
@@ -63,9 +75,9 @@ class SyntheticContinuousEnv:
         self.rng = np.random.default_rng(seed)
         self.ix = 0
         self.batch: List[CEEpisode] = []
-        self.positions = np.zeros((batch_size, 3))
-        self.headings = np.zeros(batch_size)
-        self.active = np.zeros(batch_size, bool)
+        self.positions = np.zeros((slots, 3))
+        self.headings = np.zeros(slots)
+        self.active = np.zeros(slots, bool)
         # low-level control surface (habitat defaults: TURN 30deg, FWD 0.25m)
         self.turn_unit = math.radians(30.0)
         self.forward_unit = 0.25
@@ -74,7 +86,7 @@ class SyntheticContinuousEnv:
             np.asarray(obstacles, np.float64).reshape(-1, 3)
             if obstacles is not None else np.zeros((0, 3))
         )
-        self._collided = np.zeros(batch_size, bool)
+        self._collided = np.zeros(slots, bool)
 
     def size(self) -> int:
         return len(self.episodes)
@@ -99,7 +111,8 @@ class SyntheticContinuousEnv:
             batch = batch + self.episodes[: self.ix]
         else:
             self.ix += self.batch_size
-        self.batch = batch
+        b = self.batch_size // self.world
+        self.batch = batch = batch[self.rank * b:(self.rank + 1) * b]
         for i, ep in enumerate(batch):
             self.positions[i] = ep.start_pos
             self.headings[i] = ep.start_heading

@@ -24,7 +24,7 @@ CUDA state of the parent is inherited.
 from __future__ import annotations
 
 import multiprocessing as mp
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -81,11 +81,15 @@ class SubprocVectorEnv:
     env. ``factories`` build one inner env per worker (episodes pre-split
     by the caller, mirroring env_utils' scene split)."""
 
-    def __init__(self, factories: Sequence[Callable[[], Any]], slots_per_worker: int):
+    def __init__(self, factories: Sequence[Callable[[], Any]], slots_per_worker: int,
+                 batch_size: Optional[int] = None, split_size: Optional[int] = None):
         """Workers are spawned in fresh interpreters: once torch has
         initialised CUDA in the parent, a forked child cannot use the parent's
         CUDA context, and fork of a multithreaded process can deadlock.
-        Factories must therefore be picklable."""
+        Factories must therefore be picklable. A data-parallel rank's pool
+        hosts some of the workers of the global pool: ``batch_size`` and
+        ``split_size`` are then the global pool's batch and episode count
+        (by default its own)."""
         ctx = mp.get_context("spawn")
         self.workers: List[WorkerHandle] = []
         for factory in factories:
@@ -97,7 +101,8 @@ class SubprocVectorEnv:
             child.close()
             self.workers.append(WorkerHandle(proc, parent, slots_per_worker))
         self.slots_per_worker = slots_per_worker
-        self.batch_size = slots_per_worker * len(self.workers)
+        self.batch_size = batch_size or slots_per_worker * len(self.workers)
+        self._split_size = split_size
         # mirror static attrs from worker 0's env
         for name in ("num_views", "grid_hw", "grid_feat_size",
                      "view_feat_size", "depth_feat_shape", "turn_unit",
@@ -142,7 +147,9 @@ class SubprocVectorEnv:
 
     # ------------------------------------------------------------- surface
     def size(self) -> int:
-        return sum(self._call_all("size"))
+        """The split's episode count (the global pool's, on a rank)."""
+        own = sum(self._call_all("size"))
+        return self._split_size or own
 
     def reset_epoch(self):
         self._call_all("reset_epoch")
@@ -219,14 +226,27 @@ class _SyntheticEnvFactory:
 
 
 def make_synthetic_pool(episodes, num_workers: int, slots_per_worker: int,
-                        seed: int = 0, **env_kwargs) -> SubprocVectorEnv:
+                        seed: int = 0, rank: int = 0, world: int = 1,
+                        **env_kwargs) -> SubprocVectorEnv:
     """Split episodes across workers (strided, like env_utils' scene split)
     and build a SubprocVectorEnv of SyntheticContinuousEnv workers;
-    ``env_kwargs`` go to every worker's env."""
+    ``env_kwargs`` go to every worker's env.
+
+    ``num_workers`` is the global pool's. Under data parallelism rank
+    ``rank`` of ``world`` hosts workers ``[rank * n, (rank + 1) * n)``, n =
+    ``num_workers / world``, each with its own episodes, seed and slots, so
+    that its rows are the global pool's rows of those workers (slots lie in
+    worker order)."""
+    if num_workers % world or not 0 <= rank < world:
+        raise ValueError(f"rank {rank} of {world} cannot host a share of {num_workers} "
+                         "env workers")
     episodes = list(episodes)
+    subsets = [episodes[w::num_workers] or episodes for w in range(num_workers)]
+    n = num_workers // world
     factories = [
-        _SyntheticEnvFactory(episodes[w::num_workers] or episodes, slots_per_worker,
-                             seed + w, env_kwargs)
-        for w in range(num_workers)
+        _SyntheticEnvFactory(subsets[w], slots_per_worker, seed + w, env_kwargs)
+        for w in range(rank * n, (rank + 1) * n)
     ]
-    return SubprocVectorEnv(factories, slots_per_worker)
+    return SubprocVectorEnv(factories, slots_per_worker,
+                            batch_size=slots_per_worker * num_workers,
+                            split_size=sum(len(s) for s in subsets))

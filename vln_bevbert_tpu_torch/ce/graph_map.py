@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 from copy import deepcopy
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -92,8 +92,10 @@ class CEGraphMap:
 
     # --------------------------------------------------------------- update
     def update_graph(self, prev_vp, step_id, cur_vp, cur_pos, cur_embeds,
-                     cand_vp, cand_pos, cand_embeds, cand_real_pos=None):
-        """(ref graph_utils.py:198-262)."""
+                     cand_vp, cand_pos, cand_embeds, cand_real_pos=None,
+                     augment: bool = True):
+        """(ref graph_utils.py:198-262). ``augment`` False leaves the ghosts
+        unnoised: the caller then calls ``augment_ghosts`` with the draws."""
         cur_pos = np.asarray(cur_pos, np.float64)
         if prev_vp is not None:
             self.graph.add_edge(prev_vp, cur_vp, _dist(self.node_pos[prev_vp], cur_pos))
@@ -131,17 +133,26 @@ class CEGraphMap:
                     self.ghost_real_pos[gvp].append(np.asarray(cand_real_pos[i]))
             assignments.append(gvp)
 
-        # position-noise augmentation of ghost positions (training only)
-        self.ghost_aug_pos = deepcopy(self.ghost_mean_pos)
-        if self.ghost_aug:
-            for gvp, gpos in self.ghost_aug_pos.items():
-                noise = self.rng.normal(0.0, self.ghost_aug, 3)
-                noise[1] = 0.0
-                noise = np.clip(noise, -self.ghost_aug, self.ghost_aug)
-                self.ghost_aug_pos[gvp] = gpos + noise
+        if augment:
+            self.augment_ghosts()
+        else:
+            self.ghost_aug_pos = deepcopy(self.ghost_mean_pos)
 
         self.graph.update(cur_vp)
         return assignments
+
+    def augment_ghosts(self, draws: Optional[Iterator[np.ndarray]] = None) -> None:
+        """Position-noise augmentation of the ghosts (training only): one
+        ``normal(0, ghost_aug, 3)`` per ghost, in ghost order, from
+        ``self.rng`` or the next of ``draws``."""
+        self.ghost_aug_pos = deepcopy(self.ghost_mean_pos)
+        if self.ghost_aug:
+            for gvp, gpos in self.ghost_aug_pos.items():
+                noise = (self.rng.normal(0.0, self.ghost_aug, 3) if draws is None
+                         else next(draws))
+                noise[1] = 0.0
+                noise = np.clip(noise, -self.ghost_aug, self.ghost_aug)
+                self.ghost_aug_pos[gvp] = gpos + noise
 
     # --------------------------------------------------------------- queries
     def front_to_ghost_dist(self, ghost_vp: str) -> Tuple[float, str]:

@@ -40,12 +40,19 @@ import numpy as np
 class HabitatContinuousEnv:
     def __init__(self, habitat_config, episodes: Sequence, batch_size: int = 1,
                  clip_encoder=None, depth_encoder=None,
-                 num_views: int = 12, grid_hw: int = 14):
+                 num_views: int = 12, grid_hw: int = 14, rank: int = 0, world: int = 1):
+        """Under data parallelism rank ``rank`` of ``world`` builds b =
+        ``batch_size / world`` simulators: ``reset`` cycles the global batch
+        and keeps the rank's rows ``[rank * b, (rank + 1) * b)``."""
         import habitat  # external
 
+        if batch_size % world or not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of {world} cannot hold a share of batch {batch_size}")
         self._habitat = habitat
+        self.rank, self.world = rank, world
+        slots = batch_size // world
         self.envs = [
-            habitat.Env(config=habitat_config) for _ in range(batch_size)
+            habitat.Env(config=habitat_config) for _ in range(slots)
         ]
         self.episodes = list(episodes)
         self.batch_size = batch_size
@@ -66,8 +73,8 @@ class HabitatContinuousEnv:
         # (habitat_extensions/nav.py: TURN 30deg units, 0.25m forward)
         self.turn_unit = math.radians(30.0)
         self.forward_unit = 0.25
-        self.active = np.ones(batch_size, bool)
-        self._collided = np.zeros(batch_size, bool)
+        self.active = np.ones(slots, bool)
+        self._collided = np.zeros(slots, bool)
 
     # The methods below intentionally mirror SyntheticContinuousEnv's
     # surface (conformance pinned in tests/test_binding_conformance.py);
@@ -80,8 +87,15 @@ class HabitatContinuousEnv:
         self.ix = 0
 
     def reset(self) -> List[dict]:
-        self.batch = self.episodes[self.ix : self.ix + self.batch_size]
+        batch = self.episodes[self.ix : self.ix + self.batch_size]
+        if self.world > 1 and len(batch) < self.batch_size:
+            # one process runs a short last batch; ranks would hold uneven rows
+            raise ValueError(f"a short batch of {len(batch)} of {self.batch_size} episodes at "
+                             f"{self.ix}: under data parallelism the split's "
+                             f"{len(self.episodes)} episodes must fill every global batch")
         self.ix = (self.ix + self.batch_size) % max(len(self.episodes), 1)
+        b = self.batch_size // self.world
+        self.batch = batch[self.rank * b:(self.rank + 1) * b]
         for i, (env, ep) in enumerate(zip(self.envs, self.batch)):
             env.current_episode = ep
             env.reset()
@@ -283,7 +297,7 @@ class HabitatContinuousEnv:
 def make_habitat_env(habitat_config_path: str, batch_size: int, *,
                      data_path: Optional[str] = None, split: str = "train",
                      clip_encoder=None, depth_encoder=None,
-                     num_views: int = 12, grid_hw: int = 14
+                     num_views: int = 12, grid_hw: int = 14, rank: int = 0, world: int = 1
                      ) -> "HabitatContinuousEnv":
     """Construct the real CE env from a habitat config YAML, the entry the
     CLI's ``--habitat_config`` flag drives (role of the reference's
@@ -293,7 +307,8 @@ def make_habitat_env(habitat_config_path: str, batch_size: int, *,
     ``data_path``/``split`` override TASK_CONFIG.DATASET (the reference's
     ``DATA_PATH`` with a {split} template); episodes come from habitat's own
     dataset registry so they carry scene ids and habitat goal/instruction
-    objects, which this binding's observation assembly expects.
+    objects, which this binding's observation assembly expects. ``rank``
+    and ``world`` give a data-parallel rank its rows of the global batch.
     """
     import habitat  # external
 
@@ -308,5 +323,5 @@ def make_habitat_env(habitat_config_path: str, batch_size: int, *,
     return HabitatContinuousEnv(
         config, dataset.episodes, batch_size=batch_size,
         clip_encoder=clip_encoder, depth_encoder=depth_encoder,
-        num_views=num_views, grid_hw=grid_hw,
+        num_views=num_views, grid_hw=grid_hw, rank=rank, world=world,
     )

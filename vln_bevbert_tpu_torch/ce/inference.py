@@ -13,6 +13,10 @@ Re-designs the reference's leaderboard writers and multi-checkpoint eval:
   common/base_il_trainer.py:774-890, ss_trainer_BEV.py:752-759). The port's
   checkpoints are single torch files (``ckpt_<step>``), where the JAX
   package's are orbax directories, so it lists the ``ckpt*`` files.
+
+Under data parallelism every rank rolls out its rows; the episodes of every
+rank are merged before anything is scored or written, the loop ends on all
+ranks after the same batch, and only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -24,10 +28,14 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..parallel import distributed
+
 
 def collect_predictions(agent, max_batches: Optional[int] = None) -> Dict[str, List[dict]]:
     """Argmax rollouts until every episode in the env's split is covered
-    (episode-dedup as in ss_trainer_BEV.py:975-979 pause-envs)."""
+    (episode-dedup as in ss_trainer_BEV.py:975-979 pause-envs), over every
+    rank's rows: each batch's episodes are gathered from all ranks, in rank
+    order, so every rank holds the one process's ``path_eps``."""
     env = agent.env
     env.reset_epoch()
     path_eps: Dict[str, List[dict]] = {}
@@ -35,13 +43,13 @@ def collect_predictions(agent, max_batches: Optional[int] = None) -> Dict[str, L
     n_batches = 0
     while len(path_eps) < n_target:
         trajs, _ = agent.rollout(feedback="argmax", train=False)
-        for tr in trajs:
-            if tr["instr_id"] in path_eps:
-                continue
-            path_eps[tr["instr_id"]] = [
-                {"position": np.asarray(p, np.float64).tolist(), "heading": float(h)}
-                for p, h in zip(tr["positions"], tr["headings"])
-            ]
+        mine = [(tr["instr_id"], [
+            {"position": np.asarray(p, np.float64).tolist(), "heading": float(h)}
+            for p, h in zip(tr["positions"], tr["headings"])
+        ]) for tr in trajs]
+        for rank_eps in distributed.all_gather_objects(mine):
+            for instr_id, path in rank_eps:
+                path_eps.setdefault(instr_id, path)
         n_batches += 1
         if max_batches and n_batches >= max_batches:
             break
@@ -79,7 +87,10 @@ def run_inference(
     inst_ids: Optional[Dict[str, int]] = None,
     max_batches: Optional[int] = None,
 ) -> Dict[str, List[dict]]:
+    """Write the split's predictions (rank 0 only); every rank returns them."""
     path_eps = collect_predictions(agent, max_batches=max_batches)
+    if not distributed.is_primary():
+        return path_eps
     if task_type == "r2r":
         write_r2rce_predictions(path_eps, predictions_file)
     else:
@@ -103,8 +114,11 @@ def evaluate_checkpoint_dir(
     num_batches: int = 2,
 ) -> Dict[str, Dict[str, float]]:
     """Evaluate every checkpoint under ``ckpt_dir`` in step order; skip ones
-    whose stats json already exists. Returns {ckpt_name: metrics}."""
-    os.makedirs(out_dir, exist_ok=True)
+    whose stats json already exists. Returns {ckpt_name: metrics}. Rank 0
+    reads and writes the stats files, and every rank takes its stats."""
+    primary = distributed.is_primary()
+    if primary:
+        os.makedirs(out_dir, exist_ok=True)
     ckpts = sorted(
         (
             f for f in os.listdir(ckpt_dir)
@@ -115,13 +129,18 @@ def evaluate_checkpoint_dir(
     results = {}
     for name in ckpts:
         stats_file = os.path.join(out_dir, f"stats_{name}_{split}.json")
-        if os.path.exists(stats_file):
+        cached = None
+        if primary and os.path.exists(stats_file):
             with open(stats_file) as f:
-                results[name] = json.load(f)
+                cached = json.load(f)
+        cached = distributed.all_gather_objects(cached)[0]  # rank 0's decides
+        if cached is not None:
+            results[name] = cached
             continue
         agent.restore_ckpt(os.path.join(ckpt_dir, name), with_opt=False)
         metrics = agent.evaluate(num_batches=num_batches)
-        with open(stats_file, "w") as f:
-            json.dump(metrics, f, indent=2)
+        if primary:
+            with open(stats_file, "w") as f:
+                json.dump(metrics, f, indent=2)
         results[name] = metrics
     return results

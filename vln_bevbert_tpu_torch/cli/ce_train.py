@@ -51,6 +51,19 @@ CLI turns TF32 off for cuDNN convolutions (PyTorch's default is on) and for
 matmuls. ``--clip_ckpt``/``--ddppo_ckpt`` without ``--habitat_config``, and
 ``--habitat_config`` with ``--num_env_workers``, are refused as the JAX CLI
 refuses them.
+
+Data parallelism, one process per card:
+
+    torchrun --nproc_per_node W -m vln_bevbert_tpu_torch.cli.ce_train --batch_size b ...
+
+joins the process group (NCCL for ``cuda``, gloo for ``cpu``); ``--batch_size``
+is per rank and the global batch is W * b, as JAX's per-chip batch times its
+device count. Each rank's env holds its rows of the global batch (with
+``--num_env_workers N``, N is the global pool's worker count and W must
+divide it), the ranks compute what one process computes at W * b rows, and
+rank 0 alone writes checkpoints, logs, stats and predictions. The PREVALENT
+policy (``--trainer dagger --policy prevalent``) is refused at W > 1: run it
+at world size 1 with ``--batch_size W*b``.
 """
 
 from __future__ import annotations
@@ -62,11 +75,12 @@ import numpy as np
 import torch
 
 from ..ce.agent import CEAgent
-from ..ce.dagger import PrevalentDaggerAgent, run_dagger
+from ..ce.dagger import PREVALENT_WORLD_ONE, PrevalentDaggerAgent, run_dagger
 from ..ce.env import SyntheticContinuousEnv, make_synthetic_ce_episodes
 from ..configs import FinetuneConfig, load_config
+from ..parallel import distributed
 from ..parallel.train_step import load_checkpoint
-from ..utils.logging import MetricLogger
+from ..utils.logging import make_logger
 from .finetune import resolve_device
 
 
@@ -227,7 +241,9 @@ def build_env(cfg: FinetuneConfig, args, clip_encoder=None, depth_encoder=None):
     synthetic episodes, or over the episodes of ``--data_path`` (with
     ``--gt_path``'s dense paths); with ``--num_env_workers N`` a pool of N
     spawned workers, each with ``batch_size / N`` slots over every N-th
-    episode."""
+    episode. In a process group each env holds the rank's rows of the
+    global batch ``cfg.batch_size`` (a pool, the rank's N / W workers)."""
+    dp = {"rank": distributed.rank(), "world": distributed.world_size()}
     if args.habitat_config:
         if args.num_env_workers > 0:
             raise SystemExit(
@@ -239,7 +255,7 @@ def build_env(cfg: FinetuneConfig, args, clip_encoder=None, depth_encoder=None):
         return make_habitat_env(
             args.habitat_config, batch_size=cfg.batch_size, data_path=args.data_path,
             split=args.habitat_split, clip_encoder=clip_encoder, depth_encoder=depth_encoder,
-            grid_hw=cfg.shapes.grid_hw)
+            grid_hw=cfg.shapes.grid_hw, **dp)
     if args.data_path:
         from ..ce.dataset import (apply_gt_paths, load_gt_paths, load_rxr_episodes,
                                   load_vlnce_episodes)
@@ -257,13 +273,15 @@ def build_env(cfg: FinetuneConfig, args, clip_encoder=None, depth_encoder=None):
     if args.num_env_workers > 0:
         from ..ce.env_pool import make_synthetic_pool
 
-        if cfg.batch_size % args.num_env_workers:
+        if cfg.batch_size % args.num_env_workers or args.num_env_workers % dp["world"]:
             raise SystemExit(f"--num_env_workers {args.num_env_workers} must divide the batch "
-                             f"size {cfg.batch_size}")
+                             f"size {cfg.batch_size} and be divisible by the world size "
+                             f"{dp['world']}")
         return make_synthetic_pool(
             episodes, num_workers=args.num_env_workers,
-            slots_per_worker=cfg.batch_size // args.num_env_workers, seed=cfg.seed, **env_kwargs)
-    return SyntheticContinuousEnv(episodes, batch_size=cfg.batch_size, seed=cfg.seed,
+            slots_per_worker=cfg.batch_size // args.num_env_workers, seed=cfg.seed, **dp,
+            **env_kwargs)
+    return SyntheticContinuousEnv(episodes, batch_size=cfg.batch_size, seed=cfg.seed, **dp,
                                   **env_kwargs)
 
 
@@ -273,8 +291,10 @@ def build(args):
     The glocal agent's parameters are random from the seed or, with
     ``--pretrain_ckpt``, transferred from that checkpoint
     (``agent.transferred`` counts the entries taken). A pool's workers are
-    stopped if the agent cannot be built."""
-    device = resolve_device(args.device)
+    stopped if the agent cannot be built. Under a launcher it joins the
+    process group first and ``cfg.batch_size`` becomes the global batch, per
+    rank times the world size (JAX ``cli/ce_train.py:187-195``)."""
+    device = distributed.initialize(resolve_device(args.device))
     # bf16 GEMMs accumulate in float32 end to end, as the JAX einsums do, and
     # float32 convolutions and GEMMs (the frozen towers) stay strict float32:
     # cuDNN's default is TF32
@@ -287,7 +307,10 @@ def build(args):
         # the glocal pretraining checkpoint
         raise SystemExit("--pretrain_ckpt is the glocal pretrain tree; the prevalent policy "
                          "loads torch weights via models.legacy.prevalent_to_tree instead")
+    if prevalent and distributed.world_size() > 1:
+        raise SystemExit(PREVALENT_WORLD_ONE)
     cfg = make_config(args)
+    cfg.batch_size *= distributed.world_size()
     wp_params, clip_encoder, depth_encoder = build_frozen(args, device)
     env = build_env(cfg, args, clip_encoder, depth_encoder)
     try:
@@ -319,8 +342,8 @@ def main(argv=None):
     iterations), run DAgger (``--trainer dagger``), evaluate (``--run_type
     eval`` / ``--test``) or write predictions (``--run_type inference``).
     Returns the last metrics by name, DAgger's history, {checkpoint: metrics}
-    for a checkpoint directory, or the predictions. A pool's workers are
-    stopped on every way out."""
+    for a checkpoint directory, or the predictions (on every rank). A
+    pool's workers are stopped on every way out."""
     args = parse_args(argv)
     cfg, agent = build(args)
     try:
@@ -330,8 +353,16 @@ def main(argv=None):
 
 
 def run(args, cfg: FinetuneConfig, agent):
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    logger = MetricLogger(cfg.output_dir)
+    primary = distributed.is_primary()
+    if primary:
+        os.makedirs(cfg.output_dir, exist_ok=True)
+    logger = make_logger(cfg.output_dir, primary)
+
+    def save(name: str) -> None:
+        if primary:
+            agent.save_ckpt(os.path.join(cfg.output_dir, name))
+        distributed.barrier()
+
     if getattr(agent, "transferred", None) is not None:
         logger.log(0, {"pretrain/transferred": agent.transferred,
                        "pretrain/params": len(agent.model.state_dict())})
@@ -341,7 +372,7 @@ def run(args, cfg: FinetuneConfig, agent):
             agent, args.store_dir or os.path.join(cfg.output_dir, "store"), policy=args.policy,
             dagger_iters=args.dagger_iters, update_size=args.update_size, p=args.dagger_p,
             epochs=args.dagger_epochs, capacity=args.store_capacity, log_fn=logger.log)
-        agent.save_ckpt(os.path.join(cfg.output_dir, "ckpt_dagger"))
+        save("ckpt_dagger")
         return history
 
     if args.run_type == "eval" or args.test:
@@ -363,7 +394,8 @@ def run(args, cfg: FinetuneConfig, agent):
             agent.restore_ckpt(args.ckpt_path_dir, with_opt=False)
         out = os.path.join(cfg.output_dir, args.predictions_file)
         path_eps = run_inference(agent, out, task_type=args.task_type)
-        print(f"wrote {out}", flush=True)
+        if primary:
+            print(f"wrote {out}", flush=True)
         return path_eps
 
     ratio = args.sample_ratio
@@ -386,9 +418,10 @@ def run(args, cfg: FinetuneConfig, agent):
             "train/sample_ratio": ratio,
             **{f"eval/{k}": v for k, v in metrics.items()},
         })
-        agent.save_ckpt(os.path.join(cfg.output_dir, f"ckpt_{done}"))
+        save(f"ckpt_{done}")
     return metrics
 
 
 if __name__ == "__main__":
     main()
+    distributed.shutdown()

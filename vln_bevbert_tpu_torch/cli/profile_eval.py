@@ -57,10 +57,14 @@ def timed_rollout(agent) -> float:
 
 
 def device_busy_us(events) -> float:
-    """Length of the union of the device-side event intervals (us)."""
+    """Length of the union of the device-side kernel and copy intervals
+    (us). A ``record_function`` span also lands on the device's timeline,
+    as a user annotation from its first kernel to its last: it is left
+    out."""
     spans = sorted(
         (e.time_range.start, e.time_range.end) for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
     )
     busy, reach = 0.0, float("-inf")
     for start, end in spans:

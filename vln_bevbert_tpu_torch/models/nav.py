@@ -1,21 +1,45 @@
-"""Navigation-time model (port of ``vln_bevbert_tpu/models/nav.py:51-183``):
-a mode-dispatched per-step model, 'language' once per episode, 'panorama'
-and 'navigation' once per action step. The pretraining backbone is the
-``bert`` submodule, as in the JAX package. ``Critic`` is not ported yet.
+"""Navigation-time model (port of ``vln_bevbert_tpu/models/nav.py``): a
+mode-dispatched per-step model, 'language' once per episode, 'panorama' and
+'navigation' once per action step. The pretraining backbone is the ``bert``
+submodule, as in the JAX package. ``Critic`` is the state-value head.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
+import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..configs import ModelConfig
+from ..ops.dropout import Dropout
 from ..ops.masking import masked_fill_neg
-from .bert import TwoLayerHead
+from .bert import Dense, TwoLayerHead
 from .glocal import GlocalTextPathCMT, sap_logits
 
 Batch = Dict[str, Any]
+
+
+class Critic(nn.Module):
+    """State-value head (ref map_nav_src/models/model.py:41-55; constructed
+    by the reference agent for RL fine-tuning, unused under pure IL):
+    Dropout -> fc1 (512) + ReLU -> Dropout -> fc2 (1), squeezed. Both
+    dropouts are the port's ``Dropout``, the seeded dropout kernel on the
+    card in training mode. ``in_features`` is the state's width (flax infers
+    it; by default the hidden size)."""
+
+    def __init__(self, cfg: ModelConfig, in_features: Optional[int] = None,
+                 dropout: float = 0.5, device=None):
+        super().__init__()
+        self.drop_state = Dropout(dropout, site="critic_state")
+        self.fc1 = Dense(cfg, in_features or cfg.hidden_size, 512, device)
+        self.drop_hidden = Dropout(dropout, site="critic_hidden")
+        self.fc2 = Dense(cfg, 512, 1, device)
+
+    def forward(self, state: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.fc1(self.drop_state(state)))
+        return self.fc2(self.drop_hidden(x))[..., 0]
 
 
 class GlocalTextPathNavCMT(nn.Module):

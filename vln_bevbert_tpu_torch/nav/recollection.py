@@ -17,6 +17,11 @@ only filenames.
 A bundle keeps the JAX bundle's keys and numpy dtypes. The one device tensor
 of a record, its splatted ``bev_fts``, is stacked on the device and copied to
 the host as a float32 array (the splat's output dtype), in RAM as on disk.
+
+Under data parallelism each rank's store holds its own rows of every bundle,
+spilled under ``<spill_dir>/rank<r>``; the ranks shuffle alike (their
+``np_rng`` stays in step) and every update goes through
+``learn_from_bundle``'s gradient all-reduce.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel import distributed
 from ..utils.npz_store import NpzShardStore
 
 Bundle = Dict[str, np.ndarray]
@@ -37,6 +43,8 @@ class TeacherRecollectionStore:
     def __init__(self, agent, capacity: int = 1024, spill_dir: Optional[str] = None):
         self.agent = agent
         self.capacity = capacity
+        if spill_dir and distributed.world_size() > 1:
+            spill_dir = os.path.join(spill_dir, f"rank{distributed.rank()}")
         self.spill_dir = spill_dir
         # in-RAM bundle list, or the shared FIFO shard store when spilled
         self.bundles: List[Bundle] = []

@@ -12,6 +12,11 @@ import torch
 NEG_INF = -10000.0
 
 
+def seq_mask(lens: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(B,) int lengths -> (B, max_len) bool validity mask."""
+    return torch.arange(max_len, device=lens.device)[None, :] < lens[:, None]
+
+
 def attn_bias(mask: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(B, L) bool key mask -> (B, 1, 1, L) additive bias (0 valid / NEG_INF pad).
 

@@ -192,6 +192,19 @@ class DeviceClipEncoder:
         self.grid_hw = grid_hw
         self.feat_size = self.tower.hidden_size
 
+    @classmethod
+    def from_hf(cls, model_name: str = "openai/clip-vit-base-patch16", **kw):
+        """The tower of a HuggingFace ``CLIPVisionModel``, a model directory
+        or a name read from transformers' local cache only (no download);
+        ``kw`` go to the constructor (``grid_hw``, ``device``)."""
+        from transformers import CLIPVisionModel
+
+        from ..models.clip import hf_clip_to_state_dict
+
+        hf = CLIPVisionModel.from_pretrained(model_name, local_files_only=True)
+        return cls(hf_clip_to_state_dict({k: v.detach().numpy()
+                                          for k, v in hf.state_dict().items()}), **kw)
+
     def forward(self, imgs: np.ndarray) -> dict:
         """(N, H, W, 3) uint8 frames -> the tower's outputs on the device."""
         from ..models.clip import preprocess
