@@ -38,11 +38,27 @@ one line and a failing phase raises, so the script exits non-zero:
              action must match the plain version's;
 6. train   - the pretraining path (``cli.pretrain --synthetic --seed 16``),
              B=16, then its checkpoint; seed 16's schedule runs each of mlm,
-             sap and masksem eight times in 24 steps; the kernels' launch
-             counts must equal the dropout calls (forward and backward) and
-             the ``prepare_bev`` calls; losses and gradient norms finite;
-             ms/step per task, samples/s weighted by the configured task mix,
-             peak memory;
+             sap and masksem eight times in 24 steps, as three blocks
+             (``task_block_size`` 8): every step a replay of a CUDA graph
+             of the whole step (lift-splat, forward, backward, clip, AdamW),
+             one graph captured per task; the kernels' launch counts (kept
+             by the kernels on the device, so they count what ran) must
+             equal the dropout calls (forward and backward) and the
+             ``prepare_bev`` calls, a replay counting the calls its capture
+             made and a capture's warm-up its own; losses and gradient norms
+             finite; the blocks, graphs, capture seconds and replays; ms/step
+             per task (CUDA events around each replay), samples/s weighted by
+             the configured task mix, peak memory; then one more block traced
+             (``utils/profiling.trace``): the device's busy share;
+   block   - from one state (two such trainers from seed 16), one 8-step
+             block of each task as graph replays and the same steps run
+             eagerly (``step_fn``): the dropout generators end equal (the
+             same seeds drawn), every step's loss within 1e-3 relative, the
+             parameters within 1e-9 relative L2 and their movement from the
+             start within 1e-4 of the eager movement; a cached block
+             launches the splat and dropout kernels as often as the same
+             steps run eagerly; wall ms per step in arms eager / graphed / graphed /
+             eager; a graphed and an eager block traced: busy shares;
    validate - that checkpoint restored at ``PretrainConfig()`` defaults,
              ``validate(24, num_batches=8)`` over mlm, sap and masksem: splat
              launches = 24 ``eval_step`` + 8 ``sem_predictions``, no dropout
@@ -59,8 +75,8 @@ one line and a failing phase raises, so the script exits non-zero:
              each) and ``configs/rxr_pretrain.json`` (XLM-R's 250002-row
              vocabulary; 24 steps, seed 16: 8 of each task), with
              ``valid_steps`` set so that validation and its checkpoint run
-             twice; checked as ``train`` is, the validations' splat launches
-             included;
+             twice, after the blocks that crossed ``valid_steps``; checked as
+             ``train`` is, the validations' splat launches included;
 7. finetune - DAgger fine-tuning (``cli.finetune --synthetic --pretrain_ckpt
              <the train phase's checkpoint> --iters 3 --log_every 3``) at the
              ``FinetuneConfig()`` defaults, B=4: 6 training rollouts and 6
@@ -71,6 +87,15 @@ one line and a failing phase raises, so the script exits non-zero:
              and > 0, every parameter moved; ``--test --pretrain_ckpt
              ckpt_latest`` must predict the trained agent's trajectories; ms
              per replay update and per training-rollout step, peak memory;
+   replay_block, rollout_block - at ``FinetuneConfig()``'s full width, B=4,
+             over a teacher rollout's bundle: ``make_replay_block`` (4
+             updates as graph replays) against the same updates eagerly by an
+             agent from the same seed, held as ``block`` holds its steps
+             (splat launches 0: the bundle carries ``bev_fts``), and
+             ``make_rollout_block`` (2 episodes, eval mode, no kernel) as a
+             graph against its eager episodes (logit sums within 1e-3
+             relative); ms per update and per episode in arms eager /
+             graphed / graphed / eager, busy shares of traced blocks;
 8. obj_train - object pretraining at ``configs/reverie_pretrain.json``'s
              widths and mix (image and object features 768, object
              probabilities 1000, 20 objects, B=16, mlm 5 / mrc 2 / sap 5 /
@@ -150,7 +175,9 @@ one line and a failing phase raises, so the script exits non-zero:
              seed: equal trajectories; no worker holds the card open; ms per
              rollout step (all three, and the range of one) and the env's
              host ms per step.
-16. dp_pretrain - data parallelism: full-width pretraining in two gloo
+16. dp_pretrain - data parallelism (the gloo phases run per-step updates,
+             ``task_block_size`` 1: a CUDA graph cannot capture gloo's
+             collectives): full-width pretraining in two gloo
              ranks sharing the one card (spawned; a ``file://`` store), 16
              rows each, 4 steps at the first seed whose per-step task draws
              include mlm, sap and masksem, against one process at 32 rows
@@ -177,8 +204,9 @@ one line and a failing phase raises, so the script exits non-zero:
              launches its dropout calls;
     dp_nccl - the CLIs as users launch them, under ``torch.distributed.run
              --standalone --nproc_per_node 1`` on NCCL at world size 1:
-             pretraining ``--synthetic --device cuda --num_steps 8``
-             (instrumented through this script's ``--torchrun-pretrain``
+             pretraining ``--synthetic --device cuda --num_steps 8`` (one
+             block of 8 graph replays, NCCL's all-reduces captured in the
+             graph; instrumented through this script's ``--torchrun-pretrain``
              entry) writes ``ckpt_8``, then ``cli.finetune --iters 1`` from
              it (through ``--torchrun-finetune``), then ``cli.ce_train
              --iters 1`` at B=8 (through ``--torchrun-ce``); in every run the
@@ -201,8 +229,10 @@ backward bitwise, at the PREVALENT update's sites (B=8, language bucket 32,
 (8, 512) float32, rate 0.5), and the full-width ``Critic`` in training mode
 bitwise against its plain version on the seeds it draws.
 
-Launch counts are the operators' own (C++, ``_build.launches``), set to 0
-just before each path and read just after it. The second-to-last line is a
+Launch counts are the kernels' own (a device counter each kernel adds one
+to per launch, read through ``_build.launches``), set to 0 just before each
+path and read just after it: a graph replay counts its launches where they
+run, and a capture counts none. The second-to-last line is a
 JSON record of the kernels; the last line is ``{"ok": true, "device": {...}}``.
 The port imports neither JAX nor the JAX package ``vln_bevbert_tpu``, and
 the run checks that none of their modules was loaded.
@@ -1006,25 +1036,138 @@ def dropout_phase() -> dict:
     return record
 
 
+def seen_count(seen: dict, key: str):
+    """A ``utils.graphs.CallCount`` whose value is ``seen[key]``: a call
+    counted while a CUDA graph is captured counts once per replay of it,
+    as the kernels' own launch counts count the replay's launches."""
+    from vln_bevbert_tpu_torch.utils import graphs
+
+    class SeenCount(graphs.CallCount):
+        def __init__(self):
+            seen.setdefault(key, 0)
+
+        value = property(lambda self: seen[key], lambda self, v: seen.__setitem__(key, v))
+
+    return SeenCount()
+
+
 def counting_dropout(seen: dict):
     """A Dropout.forward that counts the kernel's forward and backward calls
-    into ``seen``. A backward is counted when the gradient reaches the
-    output, by a hook: the kernel's backward launches only where the loss
-    depends on the output (the last recurrent step's last self-attention
-    and FFN of PREVALENT feed nothing)."""
+    into ``seen`` (``seen_count``: per replay of a graph that captured them).
+    A backward is counted when the gradient reaches the output, by a hook:
+    the kernel's backward launches only where the loss depends on the output
+    (the last recurrent step's last self-attention and FFN of PREVALENT feed
+    nothing)."""
     from vln_bevbert_tpu_torch.ops import dropout as drop_mod
 
     forward = drop_mod.Dropout.forward
+    fwd, bwd = seen_count(seen, "drop_fwd"), seen_count(seen, "drop_bwd")
 
     def counted(self, x):
         y = forward(self, x)
         if self.training and self.rate > 0 and x.dim() >= 2:
-            seen["drop_fwd"] += 1
+            fwd.add()
             if y.requires_grad:
-                y.register_hook(lambda g: seen.__setitem__("drop_bwd", seen["drop_bwd"] + 1))
+                y.register_hook(lambda g: bwd.add())
         return y
 
     return forward, counted
+
+
+@contextlib.contextmanager
+def instrumented_training(trainer, seen: dict, timed_reduce: bool = False):
+    """Instrument ``trainer`` (a ``PretrainTrainer``) for the block: the
+    dropout calls, the ``prepare_bev`` calls of training (``seen["bev"]``)
+    and of validation (``seen["val_bev"]``), the validations (step, seconds,
+    results), the blocks (task, length) and every step: (task, CUDA events
+    around it, its loss and gradient norm), from ``step_fn`` in the per-step
+    loop and from each graph replay in the blocked one. With
+    ``timed_reduce`` the per-step loop's gradient all-reduces are timed
+    (``seen["reduce"]``); a graph's are counted (``seen["reduces"]``)."""
+    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
+    from vln_bevbert_tpu_torch.parallel import train_step as ts_mod
+    from vln_bevbert_tpu_torch.utils import graphs
+
+    seen.update(bev=0, val_bev=0, steps=[], blocks=[], validations=[], reduce=[], reduces=0,
+                in_val=False)
+    forward, counted_forward = counting_dropout(seen)
+    train_bev, val_bev, reduces = (seen_count(seen, k) for k in ("bev", "val_bev", "reduces"))
+    prepare, reduce, replay = ts_mod.prepare_bev, ts_mod.TrainState.all_reduce_grads, \
+        graphs.Graph.replay
+    step_fn, block_fn, validate = trainer.step_fn, trainer.block_fn, trainer.validate
+
+    def counted_prepare(projector, batch):
+        if "depths" in batch:
+            (val_bev if seen["in_val"] else train_bev).add()
+        return prepare(projector, batch)
+
+    def events():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def timed_step(state, batch, task):
+        start, end = events()
+        start.record()
+        metrics = step_fn(state, batch, task)
+        end.record()
+        seen["steps"].append((task, start, end, metrics))
+        return metrics
+
+    def timed_replay(graph):
+        start, end = events()
+        start.record()
+        out = replay(graph)
+        end.record()
+        if isinstance(out, dict) and "grad_norm" in out:  # a pretraining step
+            seen["steps"].append((graph.key[0], start, end,
+                                  {"loss": out["loss"].clone(),
+                                   "grad_norm": out["grad_norm"].clone()}))
+        return out
+
+    def counted_block(state, batch, task, length, stacked=False):
+        seen["blocks"].append((task, length))
+        return block_fn(state, batch, task, length, stacked)
+
+    def counted_reduce(state):
+        reduces.add()
+        if timed_reduce and not torch.cuda.is_current_stream_capturing():
+            start, end = events()
+            start.record()
+            reduce(state)
+            end.record()
+            seen["reduce"].append((start, end))
+        else:
+            reduce(state)
+
+    def timed_validate(step, num_batches=8):
+        torch.cuda.synchronize()
+        seen["in_val"], t0 = True, time.perf_counter()
+        try:
+            results = validate(step, num_batches)
+        finally:
+            seen["in_val"] = False
+        seen["validations"].append((step, time.perf_counter() - t0, results))
+        return results
+
+    drop_mod.Dropout.forward, ts_mod.prepare_bev = counted_forward, counted_prepare
+    ts_mod.TrainState.all_reduce_grads, graphs.Graph.replay = counted_reduce, timed_replay
+    trainer.step_fn, trainer.block_fn, trainer.validate = timed_step, counted_block, timed_validate
+    try:
+        yield seen
+    finally:
+        drop_mod.Dropout.forward, ts_mod.prepare_bev = forward, prepare
+        ts_mod.TrainState.all_reduce_grads, graphs.Graph.replay = reduce, replay
+        trainer.step_fn, trainer.block_fn, trainer.validate = step_fn, block_fn, validate
+
+
+def crossings(blocks, every: int) -> list:
+    """The end steps of ``blocks`` ((task, length) in order) that crossed a
+    multiple of ``every``: where the trainer validates and saves."""
+    out, step = [], 0
+    for _, length in blocks:
+        if every and (step + length) // every > step // every:
+            out.append(step + length)
+        step += length
+    return out
 
 
 def counted_gathers(seen: dict, module):
@@ -1058,53 +1201,22 @@ def val_prepare_calls(cfg, num_batches: int = 8) -> int:
 
 
 def run_trainer(trainer, label: str, min_each: int, build_s: float) -> dict:
-    """Train ``trainer`` to its configured step count, instrumented: the
-    kernels' launch counts against the dropout calls (forward and backward)
-    and the ``prepare_bev`` calls of training and of the validations at
-    every ``valid_steps`` crossing (``val_prepare_calls`` each, no dropout),
-    CUDA events around every step, then save its checkpoint. Every task of
-    the mix must run ``min_each`` steps."""
+    """Train ``trainer`` to its configured step count, instrumented
+    (``instrumented_training``): in blocks of ``task_block_size`` (8), each
+    step a replay of the step's CUDA graph. The kernels' launch counts
+    against the dropout calls (forward and backward) and the ``prepare_bev``
+    calls of training and of the validations after every block that crossed
+    ``valid_steps`` (``val_prepare_calls`` each, no dropout): a replay
+    counts the calls its capture made, a capture's warm-up its own; CUDA
+    events around every replay; then save its checkpoint. Every task of the
+    mix must run ``min_each`` steps."""
     from vln_bevbert_tpu_torch import _build
-    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
-    from vln_bevbert_tpu_torch.parallel import train_step as ts_mod
-
-    seen = {"drop_fwd": 0, "drop_bwd": 0, "bev": 0, "val_bev": 0, "steps": [],
-            "validations": [], "in_val": False}
-    forward, counted_forward = counting_dropout(seen)
-    prepare = ts_mod.prepare_bev
-
-    def counted_prepare(projector, batch):
-        seen["val_bev" if seen["in_val"] else "bev"] += "depths" in batch
-        return prepare(projector, batch)
-
-    validate = trainer.validate
-
-    def timed_validate(step, num_batches=8):
-        torch.cuda.synchronize()
-        seen["in_val"], t0 = True, time.perf_counter()
-        try:
-            results = validate(step, num_batches)
-        finally:
-            seen["in_val"] = False
-        seen["validations"].append((step, time.perf_counter() - t0, results))
-        return results
-
-    trainer.validate = timed_validate
-    step_fn = trainer.step_fn
-
-    def timed_step(state, batch, task):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        metrics = step_fn(state, batch, task)
-        end.record()
-        seen["steps"].append((task, start, end, metrics))
-        return metrics
 
     cfg = trainer.cfg
     steps = cfg.optim.num_train_steps
-    drop_mod.Dropout.forward, ts_mod.prepare_bev = counted_forward, counted_prepare
-    trainer.step_fn = timed_step
-    try:
+    graphs = trainer.block_fn.graphs
+    before = graphs.counters()
+    with instrumented_training(trainer, {}) as seen:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
@@ -1113,9 +1225,8 @@ def run_trainer(trainer, label: str, min_each: int, build_s: float) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"dropout": _build.launches("dropout"), "splat": _build.launches("splat")}
-    finally:
-        drop_mod.Dropout.forward, ts_mod.prepare_bev = forward, prepare
-        trainer.step_fn, trainer.validate = step_fn, validate
+    after = graphs.counters()
+    captures, replays = after["captures"] - before["captures"], after["replays"] - before["replays"]
     peak = torch.cuda.max_memory_allocated()
     ckpt = trainer.save(trainer.state.step)
     n_params = sum(p.numel() for p in trainer.state.params)
@@ -1125,14 +1236,19 @@ def run_trainer(trainer, label: str, min_each: int, build_s: float) -> dict:
     if len(schedule) != steps or any(schedule.count(t) < min_each for t in mix):
         raise AssertionError(f"{label}: ran {schedule}; every task of {sorted(mix)} needs "
                              f"{min_each} of {steps} steps")
-    n_val = steps // cfg.valid_steps if cfg.valid_steps else 0
-    if [v[0] for v in seen["validations"]] != [cfg.valid_steps * (i + 1) for i in range(n_val)]:
+    blocks = seen["blocks"]
+    if (cfg.task_block_size < 2 or replays != steps or sum(k for _, k in blocks) != steps
+            or any(k > cfg.task_block_size for _, k in blocks)):
+        raise AssertionError(f"{label}: {replays} graph replays in blocks {blocks} of "
+                             f"{steps} steps")
+    n_val = len(crossings(blocks, cfg.valid_steps))
+    if [v[0] for v in seen["validations"]] != crossings(blocks, cfg.valid_steps):
         raise AssertionError(f"{label}: validated at {[v[0] for v in seen['validations']]}")
-    if (launches["splat"] != seen["bev"] + seen["val_bev"] or seen["bev"] != steps
+    if (launches["splat"] != seen["bev"] + seen["val_bev"] or seen["bev"] != steps + captures
             or seen["val_bev"] != n_val * val_prepare_calls(cfg)):
         raise AssertionError(f"{label}: {launches['splat']} splat launches for "
                              f"{seen['bev']} training and {seen['val_bev']} validation "
-                             f"prepare_bev calls in {steps} steps")
+                             f"prepare_bev calls in {steps} replays and {captures} warm-ups")
     for _, _, results in seen["validations"]:
         check_validation(label, results)
     if launches["dropout"] != seen["drop_fwd"] + seen["drop_bwd"] or seen["drop_bwd"] == 0:
@@ -1154,6 +1270,8 @@ def run_trainer(trainer, label: str, min_each: int, build_s: float) -> dict:
         "ckpt": ckpt, "pretrain_names": set(trainer.model.state_dict()),
         "seed": cfg.seed, "steps": steps, "schedule": schedule, "launches": launches,
         "drop_fwd": seen["drop_fwd"], "drop_bwd": seen["drop_bwd"], "bev": seen["bev"],
+        "blocks": blocks, "captures": captures, "replays": replays,
+        "capture_s": (after["capture_ms"] - before["capture_ms"]) / 1e3,
         "ms_per_task": ms_per_task, "mix": mix,
         "samples_per_s": cfg.train_batch_size * 1e3 / mix_ms,
         "wall_samples_per_s": cfg.train_batch_size * steps / wall,
@@ -1163,6 +1281,18 @@ def run_trainer(trainer, label: str, min_each: int, build_s: float) -> dict:
         "first_ms": {t: next(s.elapsed_time(e) for tt, s, e, _ in seen["steps"] if tt == t)
                      for t in per_task},
     }
+
+
+def block_fields(run: dict) -> dict:
+    """A trained path's blocks, graphs and launches against its calls, for
+    its printed line."""
+    return {"blocks": ",".join(f"{t}x{k}" for t, k in run["blocks"]),
+            "graphs_captured": run["captures"], "capture_s": f"{run['capture_s']:.2f}",
+            "replays": run["replays"],
+            "splat_launches_vs_calls": f"{run['launches']['splat']}={run['replays']}replays+"
+                                       f"{run['captures']}warm-ups+{run['val_bev']}validation",
+            "dropout_launches_vs_calls": f"{run['launches']['dropout']}="
+                                         f"{run['drop_fwd']}fwd+{run['drop_bwd']}bwd"}
 
 
 def train_phase(out_dir: str, steps: int = 24, seed: int = 16, min_each: int = 3) -> dict:
@@ -1176,7 +1306,282 @@ def train_phase(out_dir: str, steps: int = 24, seed: int = 16, min_each: int = 3
     trainer = pretrain.build(pretrain.parse_args([
         "--synthetic", "--device", "cuda", "--num_steps", str(steps),
         "--batch_size", "16", "--seed", str(seed), "--output_dir", out_dir]))
-    return run_trainer(trainer, "train", min_each, time.perf_counter() - t0)
+    run = run_trainer(trainer, "train", min_each, time.perf_counter() - t0)
+    run["traced"] = traced_block(trainer, run["schedule"][-1], os.path.join(out_dir, "trace"))
+    return run
+
+
+def pretrain_block_batches(trainer, task: str, k: int = 8, offset: int = 0) -> list:
+    """``k`` host batches of ``task`` from ``trainer``'s loader, padded to
+    the block's largest shape as the trainer pads them."""
+    from vln_bevbert_tpu_torch.pretrain.trainer import pad_block
+
+    return pad_block([trainer.train_loader.build_batch(offset + i, task=task)[1]
+                      for i in range(k)])
+
+
+def traced_block(trainer, task: str, log_dir: str, k: int = 8) -> dict:
+    """One more block of ``k`` steps of ``task``, after one untraced block
+    over the same batches (any capture lies outside the trace), under
+    ``traced_busy``: wall ms and the device's busy share."""
+    batches = pretrain_block_batches(trainer, task, k)
+    trainer.block_fn(trainer.state, batches, task, k, stacked=True)
+    _, busy = traced_busy(lambda: trainer.block_fn(trainer.state, batches, task, k,
+                                                   stacked=True), "block", log_dir)
+    return {"task": task, "k": k, **busy}
+
+
+# Graphed against eager from one state: each step's loss within
+# BLOCK_LOSS_RTOL; the parameters' L2 difference within BLOCK_PARAM_REL_L2 of
+# their norm and within BLOCK_MOVE_REL_L2 of the eager run's movement from the
+# start, which must be non-zero. A block moves the parameters by ~1e-4 of
+# their norm at pretraining's warm-up, so the first bound alone would pass a
+# graph that froze the learning rate at its capture value or dropped the
+# update; the second fails it (a difference of the movement's order).
+BLOCK_LOSS_RTOL, BLOCK_PARAM_REL_L2, BLOCK_MOVE_REL_L2 = 1e-3, 1e-9, 1e-4
+
+
+@torch.no_grad()
+def params_agreement(graphed, eager, start) -> dict:
+    """The L2 difference of two parameter lists that ran from ``start``,
+    relative to the parameters' norm (``params_rel_l2``) and to the eager
+    run's movement from ``start`` (``move_rel_l2``, inf if it did not move),
+    and that movement relative to the norm (``moved_rel``)."""
+    sq = lambda xs, ys: sum(float((x.float() - y.float()).pow(2).sum())  # noqa: E731
+                            for x, y in zip(xs, ys))
+    diff, moved = sq(graphed, eager) ** 0.5, sq(eager, start) ** 0.5
+    norm = sum(float(y.float().pow(2).sum()) for y in eager) ** 0.5
+    return {"params_rel_l2": diff / norm, "moved_rel": moved / norm,
+            "move_rel_l2": diff / moved if moved else float("inf")}
+
+
+def check_agreement(label: str, loss_rel: list, agree: dict) -> None:
+    if (max(loss_rel) > BLOCK_LOSS_RTOL or agree["params_rel_l2"] > BLOCK_PARAM_REL_L2
+            or agree["move_rel_l2"] > BLOCK_MOVE_REL_L2):
+        raise AssertionError(
+            f"{label}: losses differ by {loss_rel} (rtol {BLOCK_LOSS_RTOL}), parameters by "
+            f"{agree['params_rel_l2']:.3e} of their norm ({BLOCK_PARAM_REL_L2}) and "
+            f"{agree['move_rel_l2']:.3e} of the eager movement ({BLOCK_MOVE_REL_L2}), "
+            f"which is {agree['moved_rel']:.3e} of their norm")
+
+
+def arms(fns: dict) -> dict:
+    """Wall seconds of each of ``fns`` "eager" and "graphed" (ending in a
+    synchronise), in turns eager / graphed / graphed / eager: {name:
+    [seconds, ...]}."""
+    out = {}
+    for name in ("eager", "graphed", "graphed", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[name]()
+        torch.cuda.synchronize()
+        out.setdefault(name, []).append(time.perf_counter() - t0)
+    return out
+
+
+def agreement_fields(run: dict) -> dict:
+    """A block phase's parameter agreement and its bounds, for its line."""
+    return {"params_rel_l2": f"{run['params_rel_l2']:.3e}", "params_bound": BLOCK_PARAM_REL_L2,
+            "move_rel_l2": f"{run['move_rel_l2']:.3e}", "move_bound": BLOCK_MOVE_REL_L2,
+            "moved_rel": f"{run['moved_rel']:.3e}"}
+
+
+def block_phase(out_dir: str, k: int = 8) -> dict:
+    """From one state (two trainers of the CLI's full-width synthetic
+    pretraining, B=16, seed 16, over one loader: the same parameters and
+    dropout generator), one ``k``-step block of each task graphed (replays of a
+    CUDA graph of the step) and the same steps eagerly (``step_fn``): equal
+    generator states afterwards (the same seeds drawn), every step's loss
+    within ``BLOCK_LOSS_RTOL``, the parameters as ``check_agreement``
+    holds them; a cached block launches each kernel as often as the same
+    steps run eagerly (counted on the device). Then wall ms per step in arms eager /
+    graphed / graphed / eager over the same blocks, and one graphed and one
+    eager block traced: the device's busy share."""
+    from vln_bevbert_tpu_torch import _build
+    from vln_bevbert_tpu_torch.cli import pretrain
+    from vln_bevbert_tpu_torch.parallel.train_step import dropout_generators, upload
+    from vln_bevbert_tpu_torch.pretrain.trainer import PretrainTrainer
+    from vln_bevbert_tpu_torch.utils import graphs
+
+    eager = pretrain.build(pretrain.parse_args([
+        "--synthetic", "--device", "cuda", "--batch_size", "16", "--seed", "16",
+        "--output_dir", os.path.join(out_dir, "eager")]))
+    graphed = PretrainTrainer(eager.cfg, eager.train_loader, "cuda",
+                              output_dir=os.path.join(out_dir, "graphed"))
+    device = torch.device("cuda")
+    tasks = [t.split("_")[0] for t in eager.cfg.tasks]
+    blocks = {t: pretrain_block_batches(eager, t, k, offset=10 * i) for i, t in enumerate(tasks)}
+    losses, replay = [], graphs.Graph.replay
+    start = [p.detach().clone() for p in eager.state.params]
+
+    def recorded(graph):
+        out = replay(graph)
+        losses.append(out["loss"].clone())
+        return out
+
+    want = []
+    graphs.Graph.replay = recorded
+    try:
+        for task, batches in blocks.items():
+            for b in batches:
+                want.append(eager.step_fn(eager.state, upload(b, device), task)["loss"])
+            graphed.block_fn(graphed.state, batches, task, k, stacked=True)
+    finally:
+        graphs.Graph.replay = replay
+    gen = lambda t: dropout_generators(t.model)[0].get_state()  # noqa: E731
+    if not torch.equal(gen(eager), gen(graphed)):
+        raise AssertionError("block: the graphed and eager runs drew other dropout seeds")
+    got, want = torch.stack(losses), torch.stack(want)
+    loss_rel = ((got - want).abs() / want.abs()).tolist()
+    agree = params_agreement(graphed.state.params, eager.state.params, start)
+    del start
+    check_agreement("block", loss_rel, agree)
+    cache = graphed.block_fn.graphs
+
+    def run_eager():
+        for task, batches in blocks.items():
+            for b in batches:
+                eager.step_fn(eager.state, upload(b, device), task)
+
+    def run_graphed():
+        for task, batches in blocks.items():
+            graphed.block_fn(graphed.state, batches, task, k, stacked=True)
+
+    counted = {}
+    for arm, run in (("graphed", run_graphed), ("eager", run_eager)):
+        _build.reset_launches()
+        run()
+        counted[arm] = {n: _build.launches(n) for n in ("splat", "dropout")}
+    launches = counted["graphed"]
+    if (launches != counted["eager"] or launches["splat"] != k * len(tasks)
+            or cache.captures != len(tasks)):
+        raise AssertionError(f"block: a cached block launched {launches}, the same steps "
+                             f"eagerly {counted['eager']}; {cache.captures} captures")
+
+    timed = arms({"eager": run_eager, "graphed": run_graphed})
+    n = k * len(tasks)
+    task = tasks[0]
+    _, busy_graphed = traced_busy(lambda: graphed.block_fn(graphed.state, blocks[task], task, k,
+                                                           stacked=True),
+                                  "graphed block", os.path.join(out_dir, "trace"))
+    _, busy_eager = traced_busy(lambda: [eager.step_fn(eager.state, upload(b, device), task)
+                                         for b in blocks[task]],
+                                "eager block", os.path.join(out_dir, "trace"))
+    return {"k": k, "tasks": tasks, "loss_rel": loss_rel, **agree,
+            "captures": cache.captures, "capture_s": cache.capture_ms / 1e3,
+            "launches": launches, "eager_launches": counted["eager"],
+            "ms_per_step": {a: [1e3 * t / n for t in v] for a, v in timed.items()},
+            "busy_graphed": busy_graphed, "busy_eager": busy_eager, "busy_task": task,
+            "samples_per_s": {a: 16 * n / min(v) for a, v in timed.items()}}
+
+
+def replay_bundle(out_dir: str, batch: int = 4):
+    """(config, bundle): a teacher rollout of the full-width fine-tuning
+    agent (``cli.finetune --synthetic --batch_size <batch>``) packed as the
+    replay bundle it trains from; its splat launches equal its
+    gather-and-splat calls."""
+    from vln_bevbert_tpu_torch import _build
+    from vln_bevbert_tpu_torch.cli import finetune
+    from vln_bevbert_tpu_torch.nav import agent as agent_mod
+    from vln_bevbert_tpu_torch.nav.recollection import agent_build_bundle
+
+    cfg, _, _, agent = finetune.build(finetune.parse_args([
+        "--synthetic", "--device", "cuda", "--batch_size", str(batch), "--output_dir",
+        os.path.join(out_dir, "teacher")]))
+    teacher = {"gathers": 0}
+    gather, counted_gather = counted_gathers(teacher, agent_mod)
+    agent_mod.gather_and_splat = counted_gather
+    try:
+        _build.reset_launches()
+        with torch.no_grad():
+            _, lang, records = agent._rollout("teacher", True)
+        teacher["launches"] = _build.launches("splat")
+    finally:
+        agent_mod.gather_and_splat = gather
+    if teacher["launches"] != teacher["gathers"] or teacher["gathers"] == 0:
+        raise AssertionError(f"teacher rollout: {teacher['launches']} splat launches for "
+                             f"{teacher['gathers']} gather-and-splat calls")
+    return cfg, agent_build_bundle(agent, lang, records), teacher
+
+
+def nav_block_phase(out_dir: str, length: int = 4, episodes: int = 2) -> dict:
+    """``make_replay_block`` and ``make_rollout_block`` at ``FinetuneConfig()``'s
+    full width, B=4, over a teacher rollout's bundle: two agents from one
+    seed (the same parameters and dropout generator), ``length`` replay
+    updates graphed against the same updates eagerly (``block.eager``):
+    equal generator states, every loss within ``BLOCK_LOSS_RTOL``, the
+    parameters as ``check_agreement`` holds them; a cached block's dropout
+    launches (counted on the device) equal the eager updates' dropout
+    calls, forward and backward, and the splat launches none. The rollout block (``episodes`` episodes, eval mode) graphed
+    against eager. Wall ms per update and per episode in arms eager /
+    graphed / graphed / eager; each graphed block traced once: the device's
+    busy share."""
+    from vln_bevbert_tpu_torch import _build
+    from vln_bevbert_tpu_torch.nav.agent import (
+        make_replay_agent,
+        make_replay_block,
+        make_rollout_block,
+    )
+    from vln_bevbert_tpu_torch.parallel.train_step import dropout_generators
+
+    cfg, rb, teacher = replay_bundle(out_dir)
+    free_memory()
+    eager, graphed = (make_replay_agent(cfg, 4, seed=cfg.seed, device="cuda") for _ in range(2))
+    replay_e, replay_g = make_replay_block(eager, length), make_replay_block(graphed, length)
+    seen = {}
+    forward, counted = counting_dropout(seen)
+    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
+
+    drop_mod.Dropout.forward = counted
+    start = [p.detach().clone() for p in eager.train_state.params]
+    try:
+        want = replay_e.eager(rb)
+        eager_calls = seen["drop_fwd"] + seen["drop_bwd"]
+        got = replay_g(rb)
+    finally:
+        drop_mod.Dropout.forward = forward
+    gen = lambda a: dropout_generators(a.model)[0].get_state()  # noqa: E731
+    if not torch.equal(gen(eager), gen(graphed)):
+        raise AssertionError("replay_block: the graphed and eager updates drew other seeds")
+    loss_rel = ((got - want).abs() / want.abs()).tolist()
+    agree = params_agreement(graphed.train_state.params, eager.train_state.params, start)
+    del start
+    check_agreement("replay_block", loss_rel, agree)
+    _build.reset_launches()
+    replay_g(rb)
+    launches = {n: _build.launches(n) for n in ("splat", "dropout")}
+    if (launches["splat"], launches["dropout"]) != (0, eager_calls) or eager_calls == 0 or (
+            replay_g.graphs.captures != 1):
+        raise AssertionError(f"replay_block: a cached block launched {launches}; the eager "
+                             f"updates made {eager_calls} dropout calls in {length} updates; "
+                             f"{replay_g.graphs.captures} captures")
+    roll_e, roll_g = make_rollout_block(eager, episodes), make_rollout_block(graphed, episodes)
+    # the rollout compares one set of parameters: the graphed agent's
+    roll_want, roll_got = roll_g.eager(rb), roll_g(rb)
+    roll_rel = abs(float(roll_got - roll_want)) / abs(float(roll_want))
+    if roll_rel > BLOCK_LOSS_RTOL or roll_g.graphs.replays != episodes:
+        raise AssertionError(f"rollout_block: {float(roll_got)} against eager "
+                             f"{float(roll_want)}, {roll_g.graphs.replays} replays")
+    _build.reset_launches()
+    roll_g(rb)
+    torch.cuda.synchronize()
+    roll_launches = {n: _build.launches(n) for n in ("splat", "dropout")}
+    timed = arms({"eager": lambda: replay_e.eager(rb), "graphed": lambda: replay_g(rb)})
+    roll_timed = arms({"eager": lambda: roll_e.eager(rb), "graphed": lambda: roll_g(rb)})
+    log_dir = os.path.join(out_dir, "trace")
+    _, busy = traced_busy(lambda: replay_g(rb), "graphed replay block", log_dir)
+    _, roll_busy = traced_busy(lambda: roll_g(rb), "graphed rollout block", log_dir)
+    steps = int((rb["targets"] != -100).any(axis=1).sum())
+    return {"length": length, "episodes": episodes, "loss_rel": loss_rel, **agree,
+            "launches": launches, "eager_calls": eager_calls,
+            "capture_s": replay_g.graphs.capture_ms / 1e3, "teacher": teacher, "steps": steps,
+            "T": rb["targets"].shape[0],
+            "ms_per_update": {a: [1e3 * t / length for t in v] for a, v in timed.items()},
+            "busy": busy, "roll_rel": roll_rel,
+            "roll_capture_s": roll_g.graphs.capture_ms / 1e3, "roll_launches": roll_launches,
+            "ms_per_episode": {a: [1e3 * t / episodes for t in v]
+                               for a, v in roll_timed.items()},
+            "roll_busy": roll_busy}
 
 
 def check_validation(label: str, results: dict) -> None:
@@ -1313,11 +1718,11 @@ def optim_phase(ckpt: str, out_dir: str, updates: int = 7, task: str = "sap") ->
         update, events, nonzero = state.tx.update, [], torch.zeros(
             len(state.params), dtype=torch.bool, device=device)
 
-        def timed_update(grads, update=update, events=events, nonzero=nonzero):
+        def timed_update(grads, moves=None, update=update, events=events, nonzero=nonzero):
             nonzero |= torch.stack(torch._foreach_norm(grads)) > 0
             t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             t0.record()
-            moved = update(grads)
+            moved = update(grads, moves)
             t1.record()
             events.append((t0, t1, moved))
             return moved
@@ -2595,6 +3000,8 @@ def ce_pool_phase(out_dir: str, workers=(2, 4), rollouts: int = 3) -> dict:
 DP_WORLD = 2
 DP_TIMEOUT_S = 300.0
 GLOO_NOTE = "gloo stages the float32 gradients through the host: not a multi-card time"
+PER_STEP_NOTE = ("per-step updates, task_block_size 1 in the config: a CUDA graph cannot "
+                 "capture gloo's collectives")
 # ranks against one process at the global batch: the same rows and dropout
 # masks, bf16 activations over another batch shape (16 against 32 rows, 4
 # against 8). Measured on the H100: pretraining losses within 4.5e-05 and
@@ -2636,48 +3043,23 @@ def dp_spawn(fn, spec: dict) -> list:
 def dp_pretrain_run(spec: dict) -> dict:
     """``cli.pretrain`` built from ``spec["argv"]`` and trained (saved too
     with ``spec["save"]``, as its ``main`` does) in this process, which may
-    be a rank: per step its task, loss, gradient norm and CUDA-event ms; the
-    kernels' launches against the dropout and ``prepare_bev`` calls; with
-    the gradient all-reduce timed, its CUDA-event ms per step; peak memory;
-    the process group it ran in."""
+    be a rank, instrumented (``instrumented_training``): per step its task,
+    loss, gradient norm and CUDA-event ms (of a graph replay under blocks);
+    the kernels' launches against the dropout and ``prepare_bev`` calls; the
+    gradient all-reduce's CUDA-event ms, per step in the per-step loop, or
+    (a graph's all-reduce cannot be timed apart) over 5 eager all-reduces
+    of the same buffers after training under blocks; peak memory; the
+    process group it ran in."""
     import torch.distributed as dist
 
     from vln_bevbert_tpu_torch import _build
     from vln_bevbert_tpu_torch.cli import pretrain
-    from vln_bevbert_tpu_torch.ops import dropout as drop_mod
     from vln_bevbert_tpu_torch.parallel import distributed
-    from vln_bevbert_tpu_torch.parallel import train_step as ts_mod
 
     _build.load()
     trainer = pretrain.build(pretrain.parse_args(spec["argv"]))
-    seen = {"drop_fwd": 0, "drop_bwd": 0, "bev": 0, "steps": [], "reduce": []}
-    forward, counted = counting_dropout(seen)
-    prepare, step_fn = ts_mod.prepare_bev, trainer.step_fn
-    reduce = ts_mod.TrainState.all_reduce_grads
-
-    def counted_prepare(projector, batch):
-        seen["bev"] += "depths" in batch
-        return prepare(projector, batch)
-
-    def timed_step(state, batch, task):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        metrics = step_fn(state, batch, task)
-        end.record()
-        seen["steps"].append((task, start, end, metrics))
-        return metrics
-
-    def timed_reduce(state):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        reduce(state)
-        end.record()
-        seen["reduce"].append((start, end))
-
-    drop_mod.Dropout.forward, ts_mod.prepare_bev = counted, counted_prepare
-    ts_mod.TrainState.all_reduce_grads = timed_reduce
-    trainer.step_fn = timed_step
-    try:
+    blocked = trainer.cfg.task_block_size > 1
+    with instrumented_training(trainer, {}, timed_reduce=True) as seen:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
@@ -2686,18 +3068,22 @@ def dp_pretrain_run(spec: dict) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: _build.launches(k) for k in ("splat", "dropout")}
-    finally:
-        drop_mod.Dropout.forward, ts_mod.prepare_bev = forward, prepare
-        ts_mod.TrainState.all_reduce_grads = reduce
+    reduce_ms = [s.elapsed_time(e) for s, e in seen["reduce"]]
+    if blocked:
+        reduce_ms = [cuda_ms(trainer.state.all_reduce_grads, iters=1, warmup=0 if i else 1)
+                     for i in range(5)]
     values = torch.stack([torch.stack([m["loss"], m["grad_norm"]])
                           for *_, m in seen["steps"]]).tolist()
+    graphs = trainer.block_fn.graphs.counters() if blocked else {"captures": 0, "replays": 0}
     out = {"rank": distributed.rank(), "world": distributed.world_size(),
            "backend": dist.get_backend() if distributed.active() else None,
-           "rows": trainer.train_loader.cfg.train_batch_size,
+           "rows": trainer.train_loader.cfg.train_batch_size, "blocked": blocked,
+           "blocks": seen["blocks"], "captures": graphs["captures"],
+           "replays": graphs["replays"], "reduces": seen["reduces"],
            "tasks": [t for t, *_ in seen["steps"]], "loss": [v[0] for v in values],
            "grad_norm": [v[1] for v in values],
            "ms": [s.elapsed_time(e) for _, s, e, _ in seen["steps"]],
-           "reduce_ms": [s.elapsed_time(e) for s, e in seen["reduce"]],
+           "reduce_ms": reduce_ms,
            "launches": launches, "drop_fwd": seen["drop_fwd"], "drop_bwd": seen["drop_bwd"],
            "bev": seen["bev"], "peak_bytes": torch.cuda.max_memory_allocated(), "wall_s": wall,
            "grad_bytes": sum(f.numel() * f.element_size() for f in trainer.state.flat_grads),
@@ -2785,10 +3171,10 @@ def dp_replay_run(spec: dict) -> dict:
     seen = {"drop_fwd": 0, "drop_bwd": 0}
     apply = state.apply_gradients
 
-    def snapshot():
+    def snapshot(moves=None):
         if rank == 0:
             seen["grads"] = torch.cat([f.float().cpu() for f in state.flat_grads])
-        return apply()
+        return apply(moves)
 
     forward, counted = counting_dropout(seen)
     drop_mod.Dropout.forward, state.apply_gradients = counted, snapshot
@@ -2818,30 +3204,7 @@ def dp_replay_phase(out_dir: str, batch: int = 8) -> dict:
     then one replay update from it in two gloo ranks (4 rows each) and in
     one process (8 rows), all from the same random parameters: the same loss
     and gradient up to bf16 rounding over another batch shape."""
-    from vln_bevbert_tpu_torch import _build
-    from vln_bevbert_tpu_torch.cli import finetune
-    from vln_bevbert_tpu_torch.nav import agent as agent_mod
-    from vln_bevbert_tpu_torch.nav.recollection import agent_build_bundle
-
-    cfg, _, _, agent = finetune.build(finetune.parse_args([
-        "--synthetic", "--device", "cuda", "--batch_size", str(batch), "--output_dir",
-        os.path.join(out_dir, "teacher")]))
-    teacher = {"gathers": 0}
-    gather, counted_gather = counted_gathers(teacher, agent_mod)
-
-    agent_mod.gather_and_splat = counted_gather
-    try:
-        _build.reset_launches()
-        with torch.no_grad():
-            _, lang, records = agent._rollout("teacher", True)
-        teacher["launches"] = _build.launches("splat")
-    finally:
-        agent_mod.gather_and_splat = gather
-    if teacher["launches"] != teacher["gathers"] or teacher["gathers"] == 0:
-        raise AssertionError(f"dp_replay teacher rollout: {teacher['launches']} splat launches "
-                             f"for {teacher['gathers']} gather-and-splat calls")
-    rb = agent_build_bundle(agent, lang, records)
-    del agent, records
+    cfg, rb, teacher = replay_bundle(out_dir, batch)
     free_memory()
     spec = {"work": os.path.join(out_dir, "ranks"), "cfg": cfg, "rb": rb, "seed": cfg.seed}
     ranks = dp_spawn(dp_replay_run, spec)
@@ -2951,10 +3314,10 @@ def dp_ce_run(spec: dict) -> dict:
     gather, gathers = counted_gathers(seen, ce_mod)
     apply = TrainState.apply_gradients
 
-    def snapshot(state):
+    def snapshot(state, moves=None):
         if rank == 0:
             seen["grads"] = torch.cat([f.float().cpu() for f in state.flat_grads])
-        return apply(state)
+        return apply(state, moves)
 
     def paths(trajs):
         return [(tr["instr_id"], np.stack(tr["positions"]).tolist(), list(tr["headings"]))
@@ -3133,10 +3496,12 @@ def torchrun_ce(out_json: str, argv: list) -> None:
 def dp_nccl_phase(out_dir: str, plain_ms_per_task: dict, timeout_s: float = 300.0) -> dict:
     """The CLIs as users launch them, under ``torch.distributed.run`` at
     world size 1 on NCCL: pretraining (``--synthetic --device cuda
-    --num_steps 8``, through ``torchrun_pretrain``), then ``cli.finetune
-    --iters 1`` from its checkpoint (through ``torchrun_finetune``). Per step
-    ms against the plain run's (the ``train`` phase's, same task) and the
-    gradient all-reduce's ms; both kernels' launches in both runs."""
+    --num_steps 8``, through ``torchrun_pretrain``: one block of 8 graph
+    replays, the NCCL all-reduces captured in the graph), then
+    ``cli.finetune --iters 1`` from its checkpoint (through
+    ``torchrun_finetune``). Per step ms against the plain run's (the
+    ``train`` phase's, same task) and the gradient all-reduce's ms (eager,
+    after training); both kernels' launches in both runs."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
     launcher = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -3154,8 +3519,9 @@ def dp_nccl_phase(out_dir: str, plain_ms_per_task: dict, timeout_s: float = 300.
         raise AssertionError(f"dp_nccl: ran {pre['backend']} at world {pre['world']}, "
                              f"checkpoint {pre['ckpt']}")
     check_dp_launches("dp_nccl", pre)
-    if len(pre["reduce_ms"]) != 8:
-        raise AssertionError(f"dp_nccl: {len(pre['reduce_ms'])} gradient all-reduces in 8 steps")
+    if not pre["blocked"] or pre["replays"] != 8 or pre["reduces"] != 8 + pre["captures"]:
+        raise AssertionError(f"dp_nccl: {pre['replays']} graph replays and {pre['reduces']} "
+                             f"gradient all-reduces ({pre['captures']} captures) in 8 steps")
     task = pre["tasks"][0]
     ft_dir, ft_record = os.path.join(out_dir, "finetune"), os.path.join(out_dir, "finetune.json")
     t0 = time.perf_counter()
@@ -3240,7 +3606,8 @@ def dp_group(plain_ms_per_task: dict) -> tuple:
               dropout_calls=f"{r['drop_fwd']}+{r['drop_bwd']}",
               ms_per_step=",".join(f"{v:.2f}" for v in r["ms"]),
               allreduce_ms=",".join(f"{v:.2f}" for v in r["reduce_ms"]),
-              peak_mem_MiB=f"{r['peak_bytes'] / 2**20:.1f}", note=repr(GLOO_NOTE))
+              peak_mem_MiB=f"{r['peak_bytes'] / 2**20:.1f}", note=repr(GLOO_NOTE),
+              loop=repr(PER_STEP_NOTE))
     phase("dp_pretrain", one_process_rows=DP_WORLD * dpp["ranks"][0]["rows"],
           params=one["n_params"], grad_MB=f"{one['grad_bytes'] / 1e6:.1f}",
           first_loss=f"{dpp['ranks'][0]['loss'][0]:.6f}/{one['loss'][0]:.6f}",
@@ -3266,7 +3633,7 @@ def dp_group(plain_ms_per_task: dict) -> tuple:
     phase("dp_replay", teacher_rows=8, teacher_gathers=dpr["teacher"]["gathers"],
           teacher_splat_launches=dpr["teacher"]["launches"])
     phase("dp_replay", steps=dpr["steps"], **{k: f"{v:.3e}" for k, v in dpr["diffs"].items()},
-          note=repr(GLOO_NOTE))
+          note=repr(GLOO_NOTE), loop=repr(PER_STEP_NOTE))
     free_memory()
     dce = dp_ce_phase(os.path.join(work.name, "dp_ce"))
     for r in dce["ranks"] + [dce["one"]]:
@@ -3288,12 +3655,17 @@ def dp_group(plain_ms_per_task: dict) -> tuple:
               turn_wait_ms=f"{m['turns_ms'] - m['act_ms']:.1f}",
               control_forward_steps=m["forward_step"], control_rotations=m["rotate"])
     phase("dp_ce", trajectories="equal", np_rng="equal",
-          **{k: f"{v:.3e}" for k, v in dce["diffs"].items()}, note=repr(GLOO_NOTE))
+          **{k: f"{v:.3e}" for k, v in dce["diffs"].items()}, note=repr(GLOO_NOTE),
+          loop=repr(PER_STEP_NOTE))
     free_memory()
     nccl = dp_nccl_phase(os.path.join(work.name, "dp_nccl"), plain_ms_per_task)
     pre = nccl["pre"]
     phase("dp_nccl", backend=pre["backend"], world=pre["world"], task=nccl["task"],
-          steps=len(pre["ms"]), ms_per_step=f"{nccl['ms']:.2f}",
+          steps=len(pre["ms"]), blocks=",".join(f"{t}x{k}" for t, k in pre["blocks"]),
+          graphs_captured=pre["captures"], replays=pre["replays"],
+          allreduce_calls=f"{pre['reduces']} ({pre['replays']} replays + "
+                          f"{pre['captures']} warm-ups)",
+          ms_per_step=f"{nccl['ms']:.2f}",
           plain_ms_per_step=f"{nccl['plain_ms']:.2f}",
           overhead_ms=f"{nccl['ms'] - nccl['plain_ms']:.2f}",
           allreduce_ms_per_step=f"{nccl['reduce_ms']:.3f}",
@@ -3343,11 +3715,17 @@ def main() -> None:
 
     work = tempfile.TemporaryDirectory()  # the checkpoints, removed at exit
     train = train_phase(os.path.join(work.name, "pretrain"))
+    traced = train["traced"]
     phase("train", seed=train["seed"], steps=train["steps"],
           schedule=",".join(f"{t}x{n}" for t, n in run_lengths(train["schedule"])),
+          **block_fields(train),
           prepare_bev_calls=train["bev"], splat_launches=train["launches"]["splat"],
           dropout_forward_calls=train["drop_fwd"], dropout_backward_calls=train["drop_bwd"],
           dropout_launches=train["launches"]["dropout"],
+          traced_block=f"{traced['task']}x{traced['k']}",
+          traced_ms_per_step=f"{traced['wall_ms'] / traced['k']:.2f}",
+          traced_busy_ms=f"{traced['busy_ms']:.2f}",
+          traced_busy_share=f"{traced['busy_share']:.2%}",
           **{f"ms_per_step_{t}": f"{ms:.2f}" for t, ms in train["ms_per_task"].items()},
           **{f"first_step_ms_{t}": f"{ms:.1f}" for t, ms in train["first_ms"].items()},
           mix=":".join(f"{t}{r:g}" for t, r in train["mix"].items()),
@@ -3357,6 +3735,25 @@ def main() -> None:
           peak_mem_MiB=f"{train['peak_bytes'] / 2**20:.1f}", params=train["n_params"],
           **{k.replace("/", "_"): f"{v:.4g}" for k, v in train["meters"].items()
              if k.endswith(("loss", "grad_norm"))}, ckpt=os.path.basename(train["ckpt"]))
+
+    free_memory()
+    blk = block_phase(os.path.join(work.name, "block"))
+    for arm, ms in blk["ms_per_step"].items():
+        phase("block", arm=arm, tasks=",".join(blk["tasks"]), k=blk["k"], rows=16,
+              ms_per_step=",".join(f"{v:.2f}" for v in ms),
+              samples_per_s=f"{blk['samples_per_s'][arm]:.2f}")
+    phase("block", generator="equal", loss_rel_diff_max=f"{max(blk['loss_rel']):.3e}",
+          loss_rtol=BLOCK_LOSS_RTOL, **agreement_fields(blk), graphs_captured=blk["captures"],
+          capture_s=f"{blk['capture_s']:.2f}",
+          cached_block_splat_launches=blk["launches"]["splat"],
+          cached_block_dropout_launches=blk["launches"]["dropout"],
+          eager_block_splat_launches=blk["eager_launches"]["splat"],
+          eager_block_dropout_launches=blk["eager_launches"]["dropout"],
+          busy_task=blk["busy_task"],
+          graphed_ms_per_step=f"{blk['busy_graphed']['wall_ms'] / blk['k']:.2f}",
+          graphed_busy_share=f"{blk['busy_graphed']['busy_share']:.2%}",
+          eager_ms_per_step=f"{blk['busy_eager']['wall_ms'] / blk['k']:.2f}",
+          eager_busy_share=f"{blk['busy_eager']['busy_share']:.2%}")
 
     free_memory()
     val = validate_phase(train["ckpt"], os.path.join(work.name, "validate"))
@@ -3402,6 +3799,30 @@ def main() -> None:
           grad_norm=",".join(f"{v:.4g}" for v in ft["grad_norms"]),
           sr=f"{m['sr']:.2f}", spl=f"{m['spl']:.2f}", nDTW=f"{m['nDTW']:.2f}",
           test_from_ckpt_latest="equal")
+    free_memory()
+    nav = nav_block_phase(os.path.join(work.name, "nav_block"))
+    for arm, ms in nav["ms_per_update"].items():
+        phase("replay_block", arm=arm, length=nav["length"], rows=4, T=nav["T"],
+              steps=nav["steps"], ms_per_update=",".join(f"{v:.2f}" for v in ms))
+    phase("replay_block", generator="equal", loss_rel_diff_max=f"{max(nav['loss_rel']):.3e}",
+          **agreement_fields(nav), graphs_captured=1,
+          capture_s=f"{nav['capture_s']:.2f}",
+          cached_block_dropout_launches=nav["launches"]["dropout"],
+          eager_dropout_calls=nav["eager_calls"],
+          cached_block_splat_launches=nav["launches"]["splat"],
+          teacher_gathers=nav["teacher"]["gathers"],
+          teacher_splat_launches=nav["teacher"]["launches"],
+          traced_ms_per_update=f"{nav['busy']['wall_ms'] / nav['length']:.2f}",
+          traced_busy_share=f"{nav['busy']['busy_share']:.2%}")
+    for arm, ms in nav["ms_per_episode"].items():
+        phase("rollout_block", arm=arm, episodes=nav["episodes"], rows=4, T=nav["T"],
+              ms_per_episode=",".join(f"{v:.2f}" for v in ms))
+    phase("rollout_block", logit_sum_rel_diff=f"{nav['roll_rel']:.3e}",
+          capture_s=f"{nav['roll_capture_s']:.2f}",
+          splat_launches=nav["roll_launches"]["splat"],
+          dropout_launches=nav["roll_launches"]["dropout"],
+          traced_ms_per_episode=f"{nav['roll_busy']['wall_ms'] / nav['episodes']:.2f}",
+          traced_busy_share=f"{nav['roll_busy']['busy_share']:.2%}")
     work.cleanup()
 
     # R4R and RxR pretraining at their configs' widths and mixes, validating
@@ -3417,6 +3838,7 @@ def main() -> None:
         last = run_["validations"][-1][2]
         phase(label, config=config, seed=run_["seed"], steps=run_["steps"],
               schedule=",".join(f"{t}x{n}" for t, n in run_lengths(run_["schedule"])),
+              **block_fields(run_),
               params=run_["n_params"], prepare_bev_calls=run_["bev"],
               validation_prepare_bev_calls=run_["val_bev"],
               splat_launches=run_["launches"]["splat"],
@@ -3439,6 +3861,7 @@ def main() -> None:
     obj = obj_train_phase(os.path.join(work.name, "pretrain_reverie"))
     phase("obj_train", config=REVERIE_PRETRAIN, seed=obj["seed"], steps=obj["steps"],
           schedule=",".join(f"{t}x{n}" for t, n in run_lengths(obj["schedule"])),
+          **block_fields(obj),
           prepare_bev_calls=obj["bev"], splat_launches=obj["launches"]["splat"],
           dropout_forward_calls=obj["drop_fwd"], dropout_backward_calls=obj["drop_bwd"],
           dropout_launches=obj["launches"]["dropout"],
@@ -3484,6 +3907,7 @@ def main() -> None:
     cep = ce_pretrain_phase(os.path.join(work.name, "ce_pretrain"))
     phase("ce_pretrain", config=CE_PRETRAIN, seed=cep["seed"], steps=cep["steps"],
           schedule=",".join(f"{t}x{n}" for t, n in run_lengths(cep["schedule"])),
+          **block_fields(cep),
           prepare_bev_calls=cep["bev"], splat_launches=cep["launches"]["splat"],
           dropout_forward_calls=cep["drop_fwd"], dropout_backward_calls=cep["drop_bwd"],
           dropout_launches=cep["launches"]["dropout"],
@@ -3587,7 +4011,10 @@ def main() -> None:
          "launches_dp_nccl_finetune": nccl["ft"]["launches"]["splat"],
          "launches_dp_ce_ranks": [r["launches"]["splat"] for r in dce["ranks"]],
          "launches_dp_ce_one": dce["one"]["launches"]["splat"],
-         "launches_dp_nccl_ce": nccl["ce"]["launches"]["splat"]},
+         "launches_dp_nccl_ce": nccl["ce"]["launches"]["splat"],
+         "launches_block_cached": blk["launches"]["splat"],
+         "launches_replay_block_cached": nav["launches"]["splat"],
+         "launches_rollout_block": nav["roll_launches"]["splat"]},
         {**DROPOUT, "launches": train["launches"]["dropout"], **drop_record,
          "bound_by": "bytes", "launches_finetune": ft["launches"]["dropout"],
          "launches_obj_pretrain": obj["launches"]["dropout"],
@@ -3608,7 +4035,10 @@ def main() -> None:
          "launches_dp_nccl_finetune": nccl["ft"]["launches"]["dropout"],
          "launches_dp_ce_ranks": [r["launches"]["dropout"] for r in dce["ranks"]],
          "launches_dp_ce_one": dce["one"]["launches"]["dropout"],
-         "launches_dp_nccl_ce": nccl["ce"]["launches"]["dropout"]},
+         "launches_dp_nccl_ce": nccl["ce"]["launches"]["dropout"],
+         "launches_block_cached": blk["launches"]["dropout"],
+         "launches_replay_block_cached": nav["launches"]["dropout"],
+         "launches_rollout_block": nav["roll_launches"]["dropout"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -851,3 +851,189 @@ def test_two_gloo_ranks_replay_update_matches_one_process_on_card(tmp_path):
         for name, p in one["params"].items():
             torch.testing.assert_close(r["params"][name], p, rtol=0,
                                        atol=2 * cfg.learning_rate + 1e-6)
+
+
+def _small_block_trainers(tmp_path, accumulation=1):
+    """Two identical small float32 trainers on the card (same seed: same
+    parameters and dropout generator), dropout on."""
+    config = tmp_path / f"block{accumulation}.json"
+    config.write_text(json.dumps({
+        "model": {"hidden_size": 64, "num_attention_heads": 2, "intermediate_size": 128,
+                  "num_l_layers": 1, "num_pano_layers": 1, "num_x_layers": 1,
+                  "image_feat_size": 32, "bev_grid_feat_size": 24, "dtype": "float32"},
+        "shapes": {"max_gmap_len": 32, "max_local_len": 8, "max_pano_len": 40,
+                   "num_views": 12, "grid_hw": 4},
+        "optim": {"warmup_steps": 2, "learning_rate": 1e-3,
+                  "gradient_accumulation_steps": accumulation},
+    }))
+    return [pretrain.build(pretrain.parse_args([
+        "--synthetic", "--device", "cuda", "--batch_size", "2", "--config", str(config),
+        "--seed", "4", "--output_dir", str(tmp_path / f"run{i}")])) for i in range(2)]
+
+
+def _replayed_losses(monkeypatch):
+    """Record each pretraining graph replay's loss (a clone) into a list."""
+    from vln_bevbert_tpu_torch.utils import graphs
+
+    losses, replay = [], graphs.Graph.replay
+
+    def recorded(self):
+        out = replay(self)
+        losses.append(out["loss"].clone())
+        return out
+
+    monkeypatch.setattr(graphs.Graph, "replay", recorded)
+    return losses
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accumulation", [1, 2])
+def test_small_graphed_block_matches_eager_steps_on_card(tmp_path, monkeypatch, accumulation):
+    """A small configuration's blocks (mlm then sap, 4 steps each) as graph
+    replays against the same steps run eagerly from the same state: the
+    dropout generators end in the same state (equal seeds drawn), losses at
+    every step and parameters agree to float32 summation order (the splat's
+    atomics), with and without gradient accumulation (two graphs a task)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from vln_bevbert_tpu_torch.pretrain.trainer import pad_block
+
+    eager, graphed = _small_block_trainers(tmp_path, accumulation)
+    losses = _replayed_losses(monkeypatch)
+    want = []
+    for offset, task in ((0, "mlm"), (4, "sap")):
+        batches = pad_block([eager.train_loader.build_batch(offset + i, task=task)[1]
+                             for i in range(4)])
+        for b in batches:
+            want.append(eager.step_fn(eager.state, upload(b, torch.device("cuda")), task)["loss"])
+        graphed.block_fn(graphed.state, batches, task, 4, stacked=True)
+    cache = graphed.block_fn.graphs
+    assert cache.captures == 2 * accumulation and cache.replays == 8
+    assert graphed.state.step == eager.state.step == 8
+    assert graphed.state.tx.count == eager.state.tx.count == 8 // accumulation
+    gen = lambda t: t.model.feat_dropout.generator.get_state()  # noqa: E731
+    assert torch.equal(gen(graphed), gen(eager))
+    torch.testing.assert_close(torch.stack(losses), torch.stack(want), rtol=1e-4, atol=0)
+    for a, b in zip(graphed.model.parameters(), eager.model.parameters()):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_replays_are_counted_in_launch_count_on_card(tmp_path):
+    """The kernels count the launches that ran, on the device: a capture
+    counts none and every replay counts its own. A first block of 1 step
+    launches the warm-up's and the replay's splat; a cached block of 5
+    launches 5 splats and 5 times the dropout launches of an eager step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    trainer, eager = _small_block_trainers(tmp_path)
+    _, batch = trainer.train_loader.build_batch(0, task="sap")
+    _build.reset_launches()
+    eager.step_fn(eager.state, upload(batch, torch.device("cuda")), "sap")
+    per_step = {k: _build.launches(k) for k in ("splat", "dropout")}
+    assert per_step["splat"] == 1 and per_step["dropout"] > 0
+    _build.reset_launches()
+    trainer.block_fn(trainer.state, batch, "sap", 1)  # warm-up, capture, one replay
+    assert _build.launches("splat") == 2
+    _build.reset_launches()
+    trainer.block_fn(trainer.state, batch, "sap", 5)
+    assert torch.ops.bevbert.launch_count("splat") == 5
+    assert _build.launches("dropout") == 5 * per_step["dropout"]
+    assert trainer.block_fn.graphs.captures == 1
+
+
+@pytest.mark.cuda
+def test_evicted_graphs_are_captured_again_and_match_eager_steps_on_card(tmp_path,
+                                                                         monkeypatch):
+    """A block step that keeps one graph, fed mlm, sap, mlm blocks: each
+    block evicts the other task's graph and captures its own again (the
+    warm-up before each capture restores the state), and the losses and
+    parameters still follow the eager steps from the same state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from vln_bevbert_tpu_torch.parallel.train_step import make_pretrain_block_step
+    from vln_bevbert_tpu_torch.pretrain.trainer import pad_block
+
+    eager, graphed = _small_block_trainers(tmp_path)
+    block = make_pretrain_block_step(graphed.model, graphed.projector, graphed.state,
+                                     max_graphs=1)
+    losses = _replayed_losses(monkeypatch)
+    want = []
+    for offset, task in ((0, "mlm"), (2, "sap"), (4, "mlm")):
+        batches = pad_block([eager.train_loader.build_batch(offset + i, task=task)[1]
+                             for i in range(2)])
+        for b in batches:
+            want.append(eager.step_fn(eager.state, upload(b, torch.device("cuda")), task)["loss"])
+        block(graphed.state, batches, task, 2, stacked=True)
+    counters = block.graphs.counters()
+    assert (counters["captures"], counters["evictions"], counters["graphs"]) == (3, 2, 1)
+    gen = lambda t: t.model.feat_dropout.generator.get_state()  # noqa: E731
+    assert torch.equal(gen(graphed), gen(eager))
+    torch.testing.assert_close(torch.stack(losses), torch.stack(want), rtol=1e-4, atol=0)
+    for a, b in zip(graphed.model.parameters(), eager.model.parameters()):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_block_raises_under_a_gloo_group_on_card(tmp_path):
+    """gloo cannot run its collectives inside a CUDA graph: a block on CUDA
+    tensors under a gloo group raises and names it, before any capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from vln_bevbert_tpu_torch.parallel import distributed
+
+    trainer, _ = _small_block_trainers(tmp_path)
+    _, batch = trainer.train_loader.build_batch(0, task="sap")
+    distributed.initialize("cuda:0", backend="gloo", rank=0, world_size=1,
+                           init_method="file://" + str(tmp_path / "store"))
+    try:
+        with pytest.raises(RuntimeError, match="gloo"):
+            trainer.block_fn(trainer.state, batch, "sap", 2)
+        assert trainer.block_fn.graphs.captures == 0 and trainer.state.step == 0
+    finally:
+        distributed.shutdown()
+
+
+@pytest.mark.cuda
+def test_small_graphed_replay_and_rollout_blocks_match_eager_on_card():
+    """A small float32 replay block (3 updates over one bundle, dropout on)
+    as graph replays against the same updates run eagerly by an identical
+    agent: equal generator states, losses and parameters to float32
+    summation order; the rollout block's logit sum (2 episodes, eval mode)
+    as a graph against its eager episodes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from vln_bevbert_tpu.configs import FinetuneConfig, ModelConfig, ShapeConfig
+    from vln_bevbert_tpu.data.synthetic import synthetic_replay_bundle
+    from vln_bevbert_tpu_torch.nav.agent import (
+        make_replay_agent,
+        make_replay_block,
+        make_rollout_block,
+    )
+    from vln_bevbert_tpu_torch.parallel.train_step import dropout_generators
+
+    cfg = FinetuneConfig(
+        model=ModelConfig(hidden_size=64, num_attention_heads=2, intermediate_size=128,
+                          num_l_layers=1, num_pano_layers=1, num_x_layers=1,
+                          image_feat_size=32, bev_grid_feat_size=24, dtype="float32"),
+        shapes=ShapeConfig(max_txt_len=32, max_pano_len=12, max_gmap_len=16,
+                           max_local_len=6),
+        batch_size=2, max_action_len=5, learning_rate=1e-4,
+    )
+    eager, graphed = (make_replay_agent(cfg, cfg.batch_size, seed=3, device="cuda")
+                      for _ in range(2))
+    rb = synthetic_replay_bundle(np.random.default_rng(3), cfg, cfg.batch_size)
+    want = make_replay_block(eager, 3).eager(rb)
+    block = make_replay_block(graphed, 3)
+    got = block(rb)
+    assert block.graphs.captures == 1 and block.graphs.replays == 3
+    gen = lambda a: dropout_generators(a.model)[0].get_state()  # noqa: E731
+    assert torch.equal(gen(graphed), gen(eager))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+    for a, b in zip(graphed.model.parameters(), eager.model.parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    roll = make_rollout_block(graphed, 2)
+    torch.testing.assert_close(roll(rb), roll.eager(rb), rtol=1e-5, atol=0)
+    assert roll.graphs.replays == 2 and not graphed.model.training

@@ -15,7 +15,10 @@ Tolerances: parameters after every call within rtol 1e-5, atol 1e-7 (float32
 in another order: optax evaluates scalars such as ``b2**t`` and the
 schedule in float32, the port in float64); a call that does not update
 leaves every parameter bit-equal; a run checkpointed after 3 calls and
-resumed in a fresh state ends bit-equal to the unbroken run.
+resumed in a fresh state ends bit-equal to the unbroken run; the device
+work of a call alone (``apply_gradients(moves)``, what a CUDA graph
+captures), with the host counts left at 0, moves the parameters bit for bit
+as the whole call does.
 """
 
 import jax
@@ -210,3 +213,27 @@ def test_checkpoints_of_earlier_releases_still_load(tmp_path):
         port_call(resumed, state2, g)
     for p, q in zip(model.parameters(), resumed.parameters()):
         assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("name", ["adamw"] + NAMES)
+def test_device_update_reads_no_host_count(name, k):
+    """What a captured graph replays: ``apply_gradients(moves)`` with the
+    host counts never advanced (a graph captured at call 0 would freeze
+    every host value it read) moves the parameters bit for bit as
+    ``apply_gradients`` does, for every call of 7 updates: the schedule,
+    bias corrections, rectification, lookahead's sync and the accumulation
+    mean come from the device counts alone."""
+    _, cfg = configs(name, k, "linear")
+    eager, graphed = make_tiny(), make_tiny()
+    s_eager, s_graphed = TrainState(eager, cfg), TrainState(graphed, cfg)
+    for i, g in enumerate(grad_trees(module_to_flax(eager), UPDATES * k)):
+        port_call(eager, s_eager, g)
+        named = dict(graphed.named_parameters())
+        for n, grad in flax_to_state_dict(g).items():
+            named[n].grad.copy_(grad)
+        s_graphed.apply_gradients(moves=(i + 1) % k == 0)
+        for p, q in zip(graphed.parameters(), eager.parameters()):
+            assert torch.equal(p, q), (name, k, i)
+    assert (s_graphed.tx.count, s_graphed.tx.mini_step) == (0, 0)
+    assert int(s_graphed.tx.count_on_device) == s_eager.tx.count == UPDATES

@@ -70,11 +70,16 @@ def _leaf(tree, path):
 
 @pytest.mark.parametrize("kind", ["linear", "noam"])
 def test_lr_schedule_matches_optax(kind):
+    """At an int step (the host's logs) and at an int64 step tensor (what the
+    update reads from its device count)."""
     cfg = OptimConfig(lr_schedule=kind, warmup_steps=4, num_train_steps=12)
     ref, ours = jax_lr_schedule(cfg), lr_schedule(cfg)
     for step in range(16):
-        np.testing.assert_allclose(ours(step), float(ref(jnp.asarray(step))),
-                                   rtol=1e-6, atol=1e-12, err_msg=f"step {step}")
+        want = float(ref(jnp.asarray(step)))
+        np.testing.assert_allclose(ours(step), want, rtol=1e-6, atol=1e-12,
+                                   err_msg=f"step {step}")
+        np.testing.assert_allclose(float(ours(torch.tensor(step))), want, rtol=1e-6,
+                                   atol=1e-12, err_msg=f"step {step}")
 
 
 @pytest.fixture(scope="module")

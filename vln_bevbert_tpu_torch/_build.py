@@ -4,7 +4,9 @@
 launch functions (``csrc/kernels.h``) that include no PyTorch header, so
 ``nvcc`` compiles them in seconds; ``csrc/ops.cpp`` binds them as
 ``torch.ops.bevbert.*`` operators with ``TORCH_LIBRARY`` (checks, outputs,
-the current stream, the dropout's autograd, the launch counters).
+the current stream, the dropout's autograd, the launch counters). The
+kernels count their own launches in device memory, so a CUDA graph's
+replays are counted where they run.
 
 At first use the three sources are compiled in parallel, one ``nvcc`` each
 (``sm_90a`` for the kernels; the binding against the installed torch's
@@ -120,8 +122,9 @@ def load():
 
 def launches(kernel: str) -> int:
     """Launches of ``kernel`` ("splat" or "dropout", forward and backward)
-    since the library was loaded or the counts were reset; 0 before it is
-    loaded, since nothing can have launched."""
+    that ran on the current device since the library was loaded or the
+    counts were reset, graph replays included; 0 before it is loaded, since
+    nothing can have launched. Synchronises the device."""
     if load.cache_info().currsize == 0:
         return 0
     return torch.ops.bevbert.launch_count(kernel)
@@ -131,3 +134,4 @@ def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     if load.cache_info().currsize:
         torch.ops.bevbert.reset_launch_counts()
+

@@ -27,7 +27,8 @@ compare, a select that saves a bool mask for its backward), in one process:
 1. at the step's three largest dropout sites (attention probabilities,
    hidden activations, BEV features), device ms per call of the kernel, the
    eager dropout and PyTorch's fused ``F.dropout`` (torch.profiler);
-2. the trainer's own ``train()`` over ``--ab_steps`` steps in four arms,
+2. the trainer's own ``train()`` (its per-step loop, ``task_block_size``
+   1) over ``--ab_steps`` steps in four arms,
    kernel, eager, eager, kernel, each over the same batches (``--seed 16``
    by default, whose schedule runs each task eight times in 24 steps):
    ms/step per task by CUDA events around each step, without each task's
@@ -127,9 +128,11 @@ def site_ab(trainer) -> list:
 
 def train_arm(trainer, steps: int, eager: bool) -> dict:
     """``trainer.train()`` over ``steps`` more steps, with the kernel or the
-    eager dropout, timed per step by CUDA events (host clock off the card)."""
+    eager dropout, timed per step by CUDA events (host clock off the card).
+    The arm runs the per-step loop (``task_block_size`` 1), whose every step
+    calls ``step_fn``."""
     cuda = trainer.device.type == "cuda"
-    step_fn, seen = trainer.step_fn, []
+    step_fn, seen, block_size = trainer.step_fn, [], trainer.cfg.task_block_size
 
     def mark():
         if not cuda:
@@ -145,7 +148,7 @@ def train_arm(trainer, steps: int, eager: bool) -> dict:
         return metrics
 
     forward = drop_mod.Dropout.forward
-    trainer.step_fn = timed_step
+    trainer.step_fn, trainer.cfg.task_block_size = timed_step, 1
     if eager:
         drop_mod.Dropout.forward = eager_dropout_forward
     try:
@@ -159,6 +162,7 @@ def train_arm(trainer, steps: int, eager: bool) -> dict:
         launches = _build.launches("dropout") - launches
     finally:
         trainer.step_fn, drop_mod.Dropout.forward = step_fn, forward
+        trainer.cfg.task_block_size = block_size
     per_task, first = {}, set()
     for task, start, end in seen:
         if task in first:

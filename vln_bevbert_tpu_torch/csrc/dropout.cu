@@ -75,11 +75,16 @@ __device__ __forceinline__ T apply(T x, uint32_t bits, uint32_t thresh, float sc
 // Four consecutive elements as one aligned vector access.
 template <typename T> struct alignas(4 * sizeof(T)) Vec4 { T v[4]; };
 
+// Launches that ran on this device: block 0's thread 0 adds one, so a launch
+// recorded in a CUDA graph counts at every replay (kernels.h).
+__device__ unsigned long long executed_launches = 0;
+
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 dropout_kernel(const T* __restrict__ x, T* __restrict__ y,
                const uint32_t* __restrict__ seeds, long long rows,
                long long row_len, uint32_t thresh, float scale) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&executed_launches, 1ull);
   const long long groups = (row_len + 3) / 4;
   const long long total = rows * groups;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -136,6 +141,16 @@ cudaError_t launch_dropout(const void* x, void* y, const int32_t* seeds,
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+cudaError_t dropout_launches(unsigned long long* count, bool reset) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err != cudaSuccess) return err;
+  if (reset) {
+    const unsigned long long zero = 0;
+    return cudaMemcpyToSymbol(executed_launches, &zero, sizeof zero);
+  }
+  return cudaMemcpyFromSymbol(count, executed_launches, sizeof *count);
 }
 
 }  // namespace bevbert

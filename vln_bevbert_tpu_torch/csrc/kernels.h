@@ -49,4 +49,13 @@ struct SplatArgs {
 // num_cells <= 1024, B * T * P < 2^31, checked by the caller.
 cudaError_t launch_splat(const SplatArgs& args, cudaStream_t stream);
 
+// The launches of each kernel that ran on the current device since the
+// library was loaded or the last reset, counted by the kernel itself in
+// device memory: a launch recorded in a CUDA graph counts at every replay,
+// and a launch queued but not yet run counts once it has run. Each call
+// synchronises the device first, then reads the count into *count or, with
+// reset, sets it to 0.
+cudaError_t dropout_launches(unsigned long long* count, bool reset);
+cudaError_t splat_launches(unsigned long long* count, bool reset);
+
 }  // namespace bevbert

@@ -8,7 +8,10 @@
 //       splat.cu on CUDA tensors: (B, num_cells, F + num_sem + 1) float32,
 //       a view of rows padded to whole 8-column groups;
 //   launch_count(str kernel) -> int, reset_launch_counts() -> ()
-//       the launches of "dropout" (forward and backward) and "splat".
+//       the launches of "dropout" (forward and backward) and "splat" that
+//       ran on the current device, counted by the kernels themselves
+//       (kernels.h), so a CUDA graph's replays count and its capture does
+//       not; both synchronise the device.
 //
 // Each operator checks its tensors, allocates its outputs and scratch with
 // PyTorch's allocator, launches on PyTorch's current stream without
@@ -35,9 +38,6 @@
 
 namespace bevbert {
 namespace {
-
-std::atomic<int64_t> dropout_launches{0};
-std::atomic<int64_t> splat_launches{0};
 
 constexpr int64_t kMaxCells = 1024;  // splat.cu: one scan thread a cell
 
@@ -84,7 +84,6 @@ at::Tensor seeded_dropout_cuda(const at::Tensor& x, const at::Tensor& seeds, dou
   C10_CUDA_CHECK(launch_dropout(x.data_ptr(), y.data_ptr(), seeds.data_ptr<int32_t>(), rows,
                                 row_len, thresh, scale, x.scalar_type() == at::kBFloat16,
                                 vec, grid, c10::cuda::getCurrentCUDAStream().stream()));
-  dropout_launches.fetch_add(1, std::memory_order_relaxed);
   return y;
 }
 
@@ -189,19 +188,19 @@ at::Tensor splat_sums_cuda(const at::Tensor& cell, const at::Tensor& feats,
   args.points_per_step = static_cast<int>(points_per_step);
   args.sel_len = static_cast<int>(sel_len);
   C10_CUDA_CHECK(launch_splat(args, c10::cuda::getCurrentCUDAStream().stream()));
-  splat_launches.fetch_add(1, std::memory_order_relaxed);
   return out.narrow(2, 0, d);
 }
 
 int64_t launch_count(c10::string_view kernel) {
-  if (kernel == "dropout") return dropout_launches.load();
-  TORCH_CHECK_VALUE(kernel == "splat", "launch_count: no kernel named ", kernel);
-  return splat_launches.load();
+  TORCH_CHECK_VALUE(kernel == "dropout" || kernel == "splat", "no kernel named ", kernel);
+  unsigned long long n = 0;
+  C10_CUDA_CHECK(kernel == "dropout" ? dropout_launches(&n, false) : splat_launches(&n, false));
+  return static_cast<int64_t>(n);
 }
 
 void reset_launch_counts() {
-  dropout_launches.store(0);
-  splat_launches.store(0);
+  C10_CUDA_CHECK(dropout_launches(nullptr, true));
+  C10_CUDA_CHECK(splat_launches(nullptr, true));
 }
 
 }  // namespace

@@ -107,10 +107,18 @@ __device__ __forceinline__ int valid_cell(int c, int num_cells) {
   return (c >= 0 && c < num_cells) ? c : -1;
 }
 
+// Launches of splat_sums that ran on this device: the first kernel's block
+// (0, 0) adds one, so a launch recorded in a CUDA graph counts at every
+// replay (kernels.h).
+__device__ unsigned long long executed_launches = 0;
+
 __global__ void __launch_bounds__(kChunk)
 splat_hist_kernel(const int32_t* __restrict__ cell, int32_t* __restrict__ hist,
                   int n_points, int num_cells) {
   __shared__ int h[kChunk];  // num_cells <= kChunk
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+    atomicAdd(&executed_launches, 1ull);
+  }
   if (threadIdx.x < num_cells) h[threadIdx.x] = 0;
   __syncthreads();
   const int k = blockIdx.x, b = blockIdx.y;
@@ -366,6 +374,16 @@ cudaError_t launch_splat(const SplatArgs& a, cudaStream_t stream) {
     case kSplatF32: return launch_reduce<float>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+cudaError_t splat_launches(unsigned long long* count, bool reset) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err != cudaSuccess) return err;
+  if (reset) {
+    const unsigned long long zero = 0;
+    return cudaMemcpyToSymbol(executed_launches, &zero, sizeof zero);
+  }
+  return cudaMemcpyFromSymbol(count, executed_launches, sizeof *count);
 }
 
 }  // namespace bevbert

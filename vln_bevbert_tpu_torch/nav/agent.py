@@ -24,8 +24,13 @@ adds the object cross-entropy against ``_teacher_object``.
 
 The host helpers (``_language_variable`` ... ``_make_equiv_action``) repeat
 the JAX agent's: the port imports nothing of the JAX package. The
-teacher-recollection store is ``nav/recollection.py``; the scan-block bench
-probes are not ported yet.
+teacher-recollection store is ``nav/recollection.py``.
+
+``make_replay_block`` and ``make_rollout_block`` are the JAX package's
+``lax.scan`` blocks (a replay-training inner loop over one fixed bundle, and
+the device envelope of the rollout's forward chain): on the card one update
+(or one episode) is captured into a CUDA graph (``utils/graphs.py``) and
+replayed; on the CPU they run eagerly.
 
 Data parallelism (JAX's ``mesh=``; the reference fine-tunes under DDP,
 agent_base.py:121-123): rank ``rank`` of ``world`` processes acts in an env
@@ -46,7 +51,7 @@ from __future__ import annotations
 import contextlib
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -66,7 +71,13 @@ from ..ops.dropout import set_dropout_generator, step_rows
 from ..parallel import distributed
 from ..parallel.mesh import replicate_module
 from ..parallel.optim import finetune_optim
-from ..parallel.train_step import TrainState, load_checkpoint, save_checkpoint
+from ..parallel.train_step import (
+    TrainState,
+    dropout_generators,
+    load_checkpoint,
+    save_checkpoint,
+)
+from ..utils import graphs
 from ..utils.device import to_device
 from ..utils.rng import make_generator, train_generator
 from .env import R2RNavBatch
@@ -77,6 +88,10 @@ IGNORE_ID = -100
 FEEDBACKS = ("argmax", "teacher", "sample", "expl_sample")
 # the supervised and acted-on head per fusion mode
 LOGITS_KEY = {"local": "local_logits", "global": "global_logits", "avg": "fused_logits"}
+
+
+def _on_host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 @dataclass
@@ -827,7 +842,20 @@ class GMapNavAgent:
         rb["step_idx"] = np.arange(T, dtype=np.int32)
         return self.learn_from_bundle(rb)
 
-    def _episode_loss(self, rb: Mapping[str, Any]) -> torch.Tensor:
+    def _replay_skip(self, rb: Mapping[str, Any]) -> np.ndarray:
+        """(T,) bool: the bundle's steps whose targets are IGNORE_ID in every
+        row of every rank (the padding after an episode's last step). Such a
+        step adds exactly zero to the loss and the gradient: the JAX scan
+        runs it, the port skips it. Over every rank's rows, so that a rank
+        runs a step another rank needs and its dropout generator advances as
+        the one process's does."""
+        ignored = _on_host(rb["targets"]) == IGNORE_ID
+        if "obj_fts" in rb:
+            ignored &= _on_host(rb["obj_targets"]) == IGNORE_ID
+        return self._all_ranks(ignored.all(axis=1))
+
+    def _episode_loss(self, rb: Mapping[str, Any],
+                      skip: Optional[np.ndarray] = None) -> torch.Tensor:
         """The episode's imitation loss, differentiable in the parameters, in
         the model's current mode (the replay runs it in training mode).
 
@@ -841,7 +869,9 @@ class GMapNavAgent:
         (the step's object slots of the masked pano tokens are the local
         branch's object tokens); the total is scaled by ``ml_weight / B``.
         Under data parallelism ``rb`` holds this rank's rows, B is the global
-        batch, and the panorama's T*B rows are step-major for dropout."""
+        batch, and the panorama's T*B rows are step-major for dropout.
+        ``skip`` (``_replay_skip``'s, computed from ``rb`` when None) names
+        the steps left out; with it the loss reads nothing on the host."""
         cfg = self.cfg
         use_bev = cfg.model.use_bev
         dev = {k: self._upload(v) for k, v in rb.items()}
@@ -861,15 +891,8 @@ class GMapNavAgent:
         steps = (pano_embeds * pano_masks[..., None]).reshape(T, B, P, D)
         tokens = steps.transpose(0, 1).reshape(B, T * P, D).float()
         logits_key = LOGITS_KEY[cfg.fusion] if use_bev else "global_logits"
-        ignored = np.asarray(rb["targets"]) == IGNORE_ID
-        if with_objects:
-            ignored &= np.asarray(rb["obj_targets"]) == IGNORE_ID
-        # a step whose targets are all IGNORE_ID (the padding after an
-        # episode's last step) adds exactly zero to the loss and the
-        # gradient: the JAX scan runs it, the port skips it. Over every
-        # rank's rows: a rank runs a step that another rank needs, so that
-        # its dropout generator advances as the one process's does
-        skip = self._all_ranks(ignored.all(axis=1))
+        if skip is None:
+            skip = self._replay_skip(rb)
         total = torch.zeros((), device=self.device)
         for t in range(T):
             if skip[t]:
@@ -911,17 +934,25 @@ class GMapNavAgent:
         over the data-parallel ranks, the float32 global-norm clip and AdamW.
         Reads back once, as the JAX agent reads its loss: the (global) loss
         and the gradient norm, appended to ``logs``."""
-        state = self.train_state
-        with self._training():
-            loss = self._episode_loss(rb)
-        loss.backward()
-        state.all_reduce_grads()
-        gnorm = state.apply_gradients()
-        loss = distributed.all_reduce_(loss.detach())
+        loss, gnorm = self._replay_update(rb)
         loss_val, gnorm_val = torch.stack([loss, gnorm]).tolist()
         self.logs["IL_loss"].append(loss_val)
         self.logs["grad_norm"].append(gnorm_val)
         return loss_val
+
+    def _replay_update(self, rb: Mapping[str, Any], skip: Optional[np.ndarray] = None,
+                       moves: Optional[bool] = None):
+        """(global loss, gradient norm) of one replay update, device
+        tensors; ``moves`` as ``TrainState.apply_gradients`` takes it (given,
+        a graph can capture the update and the caller advances the host
+        counts)."""
+        state = self.train_state
+        with self._training():
+            loss = self._episode_loss(rb, skip)
+        loss.backward()
+        state.all_reduce_grads()
+        gnorm = state.apply_gradients(moves)
+        return distributed.all_reduce_(loss.detach()), gnorm
 
     def train_iters(self, n_iters: int, feedback: str = "sample") -> List[float]:
         """``n_iters`` training rollouts, each followed by its replay update;
@@ -986,3 +1017,121 @@ def make_replay_agent(cfg: FinetuneConfig, batch_size: int, seed: int = 0,
     agent = GMapNavAgent(cfg, _EnvStub(batch_size), seed=seed, device=device)
     agent.init_params()
     return agent
+
+
+def make_replay_block(agent: GMapNavAgent, length: int) -> Callable[[Mapping[str, Any]],
+                                                                     torch.Tensor]:
+    """``length`` replay updates of ``learn_from_bundle`` over one fixed
+    bundle (JAX ``make_replay_block``): returns ``block(rb)`` -> the
+    (global) losses, a (length,) device tensor; nothing reads back.
+
+    The bundle is uploaded once. On the card the update (the episode loss
+    with its dropout kernels, forward and backward, the gradient
+    all-reduce, the clip and AdamW) is captured into a CUDA graph per
+    (bundle signature, skipped steps, whether it moves the parameters) and
+    replayed ``length`` times; the splat does not run (the bundle carries
+    ``bev_fts``). On the CPU the updates run eagerly, as ``block.eager``
+    runs them on any device."""
+    device = agent.device
+    cache = graphs.GraphCache()
+
+    def eager(rb: Mapping[str, Any]) -> torch.Tensor:
+        skip = agent._replay_skip(rb)
+        dev = {k: agent._upload(v) for k, v in rb.items()}
+        return torch.stack([agent._replay_update(dev, skip)[0] for _ in range(length)])
+
+    def block(rb: Mapping[str, Any]) -> torch.Tensor:
+        if device.type != "cuda":
+            return eager(rb)
+        state = agent.train_state
+        skip = agent._replay_skip(rb)
+        losses, loaded = [], set()  # the bundle is copied in once
+        for _ in range(length):
+            moves = state.tx.moves_next
+            loss, _ = cache.step((graphs.signature(rb), tuple(skip.tolist()), moves), rb, device,
+                                 lambda inputs: agent._replay_update(inputs, skip, moves),
+                                 state.device_state(), dropout_generators(agent.model), loaded)
+            losses.append(loss.clone())
+            state.tx.advance(moves)
+        return torch.stack(losses)
+
+    block.graphs, block.eager = cache, eager
+    return block
+
+
+def make_rollout_block(agent: GMapNavAgent, episodes: int) -> Callable[[Mapping[str, Any]],
+                                                                        torch.Tensor]:
+    """The device envelope of the live rollout's forward chain (JAX
+    ``make_rollout_block``): returns ``block(rb)`` -> the sum over
+    ``episodes`` episodes of the fused (or, without the BEV branch, global)
+    navigation logits, a device scalar. An episode runs the language
+    encoder once, then per step the panorama encoder, the step's tokens
+    written into a (B, T, P, D) float32 buffer at ``step_idx``, the
+    ``gmap_agg`` contraction over that buffer and the navigation model, in
+    eval mode under ``inference_mode``, so no kernel runs. On the card one
+    episode is captured into a CUDA graph and replayed ``episodes`` times;
+    on the CPU the episodes run eagerly, as ``block.eager`` runs them on any
+    device."""
+    model, device = agent.model, agent.device
+    use_bev = agent.cfg.model.use_bev
+    hidden = agent.cfg.model.hidden_size
+    pano_keys = ("view_fts", "loc_fts", "nav_types", "view_lens")
+    nav_keys = ("gmap_step_ids", "gmap_pos_fts", "gmap_masks", "gmap_pair_dists",
+                "gmap_visited_masks")
+    bev_keys = ("bev_fts", "bev_pos_fts", "bev_nav_masks", "bev_cand_idxs", "local_masks",
+                "fuse_map")
+    cache = graphs.GraphCache()
+
+    def episode(dev: Dict[str, torch.Tensor]) -> torch.Tensor:
+        T, B = dev["targets"].shape[0], dev["txt_ids"].shape[0]
+        txt_embeds = model("language", {"txt_ids": dev["txt_ids"],
+                                        "txt_masks": dev["txt_masks"]})
+        buf = torch.zeros(B, T, dev["view_fts"].shape[2], hidden, device=device)
+        acc = torch.zeros((), device=device)
+        for t in range(T):
+            pano_embeds, pano_masks = model("panorama", {k: dev[k][t] for k in pano_keys})
+            tok = (pano_embeds * pano_masks[..., None]).float()
+            buf.index_copy_(1, dev["step_idx"][t:t + 1].long(), tok[:, None])
+            nav_in = {"txt_embeds": txt_embeds, "txt_masks": dev["txt_masks"],
+                      "gmap_img_embeds": torch.matmul(dev["gmap_agg"][t].float(),
+                                                      buf.reshape(B, -1, hidden)),
+                      **{k: dev[k][t] for k in nav_keys}}
+            if use_bev:
+                nav_in.update({k: dev[k][t] for k in bev_keys})
+                nav_in["bev_masks"] = torch.ones(dev["bev_fts"].shape[1:3], dtype=torch.bool,
+                                                 device=device)
+            outs = model("navigation", nav_in)
+            acc = acc + outs["fused_logits" if use_bev else "global_logits"].float().sum()
+        return acc
+
+    def in_eval(fn):
+        @torch.inference_mode()
+        def run(rb: Mapping[str, Any]) -> torch.Tensor:
+            training = model.training
+            model.eval()
+            try:
+                return fn(rb)
+            finally:
+                model.train(training)
+        return run
+
+    @in_eval
+    def eager(rb: Mapping[str, Any]) -> torch.Tensor:
+        dev = {k: agent._upload(v) for k, v in rb.items()}
+        total = torch.zeros((), device=device)
+        for _ in range(episodes):
+            total += episode(dev)
+        return total
+
+    @in_eval
+    def graphed(rb: Mapping[str, Any]) -> torch.Tensor:
+        total, loaded = torch.zeros((), device=device), set()
+        for _ in range(episodes):
+            total += cache.step(graphs.signature(rb), rb, device, episode, loaded=loaded)
+        return total
+
+    def block(rb: Mapping[str, Any]) -> torch.Tensor:
+        return graphed(rb) if device.type == "cuda" else eager(rb)
+
+    block.graphs, block.eager = cache, eager
+    return block

@@ -39,8 +39,17 @@ as ``torch._foreach_*`` tensor ops over a list of float32 parameters.
   parameters. The schedule, the bias corrections and lookahead's sync run
   on the update count ``count``, not on calls.
 
-The update count and the learning rate live on the host, so an update
-queues device work and reads nothing back. The JAX package's low-precision
+The update count lives twice: as the host ints ``count`` and ``mini_step``
+(``TrainState.step``, checkpoints and logs read them) and as device
+scalars, from which the update computes the learning rate, the bias
+corrections, radam's and ralamb's rectification, lookahead's sync and the
+accumulation mean as tensor ops. So an update queues device work, reads
+nothing back and reads no host int: a CUDA graph captured from it computes
+the right values at every replay (``torch.optim``'s ``capturable=True``).
+``update`` decides on the host whether the call moves the parameters and
+then ``advance``s the host ints; a graph captures ``update(grads, moves)``,
+which leaves them, and its caller advances them after each replay. The JAX
+package's low-precision
 update paths (``scale_by_adam_lp``, ``fused_adamw_clip``) are not ported:
 a config that selects one raises, naming its fields.
 
@@ -52,8 +61,7 @@ every parameter.
 
 from __future__ import annotations
 
-import math
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -73,30 +81,44 @@ EMA_DECAY = 0.5
 Tensors = List[torch.Tensor]
 
 
-def lr_schedule(cfg: OptimConfig) -> Callable[[int], float]:
+def lr_schedule(cfg: OptimConfig) -> Callable:
     """step -> learning rate: "linear" warmup from 0 then linear decay to 0
     at ``num_train_steps`` (optax.join_schedules of two linear schedules),
-    "noam", or "constant"."""
+    "noam", or "constant". Computed as float64 tensor ops: an int64 step
+    tensor gives the rate on its device, so that an update reads its step
+    from a device scalar and a captured graph reads it at replay (both
+    branches of a schedule are computed and one is kept); an int step gives
+    a Python float."""
     lr, warmup, total = cfg.learning_rate, cfg.warmup_steps, cfg.num_train_steps
     if cfg.lr_schedule == "constant":
-        return lambda step: lr
-    if cfg.lr_schedule == "linear":
+
+        def sched(s: torch.Tensor) -> torch.Tensor:
+            return torch.full((), lr, dtype=torch.float64, device=s.device)
+
+    elif cfg.lr_schedule == "linear":
         decay_steps = max(total - warmup, 1)
 
-        def linear(step: int) -> float:
-            if step < warmup:
-                return lr * step / warmup
-            return lr * (1.0 - min(step - warmup, decay_steps) / decay_steps)
+        def sched(s: torch.Tensor) -> torch.Tensor:
+            s = s.double()
+            up = lr * s / max(warmup, 1)
+            down = lr * (1.0 - torch.clamp(s - warmup, max=decay_steps) / decay_steps)
+            return torch.where(s < warmup, up, down)
 
-        return linear
-    if cfg.lr_schedule == "noam":
+    elif cfg.lr_schedule == "noam":
 
-        def noam(step: int) -> float:
-            s = max(step, 1)
-            return lr * warmup ** 0.5 * min(s ** -0.5, s * warmup ** -1.5)
+        def sched(s: torch.Tensor) -> torch.Tensor:
+            s = s.double().clamp_min(1.0)
+            return lr * warmup ** 0.5 * torch.minimum(s ** -0.5, s * warmup ** -1.5)
 
-        return noam
-    raise ValueError(cfg.lr_schedule)
+    else:
+        raise ValueError(cfg.lr_schedule)
+
+    def schedule(step):
+        if isinstance(step, torch.Tensor):
+            return sched(step)
+        return float(sched(torch.tensor(step, dtype=torch.int64)))
+
+    return schedule
 
 
 def finetune_optim(cfg: FinetuneConfig) -> OptimConfig:
@@ -174,6 +196,11 @@ class Optimizer:
         self.acc = self._zeros(torch.float32) if self.k > 1 else []
         self.count = 0      # updates applied (optax's inner ``count``)
         self.mini_step = 0  # calls folded into ``acc`` since the last update
+        # the same two counts on the parameters' device, read by the update
+        device = self.params[0].device
+        self.count_on_device = torch.zeros((), dtype=torch.int64, device=device)
+        self.mini_step_on_device = torch.zeros((), dtype=torch.int64, device=device)
+        self._t: torch.Tensor = self.count_on_device  # float64 count of the update being made
 
     def _zeros(self, dtype) -> Tensors:
         return [torch.zeros_like(p, dtype=dtype) for p in self.params]
@@ -187,34 +214,73 @@ class Optimizer:
             out["acc"] = self.acc
         return out
 
+    def device_state(self) -> Tensors:
+        """Every tensor an update writes: the state buffers and the device
+        counts (a graph's warm-up saves and restores them)."""
+        return [t for bufs in self.buffers().values() for t in bufs] + [
+            self.count_on_device, self.mini_step_on_device]
+
+    @property
+    def moves_next(self) -> bool:
+        """Whether the next call moves the parameters (every call, or with
+        accumulation the k-th since the last update)."""
+        return self.mini_step == self.k - 1
+
+    def set_counts(self, count: int, mini_step: int) -> None:
+        """Set the host counts and their device copies."""
+        self.count, self.mini_step = int(count), int(mini_step)
+        self.count_on_device.fill_(self.count)
+        self.mini_step_on_device.fill_(self.mini_step)
+
+    def advance(self, moved: bool) -> None:
+        """The host counts after a call that ``moved`` the parameters or not
+        (``update`` has advanced the device counts)."""
+        if moved:
+            self.count += 1
+            self.mini_step = 0
+        else:
+            self.mini_step += 1
+
     @torch.no_grad()
-    def update(self, grads: Tensors) -> bool:
-        """Fold ``grads`` (same order as the parameters) in; returns whether
-        the parameters moved (every call, or every k-th with accumulation)."""
+    def update(self, grads: Tensors, moves: Optional[bool] = None) -> bool:
+        """Fold ``grads`` (same order as the parameters) into the running
+        mean and, if the call ``moves`` the parameters (every call, or every
+        k-th with accumulation), update them from it; returns ``moves``.
+        The device work reads and writes the device counts only. Without
+        ``moves`` the host decides (``moves_next``) and then ``advance``s its
+        counts; given ``moves``, the host counts are left to the caller:
+        what a CUDA graph captures, the caller advancing them per replay."""
+        advance = moves is None
+        if advance:
+            moves = self.moves_next
         if self.k > 1:
             delta = torch._foreach_sub(grads, self.acc)
-            torch._foreach_div_(delta, float(self.mini_step + 1))
+            torch._foreach_div_(delta, (self.mini_step_on_device + 1).float())
             torch._foreach_add_(self.acc, delta)
-            if self.mini_step < self.k - 1:
-                self.mini_step += 1
-                return False
             grads = self.acc
-        lr = self.sched(self.count)
-        self.count += 1
-        upd, scale = getattr(self, f"_{self.base}")(grads, lr)
-        if self.post:
-            if scale != 1.0:
-                torch._foreach_mul_(upd, scale)
-                scale = 1.0
+            if not moves:
+                self.mini_step_on_device.add_(1)
+        if moves:
+            lr = self.sched(self.count_on_device)
+            self.count_on_device.add_(1)
+            self._t = self.count_on_device.double()
+            upd, scale = getattr(self, f"_{self.base}")(grads, lr)
+            if scale is not None:
+                torch._foreach_mul_(upd, scale.float())
             for kind, state in zip(self.post, self.post_state):
                 upd = getattr(self, f"_{kind}")(upd, state)
-        torch._foreach_add_(self.params, upd, alpha=scale)
-        if self.k > 1:
-            torch._foreach_zero_(self.acc)
-            self.mini_step = 0
-        return True
+            torch._foreach_add_(self.params, upd)
+            if self.k > 1:
+                torch._foreach_zero_(self.acc)
+                self.mini_step_on_device.zero_()
+        if advance:
+            self.advance(moves)
+        return moves
 
     # ------------------------------------------------ bases: (u, scale), update = scale * u
+    # ``scale`` is a device scalar, or None for 1; the step ``self._t`` and
+    # the scalars derived from it are float64 device scalars, cast to
+    # float32 where a float32 tensor list takes them (as a Python float is)
     def _pick(self, tensors: Tensors) -> Tensors:
         return [t for t, d in zip(tensors, self.decayed) if d]
 
@@ -232,17 +298,28 @@ class Optimizer:
         torch._foreach_mul_(self.nu, self.b2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
 
+    def _bias_correction(self, beta: float) -> torch.Tensor:
+        """``1 - beta^t``, float64."""
+        return 1.0 - beta ** self._t
+
+    @staticmethod
+    def _select(denom: Tensors, use: torch.Tensor) -> None:
+        """``denom`` where ``use`` (a boolean scalar), else 1, in place and
+        exactly: ``denom * 1 + 0`` or ``denom * 0 + 1``."""
+        use = use.float()
+        torch._foreach_mul_(denom, use)
+        torch._foreach_add_(denom, 1.0 - use)
+
     def _adam_direction(self, m: Tensors) -> Tensors:
         """``(m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)``."""
-        t = self.count
-        denom = torch._foreach_div(self.nu, 1.0 - self.b2 ** t)
+        denom = torch._foreach_div(self.nu, self._bias_correction(self.b2).float())
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(m, 1.0 - self.b1 ** t)
+        upd = torch._foreach_div(m, self._bias_correction(self.b1).float())
         torch._foreach_div_(upd, denom)
         return upd
 
-    def _adamw(self, grads: Tensors, lr: float):
+    def _adamw(self, grads: Tensors, lr: torch.Tensor):
         m = [t.float() for t in self.mu]
         torch._foreach_mul_(m, self.b1_mu)
         torch._foreach_add_(m, grads, alpha=1.0 - self.b1)
@@ -255,11 +332,11 @@ class Optimizer:
             dst.copy_(src)
         return upd, -lr
 
-    def _adam(self, grads: Tensors, lr: float):
+    def _adam(self, grads: Tensors, lr: torch.Tensor):
         self._moments(self._l2_decayed(grads))
         return self._adam_direction(self.mu), -lr
 
-    def _adamax(self, grads: Tensors, lr: float):
+    def _adamax(self, grads: Tensors, lr: torch.Tensor):
         g = self._l2_decayed(grads)
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, g, alpha=1.0 - self.b1)
@@ -267,28 +344,29 @@ class Optimizer:
         torch._foreach_add_(bound, self.eps)
         torch._foreach_mul_(self.nu, self.b2)
         torch._foreach_maximum_(self.nu, bound)
-        upd = torch._foreach_div(self.mu, 1.0 - self.b1 ** self.count)
+        upd = torch._foreach_div(self.mu, self._bias_correction(self.b1).float())
         torch._foreach_div_(upd, self.nu)
         return upd, -lr
 
-    def _radam(self, grads: Tensors, lr: float):
+    def _radam(self, grads: Tensors, lr: torch.Tensor):
         self._moments(self._l2_decayed(grads))
-        t, b2 = self.count, self.b2
+        t, b2 = self._t, self.b2
         ro_inf = 2.0 / (1.0 - b2) - 1.0
         b2t = b2 ** t
         ro = ro_inf - 2.0 * t * b2t / (1.0 - b2t)
-        upd = torch._foreach_div(self.mu, 1.0 - self.b1 ** t)
-        if ro >= 5.0:
-            r = math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
-                          / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
-            denom = torch._foreach_div(self.nu, 1.0 - b2t)
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, self.eps)
-            torch._foreach_mul_(upd, r)
-            torch._foreach_div_(upd, denom)
+        use = ro >= 5.0  # rectify
+        r = torch.sqrt(((ro - 4.0) * (ro - 2.0) * ro_inf
+                        / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro)).clamp_min(0.0))
+        upd = torch._foreach_div(self.mu, self._bias_correction(self.b1).float())
+        denom = torch._foreach_div(self.nu, (1.0 - b2t).float())
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        self._select(denom, use)
+        torch._foreach_mul_(upd, torch.where(use, r, 1.0).float())
+        torch._foreach_div_(upd, denom)
         return upd, -lr
 
-    def _lamb(self, grads: Tensors, lr: float):
+    def _lamb(self, grads: Tensors, lr: torch.Tensor):
         self._moments(grads)
         upd = self._adam_direction(self.mu)
         if self.weight_decay and any(self.decayed):
@@ -299,29 +377,30 @@ class Optimizer:
         torch._foreach_mul_(upd, list(ratio.unbind()))
         return upd, -lr
 
-    def _ralamb(self, grads: Tensors, lr: float):
+    def _ralamb(self, grads: Tensors, lr: torch.Tensor):
         self._moments(grads)
-        t, b1, b2 = self.count, self.b1, self.b2
+        t, b2 = self._t, self.b2
         beta2_t = b2 ** t
         n_sma_max = 2.0 / (1.0 - b2) - 1.0
         n_sma = n_sma_max - 2.0 * t * beta2_t / (1.0 - beta2_t)
         use_rect = n_sma >= 5.0
-        rect = math.sqrt((1.0 - beta2_t) * (n_sma - 4.0) / (n_sma_max - 4.0)
-                         * (n_sma - 2.0) / n_sma * n_sma_max / (n_sma_max - 2.0)
-                         ) if use_rect else 1.0
-        step_lr = rect / (1.0 - b1 ** t) * lr
-        if use_rect:
-            direction = torch._foreach_sqrt(self.nu)
-            torch._foreach_add_(direction, self.eps)
-            direction = torch._foreach_div(self.mu, direction)
-        else:
-            direction = self.mu
+        rect = torch.sqrt(((1.0 - beta2_t) * (n_sma - 4.0) / (n_sma_max - 4.0)
+                           * (n_sma - 2.0) / n_sma * n_sma_max / (n_sma_max - 2.0)
+                           ).clamp_min(0.0))
+        step_lr = torch.where(use_rect, rect, 1.0) / self._bias_correction(self.b1) * lr
+        # the rectified direction m / (sqrt(v) + eps), else m itself
+        denom = torch._foreach_sqrt(self.nu)
+        torch._foreach_add_(denom, self.eps)
+        self._select(denom, use_rect)
+        direction = torch._foreach_div(self.mu, denom)
         # p1: the parameters after the lr-scaled decay; the trust ratio
         # compares ||p|| (clipped to 10) with the candidate p1 - step * dir
-        p1 = torch._foreach_mul(self.params, [self.weight_decay * lr if d else 0.0
-                                              for d in self.decayed])
+        p1 = torch._foreach_mul(self.params, (self.weight_decay * lr).float())
+        kept = [q for q, d in zip(p1, self.decayed) if not d]
+        if kept:
+            torch._foreach_mul_(kept, 0.0)
         p1 = torch._foreach_sub(self.params, p1)
-        step = torch._foreach_mul(direction, step_lr)
+        step = torch._foreach_mul(direction, step_lr.float())
         w_norm = _norms(self.params).clamp(0.0, 10.0)
         r_norm = _norms(torch._foreach_sub(p1, step))
         trust = torch.where((w_norm == 0) | (r_norm == 0), torch.ones_like(w_norm),
@@ -329,20 +408,27 @@ class Optimizer:
         torch._foreach_mul_(step, list(trust.unbind()))
         upd = torch._foreach_sub(p1, self.params)
         torch._foreach_sub_(upd, step)
-        return upd, 1.0
+        return upd, None
 
-    def _rangerlars(self, grads: Tensors, lr: float):
+    def _rangerlars(self, grads: Tensors, lr: torch.Tensor):
         return self._ralamb(grads, lr)  # its lookahead is the first post transform
 
     # ------------------------------------------------ wrappers: updates -> updates
     def _lookahead(self, upd: Tensors, slow: Tensors) -> Tensors:
-        if self.count % LOOKAHEAD_K:
-            return upd
+        """Every ``LOOKAHEAD_K``-th update: the slow copy moves half way to
+        the fast parameters and the update lands them on it; else ``upd``.
+        ``sync`` (1 or 0) selects exactly, as ``_select`` does."""
+        sync = (self.count_on_device % LOOKAHEAD_K == 0).float()
         pull = torch._foreach_add(self.params, upd)
         torch._foreach_sub_(pull, slow)
         torch._foreach_mul_(pull, LOOKAHEAD_ALPHA)
+        torch._foreach_mul_(pull, sync)
         torch._foreach_add_(slow, pull)
-        return torch._foreach_sub(slow, self.params)
+        landed = torch._foreach_sub(slow, self.params)
+        torch._foreach_mul_(landed, sync)
+        torch._foreach_mul_(upd, 1.0 - sync)
+        torch._foreach_add_(upd, landed)
+        return upd
 
     def _ema(self, upd: Tensors, ema: Tensors) -> Tensors:
         torch._foreach_mul_(ema, EMA_DECAY)

@@ -8,13 +8,18 @@ gradients and the configured optimizer (``optim.Optimizer``: AdamW with a
 bfloat16 first moment by default; with gradient accumulation it moves the
 parameters every k-th step). The JAX step is a pure jitted function of its
 state; here ``TrainState`` holds the module's parameters, their gradient
-buffers and the optimizer state, and the step updates them in place. The
-JAX package's scan over a block of steps is a loop of steps here.
+buffers and the optimizer state, and the step updates them in place.
 ``make_eval_fn`` is validation's forward: the same lift-splat, dropout off.
 
+``make_pretrain_block_step`` is the JAX package's block of K steps in one
+``lax.scan`` dispatch: on the card one step is captured into a CUDA graph
+(``utils/graphs.py``) and replayed K times, the batch copied into its
+static inputs before each replay; on the CPU it runs K eager steps.
+
 A step queues its device work and reads nothing back: the learning rate and
-step count live on the host, the dropout seeds come from a generator on the
-device, and batches are uploaded through pinned memory.
+the update count are device scalars (the host keeps its own count), the
+dropout seeds come from a generator on the device, and batches are uploaded
+through pinned memory.
 
 ``TrainState`` also serves the fine-tuning agent's replay update;
 ``save_checkpoint``/``load_checkpoint`` write and read one torch file with
@@ -33,7 +38,7 @@ backward, which DDP's hooks do not follow; the all-reduce is JAX's psum.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +48,8 @@ from ..configs import ModelConfig, OptimConfig, PretrainConfig, ShapeConfig
 from ..models.bert import init_params
 from ..models.glocal import GlocalTextPathCMTPreTraining
 from ..ops.bev import BevProjector
-from ..ops.dropout import set_dropout_generator
+from ..ops.dropout import Dropout, set_dropout_generator
+from ..utils import graphs
 from ..utils.device import to_device
 from ..utils.rng import make_generator, train_generator
 from . import distributed
@@ -110,19 +116,25 @@ class TrainState:
         for key, bufs in self.tx.buffers().items():
             for name, buf in zip(self.names, bufs):
                 buf.copy_(sd[key][name])
-        self.tx.count = int(sd["count"])
-        self.tx.mini_step = int(sd.get("mini_step", 0))
+        self.tx.set_counts(sd["count"], sd.get("mini_step", 0))
 
-    def apply_gradients(self) -> torch.Tensor:
+    def device_state(self) -> List[torch.Tensor]:
+        """Every tensor a step writes: the parameters, the gradient buffers
+        and the optimizer's state and device counts."""
+        return self.params + self.flat_grads + self.tx.device_state()
+
+    def apply_gradients(self, moves: Optional[bool] = None) -> torch.Tensor:
         """Clip by the global norm in the step body (one float32 norm pass
         serves the clip and the returned ``grad_norm``), update, and zero the
         gradient buffers. ``g * clip / max(norm, clip)`` is
         ``optax.clip_by_global_norm``; with accumulation each call's
-        gradients are clipped before they are averaged, as in JAX."""
+        gradients are clipped before they are averaged, as in JAX. ``moves``
+        as ``Optimizer.update`` takes it: given, the host counts stay as
+        they are, so that a graph can capture the call."""
         grads = [p.grad for p in self.params]
         gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         torch._foreach_mul_(grads, self.clip_norm / torch.clamp_min(gnorm, self.clip_norm))
-        self.tx.update(grads)
+        self.tx.update(grads, moves)
         torch._foreach_zero_(grads)
         return gnorm
 
@@ -215,17 +227,100 @@ def make_eval_fn(model: GlocalTextPathCMTPreTraining, projector: BevProjector
 
 
 def make_pretrain_step(model: GlocalTextPathCMTPreTraining, projector: BevProjector
-                       ) -> Callable[[TrainState, Batch, str], Dict[str, torch.Tensor]]:
-    """Returns step(state, batch, task) -> metrics (device tensors, with
-    ``loss`` and ``grad_norm``, global under data parallelism); ``batch``
-    lies on the model's device and holds this rank's rows."""
+                       ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Returns step(state, batch, task, moves=None) -> metrics (device
+    tensors, with ``loss`` and ``grad_norm``, global under data
+    parallelism); ``batch`` lies on the model's device and holds this rank's
+    rows. ``moves`` as ``TrainState.apply_gradients`` takes it: a graph of
+    the block step captures ``step(..., moves)``."""
     loss_fn = make_loss_fn(model, projector)
 
-    def step(state: TrainState, batch: Batch, task: str) -> Dict[str, torch.Tensor]:
+    def step(state: TrainState, batch: Batch, task: str,
+             moves: Optional[bool] = None) -> Dict[str, torch.Tensor]:
         loss, metrics = loss_fn(batch, task)
         loss.backward()
         state.all_reduce_grads()
-        gnorm = state.apply_gradients()
+        gnorm = state.apply_gradients(moves)
         return {**metrics, "loss": distributed.all_reduce_(loss.detach()), "grad_norm": gnorm}
 
     return step
+
+
+def dropout_generators(model: nn.Module) -> List[torch.Generator]:
+    """The distinct generators ``model``'s Dropout modules draw from."""
+    gens = {id(m.generator): m.generator for m in model.modules()
+            if isinstance(m, Dropout) and m.generator is not None}
+    return list(gens.values())
+
+
+def block_batches(batch, length: int, stacked: bool) -> Sequence[Batch]:
+    """The ``length`` batches of a block: ``batch`` re-fed, or with
+    ``stacked`` the list of ``length`` batches it is."""
+    if not stacked:
+        return [batch] * length
+    if len(batch) != length:
+        raise ValueError(f"a stacked block of length {length} got {len(batch)} batches")
+    return batch
+
+
+def block_graph_bound(cfg: PretrainConfig) -> int:
+    """The most graphs a pretraining block step can capture: for each task,
+    each shape ``data/batching.py`` buckets a batch into (T in multiples of
+    4 up to ``max_steps``, L in {64, 128, cap}, N in {cap / 2, cap}; the
+    batch size is fixed) and, with accumulation, a second graph for the
+    calls that fold without moving the parameters."""
+    shapes = cfg.shapes
+    t_buckets = (shapes.max_steps + 3) // 4
+    l_buckets = len({b for b in (64, 128) if b < shapes.max_txt_len} | {shapes.max_txt_len})
+    n_buckets = len({shapes.max_gmap_len // 2, shapes.max_gmap_len})
+    phases = 2 if cfg.optim.gradient_accumulation_steps > 1 else 1
+    return len(cfg.tasks) * t_buckets * l_buckets * n_buckets * phases
+
+
+def make_pretrain_block_step(model: GlocalTextPathCMTPreTraining, projector: BevProjector,
+                             state: TrainState, max_graphs: Optional[int] = None
+                             ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """K optimizer steps per call (JAX ``make_pretrain_block_step``).
+
+    Returns ``block(state, batch, task, length, stacked=False)`` -> the last
+    step's metrics (device tensors). Without ``stacked`` the one batch is
+    re-fed ``length`` times (the bench pattern); with it ``batch`` is a
+    list of ``length`` distinct batches (host arrays or device tensors),
+    one a step. On the card every step is a replay of a CUDA graph of the
+    whole step (the lift-splat through the splat kernel, the forward with
+    its dropout kernels, the backward, the gradient all-reduce, the clip and
+    the update), captured once per (task, batch signature, whether the step
+    moves the parameters) and cached; nothing reads back to the host. On
+    the CPU the steps run eagerly. ``state`` is the one the block runs on;
+    at most ``max_graphs`` graphs are kept (``block_graph_bound`` gives a
+    configuration's; None keeps every one), the least recently used evicted
+    first."""
+    device = state.params[0].device
+    step = make_pretrain_step(model, projector)
+    if device.type != "cuda":
+
+        def eager_block(state_: TrainState, batch, task: str, length: int,
+                        stacked: bool = False) -> Dict[str, torch.Tensor]:
+            for b in block_batches(batch, length, stacked):
+                metrics = step(state_, upload(b, device), task)
+            return metrics
+
+        return eager_block
+
+    cache = graphs.GraphCache(max_graphs)
+
+    def block(state_: TrainState, batch, task: str, length: int,
+              stacked: bool = False) -> Dict[str, torch.Tensor]:
+        if state_ is not state:
+            raise ValueError("this block step was made for another TrainState")
+        loaded = None if stacked else set()  # one re-fed batch is copied in once
+        for b in block_batches(batch, length, stacked):
+            moves = state.tx.moves_next
+            out = cache.step((task, graphs.signature(b), moves), b, device,
+                             lambda inputs: step(state, inputs, task, moves), state.device_state(),
+                             dropout_generators(model), loaded)
+            state.tx.advance(moves)
+        return {k: v.clone() for k, v in out.items()}
+
+    block.graphs = cache
+    return block

@@ -5,10 +5,20 @@ running meters and ``MetricLogger`` lines, validation and checkpoints
 at every ``valid_steps`` crossing the trainer validates, then saves, as the
 JAX trainer does.
 
-The loop reads each step's metrics back only after it has queued the next
-step, so the card never waits for the host's readback. Validation runs the
-model in eval mode under ``torch.inference_mode()``: no dropout, so it draws
-nothing from the dropout generator and leaves training's stream as it was.
+With ``task_block_size`` > 1 (the default, 8) ``train`` runs blocks, as
+the JAX trainer's ``_train_blocked`` does: consecutive batches of one task
+(the MetaLoader's blocks) are zero-padded to the block's largest shape and
+run as one ``make_pretrain_block_step`` call (on the card, replays of a
+CUDA graph of the step); the meters take each block's last step, a log
+line follows a block that crossed a ``log_steps`` boundary, and validation
+and ``ckpt_<step>`` follow a block that crossed a ``valid_steps`` boundary,
+at the block's end step. ``task_block_size`` 1 runs and logs every step.
+
+The loop reads each step's (or block's) metrics back only after it has
+queued the next, so the card never waits for the host's readback.
+Validation runs the model in eval mode under ``torch.inference_mode()``: no
+dropout, so it draws nothing from the dropout generator and leaves
+training's stream as it was.
 
 Under data parallelism (``parallel.distributed.initialize``; the loaders
 built with ``dp_rank``) every rank trains on its rows of the global batch:
@@ -23,7 +33,7 @@ from __future__ import annotations
 import os
 import time
 from collections import defaultdict
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +43,11 @@ from ..data.loader import PretrainLoader
 from ..parallel import distributed, train_step
 from ..parallel.mesh import replicate_module
 from ..parallel.train_step import (
+    block_graph_bound,
     init_pretrain_state,
     load_checkpoint,
     make_eval_fn,
+    make_pretrain_block_step,
     make_pretrain_step,
     save_checkpoint,
     upload,
@@ -57,6 +69,8 @@ class PretrainTrainer:
         self.model, self.projector, self.state = init_pretrain_state(cfg, cfg.seed, self.device)
         replicate_module(self.model)
         self.step_fn = make_pretrain_step(self.model, self.projector)
+        self.block_fn = make_pretrain_block_step(self.model, self.projector, self.state,
+                                                 block_graph_bound(cfg))
         self.eval_fn = make_eval_fn(self.model, self.projector)
 
     # ------------------------------------------------------------ checkpoints
@@ -91,6 +105,8 @@ class PretrainTrainer:
         """Train until ``num_steps`` steps (default
         ``cfg.optim.num_train_steps``; with gradient accumulation a step is a
         micro-step, as in JAX); returns the meters' values by "<task>/<metric>"."""
+        if self.cfg.task_block_size > 1:
+            return self._train_blocked(num_steps)
         num_steps = num_steps or self.cfg.optim.num_train_steps
         meters: Dict[str, RunningMeter] = defaultdict(RunningMeter)
         n_examples, t_start = 0, time.time()
@@ -128,6 +144,58 @@ class PretrainTrainer:
                 record(*pending)
         finally:
             batches.close()  # stops the loader's prefetch thread or workers
+        return {k: m.value for k, m in meters.items()}
+
+    def _train_blocked(self, num_steps: Optional[int] = None) -> Dict[str, float]:
+        """``train`` in blocks of up to ``task_block_size`` consecutive
+        batches of one base task, never past ``num_steps`` (JAX
+        ``_train_blocked``)."""
+        cfg = self.cfg
+        num_steps = num_steps or cfg.optim.num_train_steps
+        meters: Dict[str, RunningMeter] = defaultdict(RunningMeter)
+        n_examples, t_start = 0, time.time()
+
+        def record(prev_step: int, step: int, task: str, metrics: Dict[str, torch.Tensor]):
+            values = torch.stack([v.float() for v in metrics.values()]).tolist()
+            for key, val in zip(metrics, values):
+                meters[f"{task}/{key}"].update(val)
+            if step // cfg.log_steps > prev_step // cfg.log_steps:
+                self.logger.log(step, {
+                    "train/examples_per_sec": n_examples / (time.time() - t_start),
+                    "train/lr": self.state.lr(step),
+                    **{k: m.value for k, m in meters.items()},
+                })
+
+        step, pending, carried = self.state.step, None, None
+        batches = iter(self.train_loader)
+        try:
+            while step < num_steps:
+                task, batch = carried if carried is not None else next(batches)
+                carried = None
+                base = task.split("_")[0]
+                block = [batch]
+                while len(block) < cfg.task_block_size and step + len(block) < num_steps:
+                    nxt = next(batches)
+                    if nxt[0].split("_")[0] != base:
+                        carried = nxt
+                        break
+                    block.append(nxt[1])
+                metrics = self.block_fn(self.state, pad_block(block), base, len(block),
+                                        stacked=True)
+                n_examples += len(block) * self.train_loader.global_batch_size
+                if pending is not None:
+                    record(*pending)
+                prev_step, step = step, self.state.step
+                pending = (prev_step, step, base, metrics)
+                if cfg.valid_steps and step // cfg.valid_steps > prev_step // cfg.valid_steps:
+                    record(*pending)
+                    pending = None
+                    self.validate(step)
+                    self.save(step)
+            if pending is not None:
+                record(*pending)
+        finally:
+            batches.close()
         return {k: m.value for k, m in meters.items()}
 
     # -------------------------------------------------------------- validation
@@ -199,3 +267,17 @@ class PretrainTrainer:
                 return scores[sel].cpu().numpy(), b["bev_sems"][sel].cpu().numpy()
         finally:
             model.train(training)
+
+
+def pad_block(block: List[Dict[str, np.ndarray]]) -> List[Dict[str, np.ndarray]]:
+    """Each key of each batch zero-padded at the end of every axis to the
+    block's largest shape, as the JAX trainer pads before stacking (the
+    bucketed axes only grow: zeros and masks, as a larger bucket)."""
+    out = [dict(b) for b in block]
+    for key in block[0]:
+        arrs = [np.asarray(b[key]) for b in block]
+        shape = tuple(max(a.shape[d] for a in arrs) for d in range(arrs[0].ndim))
+        for b, a in zip(out, arrs):
+            if a.shape != shape:
+                b[key] = np.pad(a, [(0, t - n) for n, t in zip(a.shape, shape)])
+    return out
