@@ -370,6 +370,18 @@ def traced_busy(fn, label: str, log_dir: str) -> tuple:
     return out, {"wall_ms": 1e3 * wall, "busy_ms": 1e3 * busy_s, "busy_share": busy_s / wall}
 
 
+def dropout_device_share(fn) -> dict:
+    """The dropout kernel's device ms in one call of ``fn`` (a graphed
+    block), all the call's device ms (kernels and copies) and the dropout's
+    share of them, by ``device_ms_by_kernel``."""
+    by_kernel = device_ms_by_kernel(fn, iters=1)
+    drop = sum(ms for name, ms in by_kernel.items() if "dropout_kernel" in name)
+    if drop == 0:
+        raise AssertionError("the traced block ran no dropout kernel")
+    total = sum(by_kernel.values())
+    return {"dropout_device_ms": drop, "device_ms": total, "dropout_share": drop / total}
+
+
 def device_ms(fn, iters: int = 10) -> float:
     """Mean device milliseconds per call of all the kernels ``fn`` runs."""
     return sum(device_ms_by_kernel(fn, iters).values())
@@ -924,11 +936,15 @@ def dropout_phase() -> dict:
         plain_ms = cuda_ms(lambda: dropout_ref(x, seeds, rate), iters=3, warmup=1)
         dev_ms = device_ms(cycled(lambda v: dropout(v, seeds, rate)))
         lib_dev_ms = device_ms(cycled(lambda v: F.dropout(v, rate)))
+        # the card's own copy of the same bytes (read once, written once)
+        copy_dev_ms = device_ms(cycled(torch.clone))
         del xs, outs
         bound = bound_ms(moved + seeds.numel() * 4)
         row = {"ms": ms, "device_ms": dev_ms, "F_dropout_ms": lib_ms,
-               "F_dropout_device_ms": lib_dev_ms, "plain_ms": plain_ms, "bound_ms": bound,
-               "copies": n_copies, "cache": "cold" if cold else "warm"}
+               "F_dropout_device_ms": lib_dev_ms, "F_dropout_ratio": dev_ms / lib_dev_ms,
+               "copy_device_ms": copy_dev_ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "copies": n_copies,
+               "cache": "cold" if cold else "warm"}
         extra = {}
         if label in ("hidden", "ft_pano_hidden", "obj_pano_hidden", "ce_replay_pano_hidden",
                      "prev_x_hidden"):
@@ -939,7 +955,9 @@ def dropout_phase() -> dict:
         phase("dropout", site=label, shape=tuple(shape), dtype=str(dtype).split(".")[-1],
               rate=rate, bitwise="equal", keep=f"{keep:.6f}", ms=f"{ms:.4f}",
               F_dropout_ms=f"{lib_ms:.4f}", device_ms=f"{dev_ms:.4f}",
-              F_dropout_device_ms=f"{lib_dev_ms:.4f}", bound_us=f"{1e3 * bound:.1f}",
+              F_dropout_device_ms=f"{lib_dev_ms:.4f}",
+              F_dropout_ratio=f"{row['F_dropout_ratio']:.3f}",
+              copy_device_ms=f"{copy_dev_ms:.4f}", bound_us=f"{1e3 * bound:.1f}",
               bound_share=f"{bound / dev_ms:.1%}" if cold else "n/a", copies=n_copies,
               cache=row["cache"], plain_ms=f"{plain_ms:.4f}", **extra)
         record["max_abs_err"] = max(record["max_abs_err"], err)
@@ -948,18 +966,34 @@ def dropout_phase() -> dict:
             record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_us=1e3 * bound,
                           library_ms=lib_ms, device_ms=dev_ms)
 
-    # edges: rate 0, a row length not divisible by 4, a single row, a
-    # misaligned start (the scalar path)
+    # edges, forward and backward (the kernel on a fresh dy), one per access
+    # path and its limits: rate 0 and a rate near 1; 16-byte accesses over
+    # rows of 12 bf16 (half of them straddle two rows); 8-byte accesses
+    # (rows of 588 bf16 in an odd count, a view 8 bytes in); single
+    # elements (ragged rows, views one element in); one row; many short rows
     x = torch.randn(1, 1000, generator=g, device="cuda").bfloat16()
     one = draw_seeds(1, g, "cuda")
     if not torch.equal(dropout(x, one, 0.0), x):
         raise AssertionError("dropout edge: rate 0 must be the identity")
-    base = torch.randn(1 + 5 * 3 * 7, generator=g, device="cuda")
-    cases = {"ragged_rows": base[1:].view(5, 3, 7).bfloat16().contiguous(),
-             "misaligned": base[1:].view(5, 21), "single_row": x}
-    for label, t in cases.items():
+    base = torch.randn(4 + 6 * 40, generator=g, device="cuda")
+    edges = {  # (x, rate)
+        "rate0": (x, 0.0), "rate_near_1": (x, 0.999), "single_row": (x, 0.3),
+        "short_rows_16B": (torch.randn(4096, 12, generator=g, device="cuda").bfloat16(), 0.5),
+        "short_rows_f32": (torch.randn(3000, 8, generator=g, device="cuda"), 0.5),
+        "odd_rows_8B": (torch.randn(3, 12, 7, 7, generator=g, device="cuda").bfloat16(), 0.1),
+        "offset_8B": (base.bfloat16()[4:].view(6, 40), 0.2),
+        "ragged_rows": (base[1:106].view(5, 3, 7).bfloat16().contiguous(), 0.3),
+        "misaligned": (base[1:241].view(6, 40), 0.3),
+        "misaligned_bf16": (base.bfloat16()[1:241].view(6, 40), 0.2),
+    }
+    for label, (t, rate) in edges.items():
         seeds = draw_seeds(t.shape[0], g, "cuda")
-        if not torch.equal(dropout(t, seeds, 0.3), dropout_ref(t, seeds, 0.3)):
+        leaf = t.detach().requires_grad_()
+        y = dropout(leaf, seeds, rate)
+        dy = torch.randn(t.shape, generator=g, device="cuda").to(t.dtype)
+        y.backward(dy)
+        if not (torch.equal(y, dropout_ref(t, seeds, rate))
+                and torch.equal(leaf.grad, dropout_ref(dy, seeds, rate))):
             raise AssertionError(f"dropout edge {label}: kernel differs from the plain version")
 
     # autograd: the C++ backward relaunches the kernel on dy with the saved
@@ -986,7 +1020,8 @@ def dropout_phase() -> dict:
             "dropout: the backward's mask differs from the forward's: "
             f"{int((x.grad != ref_grad).sum())} elements differ from the plain version, "
             f"{int((x.grad != 0).ne(kept & (dy != 0)).sum())} from the forward's mask")
-    phase("dropout", edges="rate0 ragged_rows misaligned single_row", backward_mask="equal",
+    phase("dropout", edges=" ".join(edges), edges_forward_backward="bitwise",
+          backward_mask="equal",
           saved="seeds only", backward_launch="counted")
 
     # the PREVALENT sites, backward: the kernel on dy with the saved seeds,
@@ -1323,12 +1358,13 @@ def pretrain_block_batches(trainer, task: str, k: int = 8, offset: int = 0) -> l
 def traced_block(trainer, task: str, log_dir: str, k: int = 8) -> dict:
     """One more block of ``k`` steps of ``task``, after one untraced block
     over the same batches (any capture lies outside the trace), under
-    ``traced_busy``: wall ms and the device's busy share."""
+    ``traced_busy``: wall ms and the device's busy share; then one more,
+    its device ms by kernel: the dropout kernel's and its share."""
     batches = pretrain_block_batches(trainer, task, k)
-    trainer.block_fn(trainer.state, batches, task, k, stacked=True)
-    _, busy = traced_busy(lambda: trainer.block_fn(trainer.state, batches, task, k,
-                                                   stacked=True), "block", log_dir)
-    return {"task": task, "k": k, **busy}
+    block = lambda: trainer.block_fn(trainer.state, batches, task, k, stacked=True)  # noqa: E731
+    block()
+    _, busy = traced_busy(block, "block", log_dir)
+    return {"task": task, "k": k, **busy, **dropout_device_share(block)}
 
 
 # Graphed against eager from one state: each step's loss within
@@ -1570,6 +1606,7 @@ def nav_block_phase(out_dir: str, length: int = 4, episodes: int = 2) -> dict:
     roll_timed = arms({"eager": lambda: roll_e.eager(rb), "graphed": lambda: roll_g(rb)})
     log_dir = os.path.join(out_dir, "trace")
     _, busy = traced_busy(lambda: replay_g(rb), "graphed replay block", log_dir)
+    drop = dropout_device_share(lambda: replay_g(rb))
     _, roll_busy = traced_busy(lambda: roll_g(rb), "graphed rollout block", log_dir)
     steps = int((rb["targets"] != -100).any(axis=1).sum())
     return {"length": length, "episodes": episodes, "loss_rel": loss_rel, **agree,
@@ -1577,7 +1614,7 @@ def nav_block_phase(out_dir: str, length: int = 4, episodes: int = 2) -> dict:
             "capture_s": replay_g.graphs.capture_ms / 1e3, "teacher": teacher, "steps": steps,
             "T": rb["targets"].shape[0],
             "ms_per_update": {a: [1e3 * t / length for t in v] for a, v in timed.items()},
-            "busy": busy, "roll_rel": roll_rel,
+            "busy": busy, "dropout": drop, "roll_rel": roll_rel,
             "roll_capture_s": roll_g.graphs.capture_ms / 1e3, "roll_launches": roll_launches,
             "ms_per_episode": {a: [1e3 * t / episodes for t in v]
                                for a, v in roll_timed.items()},
@@ -3726,6 +3763,9 @@ def main() -> None:
           traced_ms_per_step=f"{traced['wall_ms'] / traced['k']:.2f}",
           traced_busy_ms=f"{traced['busy_ms']:.2f}",
           traced_busy_share=f"{traced['busy_share']:.2%}",
+          dropout_device_ms_per_step=f"{traced['dropout_device_ms'] / traced['k']:.4f}",
+          device_ms_per_step=f"{traced['device_ms'] / traced['k']:.3f}",
+          dropout_device_share=f"{traced['dropout_share']:.2%}",
           **{f"ms_per_step_{t}": f"{ms:.2f}" for t, ms in train["ms_per_task"].items()},
           **{f"first_step_ms_{t}": f"{ms:.1f}" for t, ms in train["first_ms"].items()},
           mix=":".join(f"{t}{r:g}" for t, r in train["mix"].items()),
@@ -3813,7 +3853,11 @@ def main() -> None:
           teacher_gathers=nav["teacher"]["gathers"],
           teacher_splat_launches=nav["teacher"]["launches"],
           traced_ms_per_update=f"{nav['busy']['wall_ms'] / nav['length']:.2f}",
-          traced_busy_share=f"{nav['busy']['busy_share']:.2%}")
+          traced_busy_share=f"{nav['busy']['busy_share']:.2%}",
+          dropout_device_ms_per_update=(
+              f"{nav['dropout']['dropout_device_ms'] / nav['length']:.4f}"),
+          device_ms_per_update=f"{nav['dropout']['device_ms'] / nav['length']:.3f}",
+          dropout_device_share=f"{nav['dropout']['dropout_share']:.2%}")
     for arm, ms in nav["ms_per_episode"].items():
         phase("rollout_block", arm=arm, episodes=nav["episodes"], rows=4, T=nav["T"],
               ms_per_episode=",".join(f"{v:.2f}" for v in ms))
@@ -4016,7 +4060,10 @@ def main() -> None:
          "launches_replay_block_cached": nav["launches"]["splat"],
          "launches_rollout_block": nav["roll_launches"]["splat"]},
         {**DROPOUT, "launches": train["launches"]["dropout"], **drop_record,
-         "bound_by": "bytes", "launches_finetune": ft["launches"]["dropout"],
+         "bound_by": "bytes",
+         "device_ms_per_graphed_step": traced["dropout_device_ms"] / traced["k"],
+         "device_ms_per_graphed_update": nav["dropout"]["dropout_device_ms"] / nav["length"],
+         "launches_finetune": ft["launches"]["dropout"],
          "launches_obj_pretrain": obj["launches"]["dropout"],
          "launches_obj_finetune": oft["launches"]["dropout"],
          "launches_ce_pretrain": cep["launches"]["dropout"],

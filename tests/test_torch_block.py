@@ -239,8 +239,8 @@ def replay_pair():
     configuration, dropout 0: the port's random parameters plus noise, set
     as JAX's ``init_params`` sets its own (whose three jitted inits this
     file need not compile), with its clip and bfloat16-moment AdamW."""
-    params = perturbed(module_to_flax(make_replay_agent(REPLAY_CFG,
-                                                        REPLAY_CFG.batch_size).model))
+    params = perturbed(module_to_flax(make_replay_agent(REPLAY_CFG, REPLAY_CFG.batch_size,
+                                                        device="cpu").model))
     agent = JaxAgent(REPLAY_CFG, JaxEnvStub(REPLAY_CFG.batch_size))
     agent.params = jax.tree.map(jnp.asarray, params)
     agent.tx = optax.chain(
@@ -258,7 +258,7 @@ def test_replay_block_matches_jax(replay_pair):
     p = jax.tree.map(jnp.asarray, params)
     p_ref, _, losses_ref = jax_make_replay_block(jax_agent, 3)(
         p, jax_agent.tx.init(p), {k: jnp.asarray(v) for k, v in rb.items()}, jax.random.key(5))
-    ours = make_replay_agent(REPLAY_CFG, REPLAY_CFG.batch_size)
+    ours = make_replay_agent(REPLAY_CFG, REPLAY_CFG.batch_size, device="cpu")
     load_flax_params(ours.model, params)
     losses = make_replay_block(ours, 3)(rb)
     assert losses.shape == (3,) and ours.train_state.step == 3 and not ours.model.training
@@ -278,7 +278,7 @@ def test_rollout_block_matches_jax(replay_pair):
     jax_agent, params = replay_pair
     rb = padded_bundle(seed=12)
     want = jax_make_rollout_block(jax_agent, 2)(jax.tree.map(jnp.asarray, params), rb)
-    ours = make_replay_agent(REPLAY_CFG, REPLAY_CFG.batch_size)
+    ours = make_replay_agent(REPLAY_CFG, REPLAY_CFG.batch_size, device="cpu")
     load_flax_params(ours.model, params)
     ours.model.train()
     got = make_rollout_block(ours, 2)(rb)

@@ -135,27 +135,99 @@ def test_rollout_step_queues_device_work_until_the_pano_read(tmp_path):
     assert checked.count("panorama") == checked.count("navigation") >= 1
 
 
+# (shape, dtype, rate, offset of x in elements) per access path of
+# csrc/dropout.cu; ops.cpp picks the widest that the row length, the element
+# count and x's start allow
+DROPOUT_CASES = {
+    "bf16_16B": ((16, 200, 768), torch.bfloat16, 0.1, 0),
+    # the attention probabilities: row_len % 8 == 4, so half of the 16-byte
+    # accesses hold the last group of one row and the first of the next;
+    # over a wave of blocks, so every block strides
+    "attention_site": ((16, 12, 441, 441), torch.bfloat16, 0.1, 0),
+    # row_len % 8 == 4 and an odd row count (not a whole number of 16-byte
+    # accesses), and a view 8 bytes past an aligned start
+    "bf16_8B_row_len": ((3, 12, 7, 7), torch.bfloat16, 0.1, 0),
+    "bf16_8B_offset": ((16, 1024), torch.bfloat16, 0.1, 4),
+    # ragged rows, and views one element past an aligned start
+    "scalar_ragged": ((5, 3, 7), torch.bfloat16, 0.3, 0),
+    "scalar_offset_f32": ((3, 64), torch.float32, 0.5, 1),
+    "scalar_offset_bf16": ((6, 40), torch.bfloat16, 0.2, 1),
+    "f32_16B": ((16, 441, 768), torch.float32, 0.4, 0),
+    "one_row": ((1, 1000), torch.bfloat16, 0.1, 0),
+    # many short rows per block: PREVALENT's self-attention probabilities,
+    # rows of 12 bf16 and of 8 float32
+    "short_rows_prevalent": ((8, 12, 7, 7), torch.bfloat16, 0.1, 0),
+    "short_rows_bf16": ((4096, 12), torch.bfloat16, 0.5, 0),
+    "short_rows_f32": ((3000, 8), torch.float32, 0.5, 0),
+    "rate_0": ((1, 1000), torch.bfloat16, 0.0, 0),
+    "rate_near_1_bf16": ((16, 200, 768), torch.bfloat16, 0.999, 0),
+    "rate_near_1_ragged_f32": ((7, 1003), torch.float32, 0.999, 0),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype,rate,offset", [
-    ((16, 200, 768), torch.bfloat16, 0.1, 0),     # hidden activations: vector path
-    ((16, 441, 768), torch.float32, 0.4, 0),      # feat_dropout of the BEV features
-    ((5, 3, 7), torch.bfloat16, 0.3, 0),          # row length 21: scalar path
-    ((3, 64), torch.float32, 0.5, 1),             # misaligned start: scalar path
-    ((1, 1000), torch.bfloat16, 0.0, 0),          # one row; rate 0 is the identity
-])
-def test_dropout_kernel_matches_plain_bitwise_on_card(shape, dtype, rate, offset):
+@pytest.mark.parametrize("case", list(DROPOUT_CASES))
+def test_dropout_kernel_matches_plain_bitwise_on_card(case):
+    """Forward and backward (the kernel relaunched on a fresh, aligned dy)
+    equal to the plain version bit for bit, each launch counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    shape, dtype, rate, offset = DROPOUT_CASES[case]
     g = torch.Generator(device="cuda").manual_seed(1)
     base = torch.randn(offset + torch.Size(shape).numel(), generator=g, device="cuda")
-    x = base.to(dtype)[offset:].view(shape)
+    leaf = base.to(dtype).requires_grad_()
+    x = leaf[offset:].view(shape)
     seeds = draw_seeds(shape[0], g, "cuda")
     before = _build.launches("dropout")
     y = dropout(x, seeds, rate)
     assert _build.launches("dropout") == before + 1
-    assert torch.equal(y, dropout_ref(x, seeds, rate))
+    assert torch.equal(y, dropout_ref(x.detach(), seeds, rate))
     if rate == 0.0:
         assert torch.equal(y, x)
+    dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    y.backward(dy)
+    assert _build.launches("dropout") == before + 2
+    assert torch.equal(leaf.grad[offset:].view(shape), dropout_ref(dy, seeds, rate))
+
+
+@pytest.mark.cuda
+def test_dropout_in_a_cuda_graph_draws_new_masks_each_replay_on_card():
+    """Seeds drawn from a registered generator, the forward and the
+    backward captured in one CUDA graph: two replays give two masks, each
+    equal to the plain version of its seeds bit for bit, and count two
+    launches each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(16, 12, 441, 441, generator=g, device="cuda").bfloat16().requires_grad_()
+    dy = torch.randn(16, 12, 441, 441, generator=g, device="cuda").bfloat16()
+
+    def step():
+        seeds = draw_seeds(16, g, "cuda")
+        y = dropout(x, seeds, 0.1)
+        (dx,) = torch.autograd.grad(y, x, dy)
+        return seeds, y, dx
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()  # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(g)
+    with torch.cuda.graph(graph):
+        seeds, y, dx = step()
+    replays = []
+    before = _build.launches("dropout")
+    for _ in range(2):
+        graph.replay()
+        replays.append((seeds.clone(), y.clone(), dx.clone()))
+    assert _build.launches("dropout") == before + 4
+    assert not torch.equal(replays[0][0], replays[1][0])
+    assert not torch.equal(replays[0][1] != 0, replays[1][1] != 0)
+    for s, out, grad in replays:
+        assert torch.equal(out, dropout_ref(x.detach(), s, 0.1))
+        assert torch.equal(grad, dropout_ref(dy, s, 0.1))
 
 
 @pytest.mark.cuda

@@ -87,7 +87,7 @@ def jax_state():
     initial parameters plus N(0, 0.02) (no all-zero biases, see
     test_torch_train_step.py), built without JAX's jitted init."""
     cfg = jax_cfg()
-    model, _, _ = init_pretrain_state(to_port(cfg), 0)
+    model, _, _ = init_pretrain_state(to_port(cfg), 0, "cpu")
     rng = np.random.default_rng(1)
     with torch.no_grad():
         for p in model.parameters():
@@ -316,7 +316,7 @@ def test_pretrain_steps_with_dropout_equal_one_process(runs):
         for key in ref:
             _close(got[key], ref[key], f"{task} {key}", rtol=1e-5)
     lr_sum = 1.5 * tiny_cfg().optim.learning_rate  # warmup of 2: lr 0, lr / 2, lr
-    start = dict(init_pretrain_state(to_port(tiny_cfg()), 7)[0].named_parameters())
+    start = dict(init_pretrain_state(to_port(tiny_cfg()), 7, "cpu")[0].named_parameters())
     moved = 0
     for name, ref in one["params"].items():
         got = ranks["params"][name]

@@ -64,7 +64,7 @@ def bundle(cfg, seed):
 def perturbed_params(cfg):
     """The port's initial parameters of ``cfg`` plus N(0, 0.02) (no all-zero
     biases), as a state dict."""
-    agent = make_replay_agent(to_port(cfg), GLOBAL_B)
+    agent = make_replay_agent(to_port(cfg), GLOBAL_B, device="cpu")
     rng = np.random.default_rng(1)
     return {n: p.detach() + torch.from_numpy(rng.normal(0, 0.02, p.shape).astype(np.float32))
             for n, p in agent.model.named_parameters()}
@@ -76,7 +76,7 @@ def jax_loss_grad(cfg, rb, params):
     mesh = make_mesh(jax.devices()[:WORLD])
     agent = JaxAgent(dataclasses.replace(cfg, batch_size=GLOBAL_B), JaxEnvStub(GLOBAL_B),
                      mesh=mesh)
-    model = make_replay_agent(to_port(cfg), GLOBAL_B).model
+    model = make_replay_agent(to_port(cfg), GLOBAL_B, device="cpu").model
     model.load_state_dict(params)
     flax = jax.tree.map(jax.numpy.asarray, module_to_flax(model))
     T = rb["targets"].shape[0]

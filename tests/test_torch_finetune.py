@@ -85,7 +85,7 @@ def replay_pair():
     """(JAX replay agent, port replay agent, perturbed numpy params)."""
     jax_agent = jax_replay_agent(REPLAY_CFG, batch_size=REPLAY_CFG.batch_size)
     params = perturbed(jax_agent.params)
-    ours = make_replay_agent(REPLAY_CFG, REPLAY_CFG.batch_size)
+    ours = make_replay_agent(REPLAY_CFG, REPLAY_CFG.batch_size, device="cpu")
     load_flax_params(ours.model, params)
     return jax_agent, ours, params
 
@@ -131,7 +131,7 @@ def test_three_replay_updates_match_jax(replay_pair):
     jax_agent, _, params = replay_pair
     jax_agent.params = jax.tree.map(jax.numpy.asarray, params)
     jax_agent.opt_state = jax_agent.tx.init(jax_agent.params)
-    ours = make_replay_agent(REPLAY_CFG, REPLAY_CFG.batch_size)
+    ours = make_replay_agent(REPLAY_CFG, REPLAY_CFG.batch_size, device="cpu")
     load_flax_params(ours.model, params)
     start = {n: p.detach().clone() for n, p in ours.model.named_parameters()}
     for seed in (11, 12, 13):
@@ -160,12 +160,12 @@ def test_three_replay_updates_match_jax(replay_pair):
 def test_agent_checkpoint_restores_parameters_and_optimizer(tmp_path):
     """``save_ckpt`` after an update; ``restore_ckpt`` reloads parameters and
     the AdamW state bit for bit, or with ``with_opt=False`` parameters only."""
-    trained = make_replay_agent(REPLAY_CFG, REPLAY_CFG.batch_size)
+    trained = make_replay_agent(REPLAY_CFG, REPLAY_CFG.batch_size, device="cpu")
     trained.learn_from_bundle(padded_bundle())
     path = trained.save_ckpt(str(tmp_path / "ckpt_latest"))
     want = trained.train_state.state_dict()
     for with_opt in (True, False):
-        agent = make_replay_agent(REPLAY_CFG, REPLAY_CFG.batch_size, seed=5)
+        agent = make_replay_agent(REPLAY_CFG, REPLAY_CFG.batch_size, seed=5, device="cpu")
         agent.restore_ckpt(path, with_opt=with_opt)
         for a, b in zip(agent.model.parameters(), trained.model.parameters()):
             assert torch.equal(a, b)

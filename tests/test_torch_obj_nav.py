@@ -322,7 +322,7 @@ def padded_object_bundle(seed=11, padded=2):
 def test_object_episode_loss_and_gradients_match_jax():
     jax_agent = jax_replay_agent(REPLAY_CFG, batch_size=REPLAY_CFG.batch_size)
     params = perturbed(jax_agent.params)
-    ours = make_replay_agent(REPLAY_CFG, REPLAY_CFG.batch_size)
+    ours = make_replay_agent(REPLAY_CFG, REPLAY_CFG.batch_size, device="cpu")
     load_flax_params(ours.model, params)
     rb = padded_object_bundle()
     T = rb["targets"].shape[0]

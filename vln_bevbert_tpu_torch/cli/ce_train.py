@@ -80,8 +80,8 @@ from ..ce.env import SyntheticContinuousEnv, make_synthetic_ce_episodes
 from ..configs import FinetuneConfig, load_config
 from ..parallel import distributed
 from ..parallel.train_step import load_checkpoint
+from ..utils.device import resolve_device
 from ..utils.logging import make_logger
-from .finetune import resolve_device
 
 
 def parse_args(argv=None):

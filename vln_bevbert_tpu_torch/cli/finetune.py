@@ -57,6 +57,7 @@ from ..nav.env import R2RNavBatch
 from ..nav.obj_env import ObjectDB, ReverieObjectNavBatch, SoonObjectNavBatch
 from ..parallel import distributed
 from ..parallel.train_step import load_checkpoint
+from ..utils.device import resolve_device
 from ..utils.logging import make_logger
 
 Envs = Tuple[R2RNavBatch, Dict[str, R2RNavBatch], Optional[R2RNavBatch]]
@@ -295,13 +296,6 @@ def _make_obj_envs(cfg: FinetuneConfig, args, graphs, cands, dbs, train_annos, v
     val_envs = {name: make(annos, name, args.seed + 1 + i)
                 for i, (name, annos) in enumerate(val_annos.items())}
     return make(train_annos, "train", args.seed), val_envs
-
-
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: CUDA is not available")
-    return device
 
 
 def make_config(args) -> FinetuneConfig:

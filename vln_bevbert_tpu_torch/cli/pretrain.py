@@ -57,7 +57,8 @@ from ..data.pathdata import TextPathData
 from ..models import surgery
 from ..parallel import distributed
 from ..pretrain.trainer import PretrainTrainer
-from .finetune import resolve_device, synthetic_feature_dbs
+from ..utils.device import resolve_device
+from .finetune import synthetic_feature_dbs
 
 
 def parse_args(argv=None):

@@ -12,12 +12,14 @@
 namespace bevbert {
 
 // y = x * [bits >= thresh] * scale over rows of row_len elements, one seed a
-// row. dtype 0: float32, 1: bfloat16. vec requires row_len % 4 == 0 and x, y
-// aligned to four elements. grid: blocks of 256 threads, grid-strided.
-cudaError_t launch_dropout(const void* x, void* y, const int32_t* seeds,
-                           long long rows, long long row_len, uint32_t thresh,
-                           float scale, int dtype, bool vec, int grid,
-                           cudaStream_t stream);
+// row, on device `device`. dtype 0: float32, 1: bfloat16. vec: the elements
+// of one access, 8 (bfloat16) or 4, which require row_len % 4 == 0, a
+// multiple of vec elements in all and x, y aligned to vec elements, or 1
+// (any row length and alignment). Requires rows * ceil(row_len / 4) < 2^31;
+// the grid is one wave.
+cudaError_t launch_dropout(const void* x, void* y, const int32_t* seeds, uint32_t rows,
+                           uint32_t row_len, uint32_t thresh, float scale, int dtype, int vec,
+                           int device, cudaStream_t stream);
 
 enum SplatFeatType { kSplatF32 = 0, kSplatBF16 = 1, kSplatF16 = 2 };
 

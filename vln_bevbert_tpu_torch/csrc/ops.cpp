@@ -28,8 +28,6 @@
 #include <torch/csrc/autograd/custom_function.h>
 #include <torch/library.h>
 
-#include <algorithm>
-#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <optional>
@@ -40,16 +38,6 @@ namespace bevbert {
 namespace {
 
 constexpr int64_t kMaxCells = 1024;  // splat.cu: one scan thread a cell
-
-int sm_count(int device) {
-  static std::atomic<int> counts[64];
-  int n = counts[device].load(std::memory_order_relaxed);
-  if (n == 0) {
-    C10_CUDA_CHECK(cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device));
-    counts[device].store(n, std::memory_order_relaxed);
-  }
-  return n;
-}
 
 at::Tensor seeded_dropout_cuda(const at::Tensor& x, const at::Tensor& seeds, double rate) {
   TORCH_CHECK_VALUE(x.is_cuda() && seeds.device() == x.device(), "seeded_dropout: x on ",
@@ -74,16 +62,26 @@ at::Tensor seeded_dropout_cuda(const at::Tensor& x, const at::Tensor& seeds, dou
   at::Tensor y = at::empty_like(x);
   if (x.numel() == 0) return y;
   const int64_t rows = x.size(0), row_len = x.numel() / rows;
-  const uintptr_t vec_bytes = 4 * x.element_size();
-  const bool vec = row_len % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(x.data_ptr()) % vec_bytes == 0 &&
-                   reinterpret_cast<uintptr_t>(y.data_ptr()) % vec_bytes == 0;
-  const int64_t work = rows * ((row_len + 3) / 4);
-  const int grid = static_cast<int>(std::max<int64_t>(
-      1, std::min<int64_t>((work + 255) / 256, 32LL * sm_count(x.get_device()))));
-  C10_CUDA_CHECK(launch_dropout(x.data_ptr(), y.data_ptr(), seeds.data_ptr<int32_t>(), rows,
-                                row_len, thresh, scale, x.scalar_type() == at::kBFloat16,
-                                vec, grid, c10::cuda::getCurrentCUDAStream().stream()));
+  // the widest access that rows of whole groups of four, the element count
+  // and x's start allow (y is freshly allocated, so aligned): 16 bytes,
+  // 8 bytes (bfloat16), else one element
+  const bool bf16 = x.scalar_type() == at::kBFloat16;
+  const auto fits = [&](int64_t elems) {
+    const uintptr_t bytes = elems * x.element_size();
+    return row_len % 4 == 0 && x.numel() % elems == 0 &&
+           reinterpret_cast<uintptr_t>(x.data_ptr()) % bytes == 0 &&
+           reinterpret_cast<uintptr_t>(y.data_ptr()) % bytes == 0;
+  };
+  const int vec = bf16 && fits(8) ? 8 : fits(4) ? 4 : 1;
+  TORCH_CHECK_VALUE(row_len < (int64_t{1} << 31), "seeded_dropout: rows of ", row_len,
+                    " elements; the kernel takes rows of fewer than 2^31");
+  TORCH_CHECK_VALUE(rows * ((row_len + 3) / 4) < (int64_t{1} << 31), "seeded_dropout: ",
+                    x.numel(), " elements in rows of ", row_len,
+                    "; the kernel takes fewer than 2^31 groups of four");
+  C10_CUDA_CHECK(launch_dropout(x.data_ptr(), y.data_ptr(), seeds.data_ptr<int32_t>(),
+                                static_cast<uint32_t>(rows), static_cast<uint32_t>(row_len),
+                                thresh, scale, bf16, vec, x.get_device(),
+                                c10::cuda::getCurrentCUDAStream().stream()));
   return y;
 }
 

@@ -78,7 +78,7 @@ from ..parallel.train_step import (
     save_checkpoint,
 )
 from ..utils import graphs
-from ..utils.device import to_device
+from ..utils.device import resolve_device, to_device
 from ..utils.rng import make_generator, train_generator
 from .env import R2RNavBatch
 from .eval_utils import compute_dtw_metrics
@@ -175,7 +175,7 @@ class GMapNavAgent:
         self.cfg = cfg
         self.env = env
         self.seed = seed
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.rank, self.world = distributed.rank(), distributed.world_size()
         self.model = GlocalTextPathNavCMT(cfg.model, device=self.device).eval()
         self.projector = BevProjector(
@@ -1010,10 +1010,11 @@ class _EnvStub:
 
 
 def make_replay_agent(cfg: FinetuneConfig, batch_size: int, seed: int = 0,
-                      device="cpu") -> GMapNavAgent:
+                      device="cuda") -> GMapNavAgent:
     """An env-less agent with random parameters, for replay updates from
     prepared bundles (in a process group, the rank's rows:
-    ``parallel.mesh.shard_replay_bundle`` cuts them)."""
+    ``parallel.mesh.shard_replay_bundle`` cuts them). The card unless the
+    caller asks for the CPU: without CUDA, a CUDA ``device`` raises."""
     agent = GMapNavAgent(cfg, _EnvStub(batch_size), seed=seed, device=device)
     agent.init_params()
     return agent

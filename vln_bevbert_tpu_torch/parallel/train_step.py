@@ -50,7 +50,7 @@ from ..models.glocal import GlocalTextPathCMTPreTraining
 from ..ops.bev import BevProjector
 from ..ops.dropout import Dropout, set_dropout_generator
 from ..utils import graphs
-from ..utils.device import to_device
+from ..utils.device import resolve_device, to_device
 from ..utils.rng import make_generator, train_generator
 from . import distributed
 from .optim import Optimizer, decay_mask
@@ -179,12 +179,13 @@ def upload(batch: Dict[str, np.ndarray], device: torch.device) -> Batch:
     return {key: to_device(val, device) for key, val in batch.items()}
 
 
-def init_pretrain_state(cfg: PretrainConfig, seed: int = 0, device="cpu"
+def init_pretrain_state(cfg: PretrainConfig, seed: int = 0, device="cuda"
                         ) -> Tuple[GlocalTextPathCMTPreTraining, BevProjector, TrainState]:
     """Model (random parameters from ``seed``, training mode, dropout drawing
     from a generator on ``device`` as this process's data-parallel rank),
-    projector and optimizer state."""
-    device = torch.device(device)
+    projector and optimizer state. The card unless the caller asks for the
+    CPU: without CUDA, a CUDA ``device`` raises."""
+    device = resolve_device(device)
     model = GlocalTextPathCMTPreTraining(cfg.model, tuple(cfg.tasks), cfg.sem_pred_token,
                                          device=device)
     init_params(model, make_generator(seed, device))

@@ -1,9 +1,18 @@
-"""Host -> device uploads."""
+"""Devices and host -> device uploads."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def resolve_device(name) -> torch.device:
+    """``name`` as a ``torch.device``; a CUDA device raises where CUDA is not
+    available (there is no fallback to the CPU)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {name}: CUDA is not available")
+    return device
 
 
 def to_device(x, device: torch.device) -> torch.Tensor:
