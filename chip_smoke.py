@@ -132,8 +132,8 @@ one line and a failing phase raises, so the script exits non-zero:
              per training iteration, per training-rollout and eval step, the
              waypoint predictor's device ms per call, peak memory; then one
              sampled training rollout and one replay update, each traced by
-             ``utils/profiling.trace`` (host and CUDA activities, an
-             ``annotate`` span): wall ms and the device's busy share;
+             ``utils/profiling.trace`` (host and CUDA activities, a
+             ``span``): wall ms and the device's busy share;
 13. ce_etp - the same with ``--trainer ss-etp --iters 2 --log_every 2``: the
              topo-only model, so the splat must launch 0 times;
     habitat - the Habitat sensor stack over a stand-in ``habitat`` module
@@ -348,7 +348,7 @@ def device_ms_by_kernel(fn, iters: int = 10) -> dict:
 
 def traced_busy(fn, label: str, log_dir: str) -> tuple:
     """``fn()`` under ``utils.profiling.trace`` (host and CUDA activities,
-    a Chrome trace into ``log_dir``) inside an ``annotate(label)`` span:
+    a Chrome trace into ``log_dir``) inside a ``span(label)``:
     (its result, {wall ms to the end of its device work, the device's busy
     ms (the union of the kernel and copy intervals) and share of the
     wall}). A retried session runs ``fn`` again."""
@@ -359,7 +359,7 @@ def traced_busy(fn, label: str, log_dir: str) -> tuple:
         torch.cuda.synchronize()
         with profiling.trace(log_dir) as prof:
             t0 = time.perf_counter()
-            with profiling.annotate(label):
+            with profiling.span(label):
                 out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0

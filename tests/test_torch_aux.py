@@ -9,8 +9,7 @@
 - ``utils.visualize``: equal images on ``tests/test_aux.py``'s inputs, and
   ``save_image`` writes the same bytes.
 - ``utils.profiling``: ``trace`` writes a Chrome trace on the CPU holding
-  an ``annotate`` span; ``StepTimer`` closes its windows on the ticks JAX's
-  does, at examples/s = n_examples x steps/s.
+  a ``span`` (the recorder's own tests: ``tests/test_torch_profiling.py``).
 - ``precompute.DeviceClipEncoder.from_hf`` on a narrow 12-layer
   ``CLIPVisionConfig`` saved to a directory (no download): the parameters
   of JAX's ``hf_clip_to_tree`` of the same model, and ``JaxClipEncoder.from_hf``'s
@@ -29,7 +28,6 @@ from test_torch_finetune import perturbed
 from vln_bevbert_tpu import configs as jax_configs
 from vln_bevbert_tpu.models.nav import Critic as JaxCritic
 from vln_bevbert_tpu.ops.masking import seq_mask as jax_seq_mask
-from vln_bevbert_tpu.utils import profiling as jax_profiling
 from vln_bevbert_tpu.utils import visualize as jax_visualize
 from vln_bevbert_tpu_torch import configs, models, ops
 from vln_bevbert_tpu_torch.convert import load_flax_params, module_to_flax
@@ -101,27 +99,13 @@ def test_visualize_copy_matches_jax(tmp_path):
 
 def test_trace_writes_a_chrome_trace_with_the_annotation(tmp_path):
     with profiling.trace(str(tmp_path / "trace")) as prof:
-        with profiling.annotate("ce_step"):
+        with profiling.span("ce_step"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     assert os.path.dirname(prof.trace_path) == str(tmp_path / "trace")
     with open(prof.trace_path) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "ce_step" for e in events)
     assert any(e.key == "ce_step" for e in prof.key_averages())
-
-
-def test_step_timer_windows_as_jax():
-    ours, ref = profiling.StepTimer(window=3), jax_profiling.StepTimer(window=3)
-    module = torch.nn.Linear(2, 2)
-    closed = [(ours.tick(n_examples=4, sync=module if i % 2 else torch.zeros(1)),
-               ref.tick(n_examples=4)) for i in range(7)]
-    assert [a for a, _ in closed] == [b for _, b in closed] == [
-        False, False, True, False, False, True, False]
-    for timer in (ours, ref):
-        assert timer.steps_per_sec > 0
-        np.testing.assert_allclose(timer.examples_per_sec, 4 * timer.steps_per_sec)
-    ours.reset()
-    assert np.isnan(ours.steps_per_sec)
 
 
 def test_device_clip_encoder_from_hf_matches_jax(tmp_path, monkeypatch):

@@ -6,6 +6,7 @@ On the card machine (no JAX there, and ``tests/conftest.py`` imports JAX):
 """
 
 import json
+import time
 
 import pytest
 import torch
@@ -1044,6 +1045,130 @@ def test_evicted_graphs_are_captured_again_and_match_eager_steps_on_card(tmp_pat
     torch.testing.assert_close(torch.stack(losses), torch.stack(want), rtol=1e-4, atol=0)
     for a, b in zip(graphed.model.parameters(), eager.model.parameters()):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def _phase_names(slots) -> list:
+    from vln_bevbert_tpu_torch.utils import profiling
+
+    names = {i: n for n, i in profiling._PHASE_IDS.items()}
+    return [names[i] for i in slots[:, 0].tolist()]
+
+
+@pytest.mark.cuda
+def test_a_captured_steps_stamps_fill_one_set_of_slots_per_replay_on_card(tmp_path):
+    """A block step captured under a recorder with device phases: each
+    replay takes one set of slots (forward, backward, optimizer, end; no
+    all-reduce at one process), the phases come out once a replay, and on
+    the host clock they lie inside the call that queued them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from vln_bevbert_tpu_torch.utils import profiling
+
+    trainer, _ = _small_block_trainers(tmp_path)
+    _, batch = trainer.train_loader.build_batch(0, task="sap")
+    with profiling.recording(device=torch.device("cuda")) as rec:
+        trainer.block_fn(trainer.state, batch, "sap", 1)  # warm-up, capture, one replay
+        rec.clear()
+        t0 = time.time_ns()
+        trainer.block_fn(trainer.state, batch, "sap", 5)
+        torch.cuda.synchronize()
+        t1 = time.time_ns()
+        slots, taken = torch.ops.bevbert.stamps(False)
+        assert taken == 5 * 4
+        assert _phase_names(slots) == ["step.forward", "step.backward", "step.optimizer",
+                                       None] * 5
+        phases = rec.harvest()
+    assert trainer.block_fn.graphs.captures == 1
+    assert sorted(phases) == ["step.backward", "step.forward", "step.optimizer"]
+    assert all(len(v) == 5 and min(v) > 0 for v in phases.values())
+    assert len(rec.phase_spans) == 15 and rec.overflow == 0
+    slack = rec.clock_error_ns + 10 ** 5
+    assert all(t0 - slack < a < b < t1 + slack for _, a, b in rec.phase_spans)
+
+
+@pytest.mark.cuda
+def test_a_graph_captured_while_not_recording_writes_no_stamp_on_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from vln_bevbert_tpu_torch.utils import profiling
+
+    trainer, _ = _small_block_trainers(tmp_path)
+    _, batch = trainer.train_loader.build_batch(0, task="sap")
+    trainer.block_fn(trainer.state, batch, "sap", 2)  # captured with no recorder
+    with profiling.recording(device=torch.device("cuda")) as rec:
+        trainer.block_fn(trainer.state, batch, "sap", 3)
+        _, taken = torch.ops.bevbert.stamps(False)
+    assert taken == 0 and rec.phases == {} and trainer.block_fn.graphs.replays == 5
+
+
+@pytest.mark.cuda
+def test_stamped_phases_sum_to_the_replay_timed_by_cuda_events_on_card(tmp_path):
+    """The phases of a replay add up to CUDA events around it, within 5% or
+    20 us (the graph's launch and its first and last nodes lie outside the
+    stamps)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from vln_bevbert_tpu_torch.utils import profiling
+
+    trainer, _ = _small_block_trainers(tmp_path)
+    _, batch = trainer.train_loader.build_batch(0, task="mlm")
+    with profiling.recording(device=torch.device("cuda")) as rec:
+        trainer.block_fn(trainer.state, batch, "mlm", 1)
+        (graph,) = trainer.block_fn.graphs.graphs.values()
+        rec.clear()
+        events = []
+        for _ in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            graph.replay()
+            end.record()
+            events.append((start, end))
+        phases = rec.harvest()
+    for k, (start, end) in enumerate(events):
+        stamped = sum(v[k] for v in phases.values())
+        timed = 1e-3 * start.elapsed_time(end)
+        assert abs(stamped - timed) <= max(0.05 * timed, 20e-6), (k, stamped, timed)
+
+
+@pytest.mark.cuda
+def test_a_host_span_lines_up_with_the_device_traces_idle_gap_on_card():
+    """Spans around 20 ms host sleeps, each between two small kernels with a
+    sync before the sleep, lie inside the idle gaps that the profiler's
+    device trace shows there (50 us of slack), and the nearest start and
+    the nearest end lie within 0.5 ms of their gap's: spans and the trace
+    share one clock to within that. (A gap starts when the kernel before
+    it ends and ends when the one after it starts: it holds the span, the
+    sync's return and a launch, each of which can take milliseconds on a
+    shared host, so only the nearest bound the clocks' difference.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from vln_bevbert_tpu_torch.utils import profiling
+
+    x = torch.zeros(1 << 20, device="cuda")
+    x.add_(1)
+    torch.cuda.synchronize()
+    with profiling.recording() as rec, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            x.add_(1)
+            torch.cuda.synchronize()
+            with profiling.span("sleep"):
+                time.sleep(0.02)
+            x.add_(1)
+        torch.cuda.synchronize()
+    start_ns = prof.profiler.kineto_results.trace_start_ns()
+    busy = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+    gaps = [(start_ns + 1e3 * a_end, start_ns + 1e3 * b_start)
+            for (_, a_end), (b_start, _) in zip(busy, busy[1:]) if b_start - a_end > 1e4]
+    sleeps = rec.named("sleep")
+    assert len(gaps) == len(sleeps) == 5
+    leads = [s.start_ns - g0 for (g0, _), s in zip(gaps, sleeps)]
+    lags = [g1 - s.end_ns for (_, g1), s in zip(gaps, sleeps)]
+    assert min(leads) > -5e4 and min(lags) > -5e4, (leads, lags)
+    assert min(leads) < 5e5 and min(lags) < 5e5, (leads, lags)
 
 
 @pytest.mark.cuda

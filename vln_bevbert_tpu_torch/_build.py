@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels as PyTorch operators.
 
-``csrc/splat.cu`` and ``csrc/dropout.cu`` hold the kernels and plain C++
+``csrc/splat.cu``, ``csrc/dropout.cu`` and ``csrc/stamp.cu`` (the device
+phase stamps of ``utils/profiling.py``) hold the kernels and plain C++
 launch functions (``csrc/kernels.h``) that include no PyTorch header, so
 ``nvcc`` compiles them in seconds; ``csrc/ops.cpp`` binds them as
 ``torch.ops.bevbert.*`` operators with ``TORCH_LIBRARY`` (checks, outputs,
@@ -8,7 +9,7 @@ the current stream, the dropout's autograd, the launch counters). The
 kernels count their own launches in device memory, so a CUDA graph's
 replays are counted where they run.
 
-At first use the three sources are compiled in parallel, one ``nvcc`` each
+At first use the four sources are compiled in parallel, one ``nvcc`` each
 (``sm_90a`` for the kernels; the binding against the installed torch's
 headers and C++ ABI), and linked into one shared library under ``build/`` at
 the checkout's root. Its file name hashes the sources, the flags and
@@ -32,7 +33,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("ops.cpp", "splat.cu", "dropout.cu")
+SOURCES = ("ops.cpp", "splat.cu", "dropout.cu", "stamp.cu")
 KERNEL_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                 "-Xptxas", "-v"]
 BINDING_FLAGS = ["-std=c++20", "-O2"]

@@ -1,4 +1,4 @@
-// Launch functions of the hand-written kernels (splat.cu, dropout.cu).
+// Launch functions of the hand-written kernels (splat.cu, dropout.cu, stamp.cu).
 //
 // Plain C++ with no PyTorch headers, so that nvcc compiles the kernels in
 // seconds; ops.cpp checks the tensors, allocates, takes PyTorch's current
@@ -59,5 +59,16 @@ cudaError_t launch_splat(const SplatArgs& args, cudaStream_t stream);
 // reset, sets it to 0.
 cudaError_t dropout_launches(unsigned long long* count, bool reset);
 cudaError_t splat_launches(unsigned long long* count, bool reset);
+
+// Device phase stamps (stamp.cu): launch_stamp queues a one-thread kernel
+// that takes the next slot of a ring of kStampSlots in device memory and
+// writes (id, %globaltimer ns) there, at every replay where a CUDA graph
+// recorded it. read_stamps synchronises the device, reads the slots taken
+// since the last reset into *head, copies the first min(*head, kStampSlots)
+// slots, as (id, ns) pairs, into ring (room for 2 * kStampSlots), and with
+// reset starts the ring again at slot 0. Slot s lies at s % kStampSlots.
+constexpr unsigned long long kStampSlots = 65536;
+cudaError_t launch_stamp(uint32_t id, cudaStream_t stream);
+cudaError_t read_stamps(unsigned long long* head, unsigned long long* ring, bool reset);
 
 }  // namespace bevbert

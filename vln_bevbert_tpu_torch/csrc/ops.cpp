@@ -11,7 +11,14 @@
 //       the launches of "dropout" (forward and backward) and "splat" that
 //       ran on the current device, counted by the kernels themselves
 //       (kernels.h), so a CUDA graph's replays count and its capture does
-//       not; both synchronise the device.
+//       not; both synchronise the device;
+//   stamp(int id) -> (), stamps(bool reset) -> (Tensor, int)
+//       stamp.cu: queue a stamp of the device's clock under id on the current
+//       stream (also into a CUDA graph being captured, which then stamps at
+//       every replay); read the stamps taken on the current device since
+//       the last reset, oldest first, as an int64 (n, 2) CPU tensor of (id,
+//       ns) rows, with the count of slots taken (more than n where the ring
+//       wrapped), and with reset start it again; stamps synchronises.
 //
 // Each operator checks its tensors, allocates its outputs and scratch with
 // PyTorch's allocator, launches on PyTorch's current stream without
@@ -22,6 +29,7 @@
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
 #include <ATen/ops/empty_like.h>
+#include <ATen/ops/roll.h>
 #include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
@@ -31,6 +39,7 @@
 #include <cmath>
 #include <cstdint>
 #include <optional>
+#include <tuple>
 
 #include "kernels.h"
 
@@ -201,6 +210,23 @@ void reset_launch_counts() {
   C10_CUDA_CHECK(splat_launches(nullptr, true));
 }
 
+void stamp(int64_t id) {
+  TORCH_CHECK_VALUE(id >= 0 && id < (int64_t{1} << 32), "stamp id ", id, " outside 32 bits");
+  C10_CUDA_CHECK(
+      launch_stamp(static_cast<uint32_t>(id), c10::cuda::getCurrentCUDAStream().stream()));
+}
+
+std::tuple<at::Tensor, int64_t> stamps(bool reset) {
+  at::Tensor ring = at::empty({static_cast<int64_t>(kStampSlots), 2}, at::kLong);
+  unsigned long long head = 0;
+  auto* slots = reinterpret_cast<unsigned long long*>(ring.data_ptr<int64_t>());
+  C10_CUDA_CHECK(read_stamps(&head, slots, reset));
+  const auto taken = static_cast<int64_t>(head);
+  if (head <= kStampSlots) return {ring.narrow(0, 0, taken), taken};
+  // wrapped: the oldest slot left is the next one to be written
+  return {at::roll(ring, -static_cast<int64_t>(head % kStampSlots), 0), taken};
+}
+
 }  // namespace
 }  // namespace bevbert
 
@@ -210,6 +236,8 @@ TORCH_LIBRARY(bevbert, m) {
         "int num_cells, int num_sem) -> Tensor");
   m.def("launch_count(str kernel) -> int", &bevbert::launch_count);
   m.def("reset_launch_counts() -> ()", &bevbert::reset_launch_counts);
+  m.def("stamp(int id) -> ()", &bevbert::stamp);
+  m.def("stamps(bool reset) -> (Tensor, int)", &bevbert::stamps);
 }
 
 TORCH_LIBRARY_IMPL(bevbert, CUDA, m) {

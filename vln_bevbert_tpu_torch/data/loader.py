@@ -9,6 +9,14 @@
   in train_r2r.py:45-57) + static-shape batch assembly, with an optional
   background thread double-buffering host batch construction against device
   compute (the reference's PrefetchLoader role, loader.py:62-124).
+
+Spans (``utils/profiling.py``): ``loader.build`` around each batch's
+construction, keyed by its step, on the thread that builds it, with its
+children ``loader.items`` (the examples' ``get_input``) and
+``loader.collate`` (``make_pretrain_batch``); ``loader.wait`` around the
+consumer's wait for a built batch. Forked workers (``num_workers`` > 0)
+build in other processes, whose spans the consumer's recorder never sees:
+there only ``loader.wait`` is recorded.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import numpy as np
 
 from ..configs import ModelConfig, PretrainConfig, ShapeConfig
 from ..parallel.mesh import shard_batch
+from ..utils import profiling
 from .batching import make_pretrain_batch
 from .pathdata import TextPathData
 
@@ -121,6 +130,10 @@ class PretrainLoader:
     def build_batch(
         self, step: int, task: Optional[str] = None
     ) -> Tuple[str, Dict[str, np.ndarray]]:
+        with profiling.span("loader.build", key=step):
+            return self._build_batch(step, task)
+
+    def _build_batch(self, step: int, task: Optional[str]) -> Tuple[str, Dict[str, np.ndarray]]:
         if task is None:
             task = self.meta.task_for_step(step)
         base = task.split("_")[0]
@@ -129,23 +142,25 @@ class PretrainLoader:
         # produce the identical stream as sequential construction
         rng = np.random.default_rng((self.seed, self.rank, 17, step))
         idxs = rng.integers(0, len(self.nav_db), self.global_batch_size)
-        examples = [
-            self.nav_db.get_input(
-                int(i),
-                sample_end_vp_type(task, rng),
-                rng,
-                return_act_label=base in ("sap", "sem", "masksem"),
-                return_obj_label=base == "og",
-                return_obj_probs=base == "mrc",
+        with profiling.span("loader.items"):
+            examples = [
+                self.nav_db.get_input(
+                    int(i),
+                    sample_end_vp_type(task, rng),
+                    rng,
+                    return_act_label=base in ("sap", "sem", "masksem"),
+                    return_obj_label=base == "og",
+                    return_obj_probs=base == "mrc",
+                )
+                for i in idxs
+            ]
+        with profiling.span("loader.collate"):
+            batch = make_pretrain_batch(
+                examples, base, self.cfg.shapes, self.cfg.model, rng,
+                mlm_prob=self.cfg.mlm_prob,
+                bev_mrc_mask_prob=self.cfg.bev_mrc_mask_prob,
+                obj_mrc_mask_prob=self.cfg.mrc_mask_prob,
             )
-            for i in idxs
-        ]
-        batch = make_pretrain_batch(
-            examples, base, self.cfg.shapes, self.cfg.model, rng,
-            mlm_prob=self.cfg.mlm_prob,
-            bev_mrc_mask_prob=self.cfg.bev_mrc_mask_prob,
-            obj_mrc_mask_prob=self.cfg.mrc_mask_prob,
-        )
         if self.dp_rank is not None:
             batch = shard_batch(batch, self.dp_rank, self.n_devices)
         return task, batch
@@ -166,17 +181,23 @@ class PretrainLoader:
         def worker():
             step = 0
             while not stop.is_set():
-                try:
-                    q.put(self.build_batch(step), timeout=1.0)
-                    step += 1
-                except queue.Full:
-                    continue
+                item = self.build_batch(step)
+                # each batch is built once: it waits here for room, or the stop
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=1.0)
+                        break
+                    except queue.Full:
+                        continue
+                step += 1
 
-        thread = threading.Thread(target=worker, daemon=True)
+        thread = threading.Thread(target=worker, name="loader-prefetch", daemon=True)
         thread.start()
         try:
             while True:
-                yield q.get()
+                with profiling.span("loader.wait"):
+                    item = q.get()
+                yield item
         finally:
             stop.set()
 
@@ -211,7 +232,8 @@ class PretrainLoader:
         try:
             while True:
                 while step not in pending:
-                    s, task, batch = out_q.get()
+                    with profiling.span("loader.wait"):
+                        s, task, batch = out_q.get()
                     pending[s] = (task, batch)
                 yield pending.pop(step)
                 step += 1

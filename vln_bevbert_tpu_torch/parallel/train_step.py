@@ -49,7 +49,7 @@ from ..models.bert import init_params
 from ..models.glocal import GlocalTextPathCMTPreTraining
 from ..ops.bev import BevProjector
 from ..ops.dropout import Dropout, set_dropout_generator
-from ..utils import graphs
+from ..utils import graphs, profiling
 from ..utils.device import resolve_device, to_device
 from ..utils.rng import make_generator, train_generator
 from . import distributed
@@ -233,15 +233,27 @@ def make_pretrain_step(model: GlocalTextPathCMTPreTraining, projector: BevProjec
     tensors, with ``loss`` and ``grad_norm``, global under data
     parallelism); ``batch`` lies on the model's device and holds this rank's
     rows. ``moves`` as ``TrainState.apply_gradients`` takes it: a graph of
-    the block step captures ``step(..., moves)``."""
+    the block step captures ``step(..., moves)``. While a recorder with
+    device phases records (``utils/profiling.py``), the step stamps its
+    phases on the card: ``step.forward`` (lift-splat, forward, loss),
+    ``step.backward``, ``step.all_reduce`` (under data parallelism) and
+    ``step.optimizer`` (clip, update, zeroing); a graph captured then
+    stamps them at every replay."""
     loss_fn = make_loss_fn(model, projector)
 
     def step(state: TrainState, batch: Batch, task: str,
              moves: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+        device = state.params[0].device
+        profiling.device_phase("step.forward", device)
         loss, metrics = loss_fn(batch, task)
+        profiling.device_phase("step.backward", device)
         loss.backward()
+        if distributed.active():
+            profiling.device_phase("step.all_reduce", device)
         state.all_reduce_grads()
+        profiling.device_phase("step.optimizer", device)
         gnorm = state.apply_gradients(moves)
+        profiling.device_phase(None, device)
         return {**metrics, "loss": distributed.all_reduce_(loss.detach()), "grad_norm": gnorm}
 
     return step
@@ -295,15 +307,18 @@ def make_pretrain_block_step(model: GlocalTextPathCMTPreTraining, projector: Bev
     the CPU the steps run eagerly. ``state`` is the one the block runs on;
     at most ``max_graphs`` graphs are kept (``block_graph_bound`` gives a
     configuration's; None keeps every one), the least recently used evicted
-    first."""
+    first. A call is the span ``block_step`` (``utils/profiling.py``), the
+    cache's ``graphs.stage``, ``graphs.replay`` and ``graphs.capture``
+    within it."""
     device = state.params[0].device
     step = make_pretrain_step(model, projector)
     if device.type != "cuda":
 
         def eager_block(state_: TrainState, batch, task: str, length: int,
                         stacked: bool = False) -> Dict[str, torch.Tensor]:
-            for b in block_batches(batch, length, stacked):
-                metrics = step(state_, upload(b, device), task)
+            with profiling.span("block_step"):
+                for b in block_batches(batch, length, stacked):
+                    metrics = step(state_, upload(b, device), task)
             return metrics
 
         return eager_block
@@ -315,13 +330,14 @@ def make_pretrain_block_step(model: GlocalTextPathCMTPreTraining, projector: Bev
         if state_ is not state:
             raise ValueError("this block step was made for another TrainState")
         loaded = None if stacked else set()  # one re-fed batch is copied in once
-        for b in block_batches(batch, length, stacked):
-            moves = state.tx.moves_next
-            out = cache.step((task, graphs.signature(b), moves), b, device,
-                             lambda inputs: step(state, inputs, task, moves), state.device_state(),
-                             dropout_generators(model), loaded)
-            state.tx.advance(moves)
-        return {k: v.clone() for k, v in out.items()}
+        with profiling.span("block_step"):
+            for b in block_batches(batch, length, stacked):
+                moves = state.tx.moves_next
+                out = cache.step((task, graphs.signature(b), moves), b, device,
+                                 lambda inputs: step(state, inputs, task, moves),
+                                 state.device_state(), dropout_generators(model), loaded)
+                state.tx.advance(moves)
+            return {k: v.clone() for k, v in out.items()}
 
     block.graphs = cache
     return block

@@ -20,6 +20,13 @@ Validation runs the model in eval mode under ``torch.inference_mode()``: no
 dropout, so it draws nothing from the dropout generator and leaves
 training's stream as it was.
 
+Spans (``utils/profiling.py``) of the blocked loop: ``trainer.block``, one
+an iteration, keyed by the block's first step (the loader's waits and the
+block step within it; its self time is the block's padding and the loop's
+bookkeeping, the loader's own included), and ``trainer.readback`` around
+the previous block's readback, whose copy queues behind the block just
+dispatched and so waits for the card to finish it.
+
 Under data parallelism (``parallel.distributed.initialize``; the loaders
 built with ``dp_rank``) every rank trains on its rows of the global batch:
 the parameters are broadcast from rank 0 at construction, the step's
@@ -52,6 +59,7 @@ from ..parallel.train_step import (
     save_checkpoint,
     upload,
 )
+from ..utils import profiling
 from ..utils.logging import RunningMeter, make_logger
 from ..utils.mlabel import MP3D_CATEGORIES, multilabel_report
 
@@ -170,30 +178,33 @@ class PretrainTrainer:
         batches = iter(self.train_loader)
         try:
             while step < num_steps:
-                task, batch = carried if carried is not None else next(batches)
-                carried = None
-                base = task.split("_")[0]
-                block = [batch]
-                while len(block) < cfg.task_block_size and step + len(block) < num_steps:
-                    nxt = next(batches)
-                    if nxt[0].split("_")[0] != base:
-                        carried = nxt
-                        break
-                    block.append(nxt[1])
-                metrics = self.block_fn(self.state, pad_block(block), base, len(block),
-                                        stacked=True)
-                n_examples += len(block) * self.train_loader.global_batch_size
-                if pending is not None:
-                    record(*pending)
-                prev_step, step = step, self.state.step
-                pending = (prev_step, step, base, metrics)
+                with profiling.span("trainer.block", key=step):
+                    task, batch = carried if carried is not None else next(batches)
+                    carried = None
+                    base = task.split("_")[0]
+                    block = [batch]
+                    while len(block) < cfg.task_block_size and step + len(block) < num_steps:
+                        nxt = next(batches)
+                        if nxt[0].split("_")[0] != base:
+                            carried = nxt
+                            break
+                        block.append(nxt[1])
+                    metrics = self.block_fn(self.state, pad_block(block), base, len(block),
+                                            stacked=True)
+                    n_examples += len(block) * self.train_loader.global_batch_size
+                    if pending is not None:
+                        with profiling.span("trainer.readback"):
+                            record(*pending)
+                    prev_step, step = step, self.state.step
+                    pending = (prev_step, step, base, metrics)
                 if cfg.valid_steps and step // cfg.valid_steps > prev_step // cfg.valid_steps:
                     record(*pending)
                     pending = None
                     self.validate(step)
                     self.save(step)
             if pending is not None:
-                record(*pending)
+                with profiling.span("trainer.readback"):
+                    record(*pending)
         finally:
             batches.close()
         return {k: m.value for k, m in meters.items()}

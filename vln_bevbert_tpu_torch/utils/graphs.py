@@ -26,7 +26,10 @@ program cache:
   signature, accumulation phase), bounded by the most keys its caller can
   make (``max_graphs``; the pretraining block's comes from its config), so
   that eviction only limits a caller that feeds more shapes than it said;
-- **counters**: ``captures``, ``replays``, ``evictions``, ``capture_ms``.
+- **counters**: ``captures``, ``replays``, ``evictions``, ``capture_ms``;
+- **spans** (``utils/profiling.py``): ``graphs.stage`` (a batch's copy into
+  the static inputs, pinning included), ``graphs.replay``,
+  ``graphs.capture`` (warm-up and capture).
 
 A capture that fails raises and names its key; nothing falls back to eager
 steps on the card. Collectives of a gloo group cannot be captured:
@@ -50,6 +53,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel import distributed
+from . import profiling
 
 #: the graph being captured, or None. A module global, not a context
 #: variable: the autograd engine runs a CUDA backward on its own thread
@@ -108,7 +112,8 @@ class Graph:
     def replay(self) -> Any:
         """Run the captured step once on the current stream; returns the
         static outputs, overwritten by the next replay."""
-        self.graph.replay()
+        with profiling.span("graphs.replay"):
+            self.graph.replay()
         for count, n in self.tally.items():
             count.value += n
         self.cache.replays += 1
@@ -146,11 +151,12 @@ class GraphCache:
     def load(inputs: Dict[str, torch.Tensor], batch: Mapping[str, Any]) -> None:
         """Copy ``batch`` into the static ``inputs``, queued on the current
         stream: host arrays through pinned memory, tensors as they lie."""
-        for key, dst in inputs.items():
-            src = _host_tensor(batch[key])
-            if src.device.type == "cpu":
-                src = src.pin_memory()
-            dst.copy_(src, non_blocking=True)
+        with profiling.span("graphs.stage"):
+            for key, dst in inputs.items():
+                src = _host_tensor(batch[key])
+                if src.device.type == "cpu":
+                    src = src.pin_memory()
+                dst.copy_(src, non_blocking=True)
 
     def get(self, key: Hashable) -> Optional[Graph]:
         graph = self.graphs.get(key)
@@ -186,6 +192,11 @@ class GraphCache:
         writes) and ``generators``, then capture ``fn`` (which reads
         ``inputs``) under ``key``; its return value becomes the graph's
         static outputs."""
+        with profiling.span("graphs.capture"):
+            return self._capture(key, inputs, fn, state, generators)
+
+    def _capture(self, key: Hashable, inputs: Dict[str, torch.Tensor], fn: Callable[[], Any],
+                 state: Sequence[torch.Tensor], generators: Sequence[torch.Generator]) -> Graph:
         global _CAPTURING
         device = next(iter(inputs.values())).device
         t0 = time.perf_counter()
