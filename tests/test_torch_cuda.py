@@ -1234,3 +1234,143 @@ def test_small_graphed_replay_and_rollout_blocks_match_eager_on_card():
     roll = make_rollout_block(graphed, 2)
     torch.testing.assert_close(roll(rb), roll.eager(rb), rtol=1e-5, atol=0)
     assert roll.graphs.replays == 2 and not graphed.model.training
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["r2r", "objects", "dp_rank"])
+def test_loader_batches_are_pinned_and_equal_the_numpy_path_on_card(case, monkeypatch):
+    """With a card the in-process loader collates into page-locked CPU
+    tensors from the caching host allocator; their bytes equal the numpy
+    path's (the CPU's, a forked worker's) for every task, with objects, and
+    for one data-parallel rank's rows, which sit in blocks of their own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from test_torch_pinned import small_config, small_loader
+
+    cfg = small_config(with_objects=case == "objects")
+    loader = small_loader(cfg, **(dict(n_devices=2, dp_rank=1) if case == "dp_rank" else {}))
+    got = [loader.build_batch(step, task=t)[1] for step, t in enumerate(cfg.tasks)]
+    monkeypatch.setattr(loader, "_pins", lambda: False)
+    want = [loader.build_batch(step, task=t)[1] for step, t in enumerate(cfg.tasks)]
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        assert g["txt_ids"].shape[0] == cfg.train_batch_size
+        for key, v in g.items():
+            assert isinstance(v, torch.Tensor) and v.is_pinned(), key
+            assert isinstance(w[key], np.ndarray), key
+            assert np.asarray(v).dtype == w[key].dtype and v.shape == w[key].shape, key
+            assert np.asarray(v).tobytes() == w[key].tobytes(), key
+            if case == "dp_rank":
+                assert v.untyped_storage().nbytes() == v.numel() * v.element_size(), key
+
+
+@pytest.mark.cuda
+def test_pad_block_keeps_pinned_batches_page_locked_on_card():
+    """A block that mixes buckets pads the loader's pinned tensors into
+    page-locked tensors, with the numpy padding's values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from vln_bevbert_tpu_torch.pretrain.trainer import pad_block
+
+    short = np.arange(6, dtype=np.float16).reshape(2, 3)
+    a, b = {"x": torch.from_numpy(short).pin_memory()}, {"x": torch.ones(2, 5).half().pin_memory()}
+    pa, pb = pad_block([a, b])
+    assert pa["x"].is_pinned() and pb["x"] is b["x"]
+    assert np.array_equal(pa["x"].numpy(), np.pad(short, [(0, 0), (0, 2)]))
+
+
+@pytest.mark.cuda
+def test_staged_pinned_batch_is_not_recycled_before_its_copy_runs_on_card():
+    """A pinned batch staged behind a long kernel and dropped: the next
+    batch's collate cannot take its blocks while the copies are queued (the
+    copies recorded their events against the allocator's own tensors), so
+    the static inputs hold the first batch once the card is done."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from test_torch_pinned import small_config, small_loader
+
+    from vln_bevbert_tpu_torch.utils import graphs
+
+    loader = small_loader(small_config(batch_size=16))
+    _, first = loader.build_batch(0, task="sap")
+    want = {k: v.clone() for k, v in first.items()}
+    cache = graphs.GraphCache()
+    inputs = cache.inputs_for(first, torch.device("cuda"))
+    torch.cuda._sleep(1_000_000_000)  # ~0.5 s of the card's cycles
+    cache.load(inputs, first)
+    grid_ptr = first["grid_fts"].data_ptr()
+    del first
+    _, second = loader.build_batch(1, task="sap")
+    assert second["grid_fts"].data_ptr() != grid_ptr
+    assert not torch.equal(second["grid_fts"], want["grid_fts"])
+    torch.cuda.synchronize()
+    for key, v in inputs.items():
+        assert torch.equal(v.cpu(), want[key]), key
+    assert cache.counters()["staged_pinned_bytes"] == cache.counters()["staged_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_to_device_moves_host_tensors_to_the_card_on_card():
+    """``to_device`` copies a pinned or pageable CPU tensor, and a numpy
+    array, to the card; a tensor already there passes through."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from vln_bevbert_tpu_torch.utils.device import to_device
+
+    device = torch.device("cuda")
+    host = torch.arange(12, dtype=torch.float16).reshape(3, 4)
+    for x in (host.pin_memory(), host, host.numpy()):
+        y = to_device(x, device)
+        assert y.device.type == "cuda" and torch.equal(y.cpu(), host)
+    on_card = host.cuda()
+    assert to_device(on_card, device) is on_card
+
+
+@pytest.mark.cuda
+def test_blocked_train_after_warm_up_captures_stages_pinned_batches_on_card(tmp_path):
+    """Graphs captured from the loader's batches with their trajectory
+    arrays turned into numpy (as the benchmark's warm-up resizes them) key
+    the same graphs as the pinned batches of the trainer's stream: a blocked
+    ``train`` captures nothing more, and at least 95% of the host bytes it
+    stages are already page-locked."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from vln_bevbert_tpu_torch.parallel.train_step import dropout_generators
+    from vln_bevbert_tpu_torch.utils import graphs
+
+    config = tmp_path / "small.json"
+    config.write_text(json.dumps({
+        "model": {"hidden_size": 64, "num_attention_heads": 2, "intermediate_size": 128,
+                  "num_l_layers": 1, "num_pano_layers": 1, "num_x_layers": 1,
+                  "image_feat_size": 32, "bev_grid_feat_size": 24, "dtype": "float32"},
+        "shapes": {"max_txt_len": 16, "max_steps": 3, "max_gmap_len": 64, "max_local_len": 8,
+                   "max_pano_len": 40, "num_views": 12, "grid_hw": 4},
+    }))
+    trainer = pretrain.build(pretrain.parse_args([
+        "--synthetic", "--device", "cuda", "--batch_size", "4", "--config", str(config),
+        "--tasks", "mlm.1.sap.1.masksem.1", "--output_dir", str(tmp_path / "run")]))
+    state, cache = trainer.state, trainer.block_fn.graphs
+    for i, task in enumerate(("mlm", "sap", "masksem")):
+        _, real = trainer.train_loader.build_batch(10 ** 9 + i, task=task)
+        b = {k: np.asarray(v).copy() if k.startswith("traj_") else v for k, v in real.items()}
+        moves = state.tx.moves_next
+        inputs = cache.inputs_for(b, torch.device("cuda"))
+        cache.load(inputs, b)
+        cache.capture((task, graphs.signature(b), moves), inputs,
+                      lambda inputs=inputs, task=task, moves=moves:
+                      trainer.step_fn(state, inputs, task, moves),
+                      state.device_state(), dropout_generators(trainer.model))
+    before = cache.counters()
+    trainer.train(num_steps=24)
+    after = cache.counters()
+    assert before["captures"] == after["captures"] == 3
+    assert after["replays"] - before["replays"] == 24
+    staged = after["staged_bytes"] - before["staged_bytes"]
+    pinned = after["staged_pinned_bytes"] - before["staged_pinned_bytes"]
+    assert staged > 0 and pinned / staged >= 0.95, (pinned, staged)

@@ -16,7 +16,7 @@ fixed-width gathered positions.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -127,6 +127,19 @@ def build_fuse_map(
     return fm
 
 
+class HostArrays:
+    """Where ``make_pretrain_batch`` puts its arrays: ``empty`` allocates one
+    (numpy's heap), ``copy`` fills part of one from an example's array
+    (numpy's copy). ``data.loader.PinnedArrays`` puts them in page-locked
+    memory instead."""
+
+    def empty(self, shape: Tuple[int, ...], dtype) -> np.ndarray:
+        return np.empty(shape, dtype)
+
+    def copy(self, dst: np.ndarray, src: np.ndarray) -> None:
+        dst[...] = src
+
+
 def make_pretrain_batch(
     examples: Sequence[PathExample],
     task: str,
@@ -138,7 +151,22 @@ def make_pretrain_batch(
     mlm_prob: float = 0.15,
     bev_mrc_mask_prob: float = 0.15,
     obj_mrc_mask_prob: float = 0.15,
+    arrays: HostArrays = HostArrays(),
 ) -> Dict[str, np.ndarray]:
+    """The static-shape batch of ``task`` from ``examples``.
+
+    ``arrays.empty`` allocates every output array and ``arrays.copy`` fills
+    the grid features, most of the batch's bytes. The collate writes every
+    element of what it allocates: arrays with padding are zero-filled first,
+    the others are written whole, so the batch does not depend on what the
+    memory held."""
+    empty = arrays.empty
+
+    def zeros(shape, dtype) -> np.ndarray:
+        a = empty(shape, dtype)
+        a.fill(0)
+        return a
+
     B = len(examples)
     V = shapes.max_pano_len
     # Bucket the batch-dependent axes so compute follows the data instead of
@@ -164,49 +192,48 @@ def make_pretrain_batch(
     C = model.num_bev_tokens
     A = model.angle_feat_size
 
-    out: Dict[str, np.ndarray] = {}
-    txt_ids = np.zeros((B, L), np.int32)
-    txt_masks = np.zeros((B, L), bool)
-    view_fts = np.zeros((B, T, V, model.image_feat_size), np.float32)
-    loc_fts = np.zeros((B, T, P, A + 3), np.float32)
-    nav_types = np.zeros((B, T, P), np.int32)
-    view_lens = np.zeros((B, T), np.int32)
-    last_step = np.zeros(B, np.int32)
+    txt_ids = zeros((B, L), np.int32)
+    txt_masks = zeros((B, L), bool)
+    view_fts = zeros((B, T, V, model.image_feat_size), np.float32)
+    loc_fts = zeros((B, T, P, A + 3), np.float32)
+    nav_types = zeros((B, T, P), np.int32)
+    view_lens = zeros((B, T), np.int32)
+    last_step = empty((B,), np.int32)
     if with_objects:
-        obj_fts = np.zeros((B, T, O, model.obj_feat_size), np.float32)
-        obj_lens = np.zeros((B, T), np.int32)
-    gmap_agg = np.zeros((B, N, T * P), np.float32)
-    gmap_step_ids = np.zeros((B, N), np.int32)
-    gmap_visited = np.zeros((B, N), bool)
-    gmap_masks = np.zeros((B, N), bool)
-    gmap_pos_fts = np.zeros((B, N, A + 3), np.float32)
-    gmap_pair_dists = np.zeros((B, N, N), np.float32)
-    depths = np.zeros((B, shapes.num_views, shapes.grid_hw, shapes.grid_hw), np.float32)
+        obj_fts = zeros((B, T, O, model.obj_feat_size), np.float32)
+        obj_lens = zeros((B, T), np.int32)
+    gmap_agg = empty((B, N, T * P), np.float32)
+    gmap_step_ids = zeros((B, N), np.int32)
+    gmap_visited = zeros((B, N), bool)
+    gmap_masks = zeros((B, N), bool)
+    gmap_pos_fts = zeros((B, N, A + 3), np.float32)
+    gmap_pair_dists = zeros((B, N, N), np.float32)
+    depths = empty((B, shapes.num_views, shapes.grid_hw, shapes.grid_hw), np.float32)
     # grid features ship in their source dtype (fp16 from disk — the device
     # casts to bf16 in the splat; fp32 from synthetic/dict stores)
-    grid_fts = np.zeros(
+    grid_fts = empty(
         (B, shapes.num_points, model.bev_grid_feat_size),
         examples[0].grid_fts.dtype,
     )
-    sem_labels = np.zeros((B, shapes.num_points), np.int32)
-    T_c2w = np.zeros((B, shapes.num_views, 4, 4), np.float32)
-    T_w2c = np.zeros((B, 4, 4), np.float32)
-    S_w2c = np.zeros((B, 3), np.float32)
-    bev_nav_masks = np.zeros((B, C), bool)
-    bev_cand_idxs = np.zeros((B, K), np.int32)
-    local_masks = np.zeros((B, K), bool)
-    fuse_map = np.zeros((B, N, K), np.float32)
-    bev_pos_fts = np.zeros((B, C, A + 3 + 3), np.float32)
-    glabels = np.full(B, -100, np.int64)
-    llabels = np.full(B, -100, np.int64)
+    sem_labels = empty((B, shapes.num_points), np.int32)
+    T_c2w = empty((B, shapes.num_views, 4, 4), np.float32)
+    T_w2c = empty((B, 4, 4), np.float32)
+    S_w2c = empty((B, 3), np.float32)
+    bev_nav_masks = zeros((B, C), bool)
+    bev_cand_idxs = zeros((B, K), np.int32)
+    local_masks = zeros((B, K), bool)
+    fuse_map = empty((B, N, K), np.float32)
+    bev_pos_fts = empty((B, C, A + 3 + 3), np.float32)
+    glabels = empty((B,), np.int64)
+    llabels = empty((B,), np.int64)
     polar = bev_polar_pos(model.bev_dim).reshape(C, 3)
 
     mlm = task == "mlm"
     if mlm:
-        mlm_ids = np.zeros((B, L), np.int32)
-        mlm_pos = np.zeros((B, M), np.int32)
-        mlm_tgt = np.zeros((B, M), np.int32)
-        mlm_valid = np.zeros((B, M), bool)
+        mlm_ids = zeros((B, L), np.int32)
+        mlm_pos = zeros((B, M), np.int32)
+        mlm_tgt = zeros((B, M), np.int32)
+        mlm_valid = zeros((B, M), bool)
 
     for b, ex in enumerate(examples):
         ids = np.asarray(ex.instr_encoding)[:L]
@@ -257,7 +284,7 @@ def make_pretrain_batch(
         fuse_map[b] = build_fuse_map(ex, shapes, num_nodes=N)
 
         depths[b] = ex.depths
-        grid_fts[b] = ex.grid_fts
+        arrays.copy(grid_fts[b], ex.grid_fts)
         sem_labels[b] = ex.sem_labels
         T_c2w[b] = ex.T_c2w
         T_w2c[b] = ex.T_w2c
@@ -272,7 +299,9 @@ def make_pretrain_batch(
         glabels[b] = ex.global_act_label if ex.global_act_label < N else -100
         llabels[b] = ex.local_act_label if ex.local_act_label < K else -100
 
-    out.update(
+    bev_masks = empty((B, C), bool)
+    bev_masks.fill(True)
+    out = dict(
         txt_ids=txt_ids, txt_masks=txt_masks,
         traj_view_fts=view_fts, traj_loc_fts=loc_fts,
         traj_nav_types=nav_types, traj_view_lens=view_lens,
@@ -284,16 +313,15 @@ def make_pretrain_batch(
         T_c2w=T_c2w, T_w2c=T_w2c, S_w2c=S_w2c,
         bev_nav_masks=bev_nav_masks, bev_cand_idxs=bev_cand_idxs,
         local_masks=local_masks, fuse_map=fuse_map,
-        bev_masks=np.ones((B, C), bool), bev_pos_fts=bev_pos_fts,
+        bev_masks=bev_masks, bev_pos_fts=bev_pos_fts,
         global_act_labels=glabels, local_act_labels=llabels,
     )
     if with_objects:
         out.update(traj_obj_fts=obj_fts, traj_obj_lens=obj_lens)
-        out["obj_labels"] = np.array(
-            [ex.obj_label for ex in examples], np.int64
-        )
-        obj_probs = np.zeros((B, O, model.obj_prob_size), np.float32)
-        obj_mrc = np.zeros((B, O), bool)
+        out["obj_labels"] = empty((B,), np.int64)
+        out["obj_labels"][:] = [ex.obj_label for ex in examples]
+        obj_probs = zeros((B, O, model.obj_prob_size), np.float32)
+        obj_mrc = zeros((B, O), bool)
         for b, ex in enumerate(examples):
             if ex.obj_probs is not None and len(ex.obj_probs):
                 n = min(len(ex.obj_probs), O)
@@ -313,7 +341,8 @@ def make_pretrain_batch(
         out.update(mlm_ids=mlm_ids, mlm_pos=mlm_pos, mlm_tgt=mlm_tgt,
                    mlm_valid=mlm_valid)
     if task in ("masksem", "sem"):
-        mrc = rng.uniform(size=(B, C)) < bev_mrc_mask_prob
+        mrc = empty((B, C), bool)
+        np.less(rng.uniform(size=(B, C)), bev_mrc_mask_prob, out=mrc)
         for b in range(B):
             if not mrc[b].any():
                 mrc[b, int(rng.integers(C))] = True

@@ -10,6 +10,16 @@
   background thread double-buffering host batch construction against device
   compute (the reference's PrefetchLoader role, loader.py:62-124).
 
+Where CUDA is available and the batch is built in the process that made the
+loader (its prefetch thread, or the caller), the collate allocates its
+arrays in page-locked memory from PyTorch's caching host allocator
+(``PinnedArrays``) and the batch holds those CPU tensors: the memory is
+resident, so filling it faults in no page, and the dispatch copies from it
+to the card without pinning a copy first. The allocator recycles a block
+only once the copies queued from it have run. Elsewhere (the CPU, forked
+workers, whose batches are pickled anyway) the batch holds numpy arrays.
+The values are the same either way.
+
 Spans (``utils/profiling.py``): ``loader.build`` around each batch's
 construction, keyed by its step, on the thread that builds it, with its
 children ``loader.items`` (the examples' ``get_input``) and
@@ -21,17 +31,22 @@ there only ``loader.wait`` is recorded.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from ..configs import ModelConfig, PretrainConfig, ShapeConfig
 from ..parallel.mesh import shard_batch
 from ..utils import profiling
-from .batching import make_pretrain_batch
+from .batching import HostArrays, make_pretrain_batch
 from .pathdata import TextPathData
+
+#: a batch's host arrays: pinned CPU tensors or numpy arrays (module docstring)
+HostBatch = Dict[str, Union[np.ndarray, torch.Tensor]]
 
 # (pos_ratio, mid_ratio): end-vp is 'pos' w.p. pos_ratio, else 'neg_in_gt_path'
 # up to mid_ratio, else 'neg_others' (ref SapDataset.__getitem__ tasks.py:318-326
@@ -44,6 +59,44 @@ END_VP_POLICY = {
     "sem": (0.2, 1.0),
     "masksem": (0.2, 1.0),
 }
+
+
+class PinnedArrays(HostArrays):
+    """``make_pretrain_batch``'s arrays in page-locked memory from PyTorch's
+    caching host allocator.
+
+    ``empty`` returns a numpy view of a pinned tensor; ``tensors`` hands
+    back the tensors that own the arrays. Those are the allocator's own
+    tensors: a non-blocking copy from one records its event against the
+    block, and the allocator hands the block out again only after the copy
+    has run (a ``torch.from_numpy`` wrapper of the same memory would record
+    nothing). ``copy`` runs on PyTorch's intra-op threads, which a forked
+    worker may not use: only the process that made the loader collates
+    here."""
+
+    def __init__(self) -> None:
+        self._owners: Dict[int, Tuple[np.ndarray, torch.Tensor]] = {}
+
+    def empty(self, shape: Tuple[int, ...], dtype) -> np.ndarray:
+        t = torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                        pin_memory=True)
+        a = t.numpy()
+        self._owners[id(a)] = (a, t)
+        return a
+
+    def copy(self, dst: np.ndarray, src: np.ndarray) -> None:
+        torch.from_numpy(dst).copy_(torch.from_numpy(src))
+
+    def tensors(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Each of ``arrays``, all from ``empty``, as the tensor that holds
+        it."""
+        return {key: self._owners[id(a)][1] for key, a in arrays.items()}
+
+
+def pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of the host tensor ``t`` in a block of the caching host
+    allocator."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
 
 
 def sample_end_vp_type(task: str, rng: np.random.Generator) -> str:
@@ -122,6 +175,7 @@ class PretrainLoader:
         self.rank = rank
         self.prefetch = prefetch
         self.num_workers = num_workers
+        self._pid = os.getpid()
 
     @property
     def global_batch_size(self) -> int:
@@ -129,11 +183,11 @@ class PretrainLoader:
 
     def build_batch(
         self, step: int, task: Optional[str] = None
-    ) -> Tuple[str, Dict[str, np.ndarray]]:
+    ) -> Tuple[str, HostBatch]:
         with profiling.span("loader.build", key=step):
             return self._build_batch(step, task)
 
-    def _build_batch(self, step: int, task: Optional[str]) -> Tuple[str, Dict[str, np.ndarray]]:
+    def _build_batch(self, step: int, task: Optional[str]) -> Tuple[str, HostBatch]:
         if task is None:
             task = self.meta.task_for_step(step)
         base = task.split("_")[0]
@@ -154,18 +208,32 @@ class PretrainLoader:
                 )
                 for i in idxs
             ]
+        pinned = PinnedArrays() if self._pins() else None
         with profiling.span("loader.collate"):
             batch = make_pretrain_batch(
                 examples, base, self.cfg.shapes, self.cfg.model, rng,
                 mlm_prob=self.cfg.mlm_prob,
                 bev_mrc_mask_prob=self.cfg.bev_mrc_mask_prob,
                 obj_mrc_mask_prob=self.cfg.mrc_mask_prob,
+                arrays=pinned or HostArrays(),
             )
+        if pinned is not None:
+            batch = pinned.tensors(batch)
         if self.dp_rank is not None:
             batch = shard_batch(batch, self.dp_rank, self.n_devices)
+            if pinned is not None:
+                # the rank's rows in blocks of their own, so that the global
+                # batch's blocks go back to the allocator's cache
+                batch = {k: pinned_copy(v) for k, v in batch.items()}
         return task, batch
 
-    def __iter__(self) -> Iterator[Tuple[str, Dict[str, np.ndarray]]]:
+    def _pins(self) -> bool:
+        """Whether a batch built now goes to page-locked memory: CUDA is
+        available and this is the process that made the loader (a forked
+        worker may touch neither CUDA nor PyTorch's intra-op threads)."""
+        return os.getpid() == self._pid and torch.cuda.is_available()
+
+    def __iter__(self) -> Iterator[Tuple[str, HostBatch]]:
         if self.num_workers > 0:
             yield from self._iter_process_pool()
             return
@@ -201,7 +269,7 @@ class PretrainLoader:
         finally:
             stop.set()
 
-    def _iter_process_pool(self) -> Iterator[Tuple[str, Dict[str, np.ndarray]]]:
+    def _iter_process_pool(self) -> Iterator[Tuple[str, HostBatch]]:
         """Forked worker processes build whole batches round-robin by step
         (worker w owns steps w, w+N, ...); the parent re-orders by step id.
         Real TPU VM hosts have ~100 vCPUs against this pipeline's single-core
@@ -227,7 +295,7 @@ class PretrainLoader:
         ]
         for p in procs:
             p.start()
-        pending: Dict[int, Tuple[str, Dict[str, np.ndarray]]] = {}
+        pending: Dict[int, Tuple[str, HostBatch]] = {}
         step = 0
         try:
             while True:

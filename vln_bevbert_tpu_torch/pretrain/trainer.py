@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ..configs import PretrainConfig
-from ..data.loader import PretrainLoader
+from ..data.loader import HostBatch, PretrainLoader
 from ..parallel import distributed, train_step
 from ..parallel.mesh import replicate_module
 from ..parallel.train_step import (
@@ -280,15 +280,24 @@ class PretrainTrainer:
             model.train(training)
 
 
-def pad_block(block: List[Dict[str, np.ndarray]]) -> List[Dict[str, np.ndarray]]:
+def pad_block(block: List[HostBatch]) -> List[HostBatch]:
     """Each key of each batch zero-padded at the end of every axis to the
     block's largest shape, as the JAX trainer pads before stacking (the
-    bucketed axes only grow: zeros and masks, as a larger bucket)."""
+    bucketed axes only grow: zeros and masks, as a larger bucket). A host
+    tensor is padded into a new one, page-locked where it was (the loader's
+    batches on a card), so the dispatch copies it without pinning it first;
+    other values are padded as numpy arrays."""
     out = [dict(b) for b in block]
     for key in block[0]:
-        arrs = [np.asarray(b[key]) for b in block]
-        shape = tuple(max(a.shape[d] for a in arrs) for d in range(arrs[0].ndim))
-        for b, a in zip(out, arrs):
-            if a.shape != shape:
-                b[key] = np.pad(a, [(0, t - n) for n, t in zip(a.shape, shape)])
+        shapes = [tuple(np.shape(b[key])) for b in block]
+        shape = tuple(max(dims) for dims in zip(*shapes))
+        for b, have in zip(out, shapes):
+            if have == shape:
+                continue
+            v = b[key]
+            if isinstance(v, torch.Tensor):
+                b[key] = torch.zeros(shape, dtype=v.dtype, pin_memory=v.is_pinned())
+                b[key][tuple(slice(0, n) for n in have)] = v
+            else:
+                b[key] = np.pad(np.asarray(v), [(0, t - n) for n, t in zip(have, shape)])
     return out

@@ -16,14 +16,18 @@ def resolve_device(name) -> torch.device:
 
 
 def to_device(x, device: torch.device) -> torch.Tensor:
-    """A numpy array (a tensor passes through) as a tensor on ``device``.
+    """A numpy array or a tensor as a tensor on ``device``.
 
-    CUDA uploads go through pinned memory with a non-blocking copy, so they
-    queue behind the card's work; a copy from pageable memory would wait for
-    it."""
+    CUDA uploads of host data go through pinned memory with a non-blocking
+    copy, so they queue behind the card's work; a copy from pageable memory
+    would wait for it. A host tensor already pinned is copied from as it
+    lies. Any other tensor passes through."""
     if isinstance(x, torch.Tensor):
-        return x
-    t = torch.from_numpy(np.ascontiguousarray(x))
+        if x.device.type != "cpu" or device.type != "cuda":
+            return x
+        t = x
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(x))
     if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
+        return (t if t.is_pinned() else t.pin_memory()).to(device, non_blocking=True)
     return t.to(device)

@@ -27,6 +27,8 @@ program cache:
   make (``max_graphs``; the pretraining block's comes from its config), so
   that eviction only limits a caller that feeds more shapes than it said;
 - **counters**: ``captures``, ``replays``, ``evictions``, ``capture_ms``;
+  ``staged_bytes``, the host bytes copied into static inputs, and
+  ``staged_pinned_bytes``, those of them already page-locked;
 - **spans** (``utils/profiling.py``): ``graphs.stage`` (a batch's copy into
   the static inputs, pinning included), ``graphs.replay``,
   ``graphs.capture`` (warm-up and capture).
@@ -87,8 +89,10 @@ def check_capturable(device: torch.device) -> None:
 
 def signature(batch: Mapping[str, Any]) -> tuple:
     """(key, shape, dtype) of every entry, sorted: what a graph's static
-    inputs are made for."""
-    return tuple(sorted((k, tuple(v.shape), str(v.dtype)) for k, v in batch.items()))
+    inputs are made for. A numpy array and a tensor of one dtype give one
+    name (``float16``, not ``torch.float16``)."""
+    return tuple(sorted((k, tuple(v.shape), str(v.dtype).removeprefix("torch."))
+                        for k, v in batch.items()))
 
 
 def _host_tensor(value) -> torch.Tensor:
@@ -136,6 +140,8 @@ class GraphCache:
         self.replays = 0
         self.evictions = 0
         self.capture_ms = 0.0
+        self.staged_bytes = 0
+        self.staged_pinned_bytes = 0
 
     def inputs_for(self, batch: Mapping[str, Any], device: torch.device
                    ) -> Dict[str, torch.Tensor]:
@@ -147,15 +153,22 @@ class GraphCache:
                                                device=device) for k, v in batch.items()}
         return self.inputs[sig]
 
-    @staticmethod
-    def load(inputs: Dict[str, torch.Tensor], batch: Mapping[str, Any]) -> None:
+    def load(self, inputs: Dict[str, torch.Tensor], batch: Mapping[str, Any]) -> None:
         """Copy ``batch`` into the static ``inputs``, queued on the current
-        stream: host arrays through pinned memory, tensors as they lie."""
+        stream. A host tensor already page-locked (the loader's batches on a
+        card) is copied from as it lies, so the host allocator records the
+        copy against its block; other host data bound for the card is pinned
+        first, a copy on this thread; device tensors are copied as they lie."""
         with profiling.span("graphs.stage"):
             for key, dst in inputs.items():
                 src = _host_tensor(batch[key])
                 if src.device.type == "cpu":
-                    src = src.pin_memory()
+                    size = src.numel() * src.element_size()
+                    self.staged_bytes += size
+                    if src.is_pinned():
+                        self.staged_pinned_bytes += size
+                    elif dst.is_cuda:
+                        src = src.pin_memory()
                 dst.copy_(src, non_blocking=True)
 
     def get(self, key: Hashable) -> Optional[Graph]:
@@ -246,5 +259,6 @@ class GraphCache:
     def counters(self) -> Dict[str, float]:
         return {"captures": self.captures, "replays": self.replays,
                 "evictions": self.evictions, "capture_ms": self.capture_ms,
-                "graphs": len(self.graphs)}
+                "graphs": len(self.graphs), "staged_bytes": self.staged_bytes,
+                "staged_pinned_bytes": self.staged_pinned_bytes}
 
