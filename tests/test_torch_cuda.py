@@ -66,6 +66,35 @@ def test_splat_kernel_matches_plain_on_card(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SPLAT_CASES))
+def test_splat_kernel_sums_in_one_order_on_every_call_on_card(case):
+    """Each cell's sum runs in the order of its points' indices: calls on
+    the same input give the same sums, bit for bit, also when other work
+    runs on the card between them (no atomics decide the order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    b, t, p, s, c, f, num_sem, dtype = SPLAT_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    store = torch.randn(b, t, p, f, generator=g, device="cuda").to(dtype)
+    step_sel = (torch.stack([torch.randperm(t, generator=g, device="cuda")[:s]
+                             for _ in range(b)]).int() if t > 1 else None)
+    if step_sel is None:
+        store = store[:, 0]
+    # few cells, so that runs are long and cross many tiles
+    cell = torch.randint(-1, min(c, 37), (b, s * p), generator=g, device="cuda",
+                         dtype=torch.int32)
+    sem = (torch.randint(0, num_sem, (b, s * p), generator=g, device="cuda", dtype=torch.int32)
+           if num_sem else None)
+    kw = dict(step_sel=step_sel, sem_labels=sem, num_sem=num_sem)
+    first = splat_sums(cell, store, c, **kw)
+    for _ in range(5):
+        torch.randn(4096, 4096, device="cuda").sum()
+        assert torch.equal(splat_sums(cell, store, c, **kw), first)
+    plain = splat_sums_plain(cell, store, c, **kw)
+    torch.testing.assert_close(first, plain, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
 def test_splat_wrapper_rejects_bad_input_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -1374,3 +1403,43 @@ def test_blocked_train_after_warm_up_captures_stages_pinned_batches_on_card(tmp_
     staged = after["staged_bytes"] - before["staged_bytes"]
     pinned = after["staged_pinned_bytes"] - before["staged_pinned_bytes"]
     assert staged > 0 and pinned / staged >= 0.95, (pinned, staged)
+
+
+@pytest.mark.cuda
+def test_two_greedy_rollouts_of_one_seed_walk_the_same_paths_bit_for_bit_on_card():
+    """The greedy evaluation rollout is fixed by the seed on the card, as
+    the benchmark's cell ``r2r_finetune.eval`` runs it (its configuration
+    at published widths, its traffic, its weights): two passes over the
+    same first two batches walk identical paths and give identical fused
+    logits, bit for bit, and the agent's counters move by the same counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from portbench import harness
+    from portbench.jobs import eval as eval_job
+    from portbench.jobs.pretrain import world_of
+
+    seed, device = 2 ** 31 + 1801, torch.device("cuda")
+    cell = harness.resolve("r2r_finetune.eval")
+    _, agent = eval_job.program(cell, seed, world_of(cell, seed, device), device)
+    agent.model.load_state_dict(eval_job.weights(cell, seed, device))
+    tap = eval_job.Tap(agent, eval_job.projector_of(cell, device))
+    passes, counts = [], []
+    try:
+        for _ in range(2):
+            tap.rollouts, tap.keep = [], True
+            before = agent.counters()
+            agent.env.reset_epoch(shuffle=False)
+            trajs = [agent.rollout(feedback="argmax", train=False)[0] for _ in range(2)]
+            after = agent.counters()
+            counts.append({k: after[k] - before[k] for k in after})
+            passes.append((trajs, tap.rollouts))
+    finally:
+        tap.close()
+    (trajs_a, ro_a), (trajs_b, ro_b) = passes
+    assert trajs_a == trajs_b
+    assert counts[0] == counts[1] and counts[0]["episodes"] == 8
+    for a, b in zip(ro_a, ro_b):
+        assert len(a["nav"]) == len(b["nav"]) > 0
+        for x, y in zip(a["nav"], b["nav"]):
+            assert torch.equal(x["logits"], y["logits"])
+            assert torch.equal(x["bev_fts"], y["bev_fts"])

@@ -43,6 +43,7 @@ struct SplatArgs {
   int32_t* sorted_cell;     // (B, N) scratch
   int32_t* sorted_sem;      // (B, N) scratch, with sem
   int32_t* n_valid;         // (B,) scratch
+  float* part;              // (B, ceil(N / 32), 2, out_stride) scratch
   int batch, n_points, num_cells, feat_dim, num_sem, out_stride;
   int steps, points_per_step, sel_len;
 };

@@ -172,6 +172,10 @@ at::Tensor splat_sums_cuda(const at::Tensor& cell, const at::Tensor& feats,
   const int64_t chunks = (n + 1023) / 1024;
   const int64_t n_hist = b * chunks * num_cells, n_sorted = (has_sem ? 3 : 2) * b * n;
   at::Tensor scratch = at::empty({n_hist + n_sorted + b}, cell.options());
+  // float32 slots for the pieces of runs across tile edges: two per tile of
+  // 32 sorted points
+  at::Tensor part = at::empty({b * ((n + 31) / 32) * 2 * stride},
+                              cell.options().dtype(at::kFloat));
 
   SplatArgs args;
   args.cell = cell.data_ptr<int32_t>();
@@ -185,6 +189,7 @@ at::Tensor splat_sums_cuda(const at::Tensor& cell, const at::Tensor& feats,
   args.sorted_cell = args.order + b * n;
   args.sorted_sem = has_sem ? args.sorted_cell + b * n : nullptr;
   args.n_valid = args.hist + n_hist + n_sorted;
+  args.part = part.data_ptr<float>();
   args.batch = static_cast<int>(b);
   args.n_points = static_cast<int>(n);
   args.num_cells = static_cast<int>(num_cells);

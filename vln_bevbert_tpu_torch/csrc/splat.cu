@@ -26,19 +26,25 @@
 // 2. splat_scatter_kernel, grid (chunks, B): each block scans the row's
 //    chunk histograms into the start of each cell's run for its chunk and
 //    writes its points' feature-row indices, cells and labels into the
-//    row's cell-sorted order. The blocks of a row also zero the output rows
-//    of the cells whose run crosses a tile boundary, and of empty cells.
+//    row's cell-sorted order, a cell's points in the order of their index
+//    (a point's slot counts its cell's points in the warps before it and
+//    its peers in its warp: no atomics). The blocks of a row also zero the
+//    output rows of empty cells.
 // 3. splat_reduce_kernel: one warp per (tile of 32 sorted points, 256 output
 //    columns); each lane loads 8 channels of a row with one 16-byte load,
 //    sixteen rows in flight (two batches of eight, double-buffered), and
 //    adds them in registers; lanes past the features add the one-hot and
 //    count columns from the labels. When the cell changes, the run ends: a
 //    run that is its cell's whole run is stored, a piece of a run that
-//    crosses the tile's edge is added with float4 atomics (sm_90) into the
-//    row zeroed in step 2.
-// Float sums of a run that crosses a tile edge therefore run in another
-// order than the one-hot GEMM's, and from run to run; the count and one-hot
-// columns are exact (integers below 2^24).
+//    crosses the tile's edge is stored in the tile's slot for its first or
+//    its last run (a scratch buffer).
+// 4. splat_reduce_kernel_fixup, the reduce's grid: the warp of the tile
+//    where a crossing run starts adds its pieces in tile order and stores
+//    the sum (named as a part of the reduce, so that whatever sums the
+//    splat's device time by the kernels' names counts it).
+// Every cell's sum thus runs in one order on every call (the same BEV, bit
+// for bit, from the same input), another than the one-hot GEMM's; the count
+// and one-hot columns are exact (integers below 2^24).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -136,6 +142,7 @@ splat_scatter_kernel(bevbert::SplatArgs a) {
   __shared__ int start[kChunk];
   __shared__ int to_zero[kChunk];
   __shared__ int warp_sums[kChunk / 32];
+  __shared__ unsigned char warp_count[kChunk / 32][kChunk];  // a warp's points of a cell
   __shared__ int n_zero;
   const int k = blockIdx.x, b = blockIdx.y, n_chunks = gridDim.x;
   const int t = threadIdx.x;
@@ -152,6 +159,9 @@ splat_scatter_kernel(bevbert::SplatArgs a) {
     row = (b * a.steps + step) * a.points_per_step + n % a.points_per_step;
     if (a.sem) label = a.sem[bn + n];
   }
+  for (int i = t; i < (kChunk / 32) * num_cells; i += kChunk) {
+    warp_count[i / num_cells][i % num_cells] = 0;
+  }
   // thread t = cell t: its points in the whole row and in the chunks before k
   int total = 0, before = 0;
   if (t < num_cells) {
@@ -167,11 +177,20 @@ splat_scatter_kernel(bevbert::SplatArgs a) {
   const int cell_start = block_exclusive_scan(total, warp_sums, &row_total);
   if (t < num_cells) start[t] = cell_start + before;
   if (k == 0 && t == 0) a.n_valid[b] = row_total;
-  // the row's blocks share the zeroing of the output rows that the reduce
-  // does not store whole: empty cells and runs across a tile boundary
-  if (t < num_cells && t % n_chunks == k &&
-      (total == 0 || cell_start / kTile != (cell_start + total - 1) / kTile)) {
+  // the row's blocks share the zeroing of the output rows that no run
+  // stores: empty cells
+  if (t < num_cells && t % n_chunks == k && total == 0) {
     to_zero[atomicAdd(&n_zero, 1)] = t;
+  }
+  // each warp's count of each cell's points, and each point's rank among
+  // its warp's peers (the scan's barriers have ordered the zeroing before)
+  const int lane = t & 31;
+  const unsigned active = __ballot_sync(kFull, c >= 0);
+  int rank = 0;
+  if (c >= 0) {
+    const unsigned peers = __match_any_sync(active, c);
+    if (lane == __ffs(peers) - 1) warp_count[t >> 5][c] = (unsigned char)__popc(peers);
+    rank = __popc(peers & ((1u << lane) - 1u));
   }
   __syncthreads();
   const int row4 = a.out_stride / 4;
@@ -180,8 +199,9 @@ splat_scatter_kernel(bevbert::SplatArgs a) {
     out_b[(size_t)to_zero[i / row4] * row4 + i % row4] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  const int pos = aggregated_add(start, c, c >= 0);
   if (c >= 0) {
+    int pos = start[c] + rank;
+    for (int w = 0; w < (t >> 5); ++w) pos += warp_count[w][c];
     a.order[bn + pos] = row;
     a.sorted_cell[bn + pos] = c;
     if (a.sem) a.sorted_sem[bn + pos] = label;
@@ -236,17 +256,10 @@ __device__ __forceinline__ void add_raw(const Raw<float>& r, float* acc) {
   for (int j = 0; j < 8; ++j) acc[j] += bf16_round(f[j]);
 }
 
-__device__ __forceinline__ void flush(float* dst, float* acc, bool shared) {
-  const float4 lo = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  const float4 hi = make_float4(acc[4], acc[5], acc[6], acc[7]);
+__device__ __forceinline__ void flush(float* dst, float* acc) {
   float4* d = reinterpret_cast<float4*>(dst);
-  if (shared) {
-    atomicAdd(d, lo);
-    atomicAdd(d + 1, hi);
-  } else {
-    d[0] = lo;
-    d[1] = hi;
-  }
+  d[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  d[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
 #pragma unroll
   for (int j = 0; j < kLaneCh; ++j) acc[j] = 0.f;
 }
@@ -256,8 +269,9 @@ __global__ void __launch_bounds__(kReduceThreads)
 splat_reduce_kernel(const T* __restrict__ feats, const int32_t* __restrict__ order,
                     const int32_t* __restrict__ sorted_cell,
                     const int32_t* __restrict__ sorted_sem, const int32_t* __restrict__ n_valid,
-                    float* __restrict__ out, int batch, int n_points, int feat_dim, int num_sem,
-                    int num_cells, int out_stride, int tiles_per_row, int n_col_chunks) {
+                    float* __restrict__ out, float* __restrict__ part, int batch, int n_points,
+                    int feat_dim, int num_sem, int num_cells, int out_stride, int tiles_per_row,
+                    int n_col_chunks) {
   const int lane = threadIdx.x & 31;
   const long long gw = (long long)blockIdx.x * (kReduceThreads / 32) + (threadIdx.x >> 5);
   const int col_chunk = (int)(gw % n_col_chunks);
@@ -291,6 +305,8 @@ splat_reduce_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ord
   const bool extra_lane = !feat_lane && ch < out_stride;
   const bool warp_feats = __any_sync(kFull, feat_lane);
   float* out_b = out + (size_t)b * num_cells * out_stride + ch;
+  // the tile's slots for the pieces of its first and its last run
+  float* part_t = part + ((size_t)b * tiles_per_row + tile) * 2 * out_stride + ch;
   float acc[kLaneCh];
 #pragma unroll
   for (int j = 0; j < kLaneCh; ++j) acc[j] = 0.f;
@@ -315,7 +331,9 @@ splat_reduce_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ord
       const int s = __shfl_sync(kFull, my_label, j);
       if (j < count) {  // warp-uniform
         if (c != cur) {  // a run ends; only the first can go on before the tile
-          if (ch < out_stride) flush(out_b + (size_t)cur * out_stride, acc, first_run && first_shared);
+          if (ch < out_stride) {
+            flush(first_run && first_shared ? part_t : out_b + (size_t)cur * out_stride, acc);
+          }
           cur = c;
           first_run = false;
         }
@@ -339,8 +357,55 @@ splat_reduce_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ord
   if (count > 2 * kUnroll) add(buf0, 2 * kUnroll);
   if (count > 3 * kUnroll) add(buf1, 3 * kUnroll);
   if (ch < out_stride) {
-    flush(out_b + (size_t)cur * out_stride, acc, (first_run && first_shared) || last_shared);
+    flush(first_run && first_shared ? part_t
+          : last_shared             ? part_t + out_stride
+                                    : out_b + (size_t)cur * out_stride,
+          acc);
   }
+}
+
+// The warp of the tile where a run that crosses the tile's end starts: the
+// run's pieces, its own last-run slot then each later tile's first-run slot,
+// added in tile order and stored. Other warps return.
+__global__ void __launch_bounds__(kReduceThreads)
+splat_reduce_kernel_fixup(const int32_t* __restrict__ sorted_cell,
+                          const int32_t* __restrict__ n_valid, const float* __restrict__ part,
+                          float* __restrict__ out, int batch, int n_points, int num_cells,
+                          int out_stride, int tiles_per_row, int n_col_chunks) {
+  const int lane = threadIdx.x & 31;
+  const long long gw = (long long)blockIdx.x * (kReduceThreads / 32) + (threadIdx.x >> 5);
+  const int col_chunk = (int)(gw % n_col_chunks);
+  const long long rest = gw / n_col_chunks;
+  const int tile = (int)(rest % tiles_per_row);
+  const int b = (int)(rest / tiles_per_row);
+  const int ch = col_chunk * kWarpCh + lane * kLaneCh;
+  if (b >= batch || ch >= out_stride) return;
+  const int nv = n_valid[b];
+  const int p0 = tile * kTile;
+  if (p0 >= nv) return;
+  const size_t bn = (size_t)b * n_points;
+  const int end = min(p0 + kTile, nv);
+  const int first = sorted_cell[bn + p0], cell = sorted_cell[bn + end - 1];
+  const bool first_shared = p0 > 0 && sorted_cell[bn + p0 - 1] == first;
+  if (end == nv || sorted_cell[bn + end] != cell || (first == cell && first_shared)) return;
+  const size_t slots = 2 * (size_t)out_stride;
+  const float4* own = reinterpret_cast<const float4*>(
+      part + ((size_t)b * tiles_per_row + tile) * slots + out_stride + ch);
+  float4 lo = own[0], hi = own[1];
+  for (int k = tile + 1;; ++k) {  // tile k's first run is this run
+    const float4* q = reinterpret_cast<const float4*>(
+        part + ((size_t)b * tiles_per_row + k) * slots + ch);
+    const float4 a = q[0], c = q[1];
+    lo.x += a.x; lo.y += a.y; lo.z += a.z; lo.w += a.w;
+    hi.x += c.x; hi.y += c.y; hi.z += c.z; hi.w += c.w;
+    const int k_end = min((k + 1) * kTile, nv);
+    if (sorted_cell[bn + k_end - 1] != cell || k_end == nv || sorted_cell[bn + k_end] != cell) {
+      break;  // the run ends in tile k
+    }
+  }
+  float4* d = reinterpret_cast<float4*>(out + ((size_t)b * num_cells + cell) * out_stride + ch);
+  d[0] = lo;
+  d[1] = hi;
 }
 
 template <typename T>
@@ -352,8 +417,13 @@ cudaError_t launch_reduce(const bevbert::SplatArgs& a, cudaStream_t stream) {
   const unsigned blocks = (unsigned)((warps + per_block - 1) / per_block);
   splat_reduce_kernel<T><<<blocks, kReduceThreads, 0, stream>>>(
       (const T*)a.feats, a.order, a.sorted_cell, a.sem ? a.sorted_sem : nullptr, a.n_valid,
-      a.out, a.batch, a.n_points, a.feat_dim, a.num_sem, a.num_cells, a.out_stride, tiles,
-      col_chunks);
+      a.out, a.part, a.batch, a.n_points, a.feat_dim, a.num_sem, a.num_cells, a.out_stride,
+      tiles, col_chunks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  splat_reduce_kernel_fixup<<<blocks, kReduceThreads, 0, stream>>>(
+      a.sorted_cell, a.n_valid, a.part, a.out, a.batch, a.n_points, a.num_cells, a.out_stride,
+      tiles, col_chunks);
   return cudaGetLastError();
 }
 

@@ -26,6 +26,23 @@ The host helpers (``_language_variable`` ... ``_make_equiv_action``) repeat
 the JAX agent's: the port imports nothing of the JAX package. The
 teacher-recollection store is ``nav/recollection.py``.
 
+Tracing (``utils/profiling.py``; nothing is recorded outside
+``profiling.recording()``): host spans of a rollout, ``rollout.language``
+once an episode batch, then each step ``rollout.panorama`` (the variable and
+the forward's enqueue), ``rollout.lift`` (the lift and its store),
+``rollout.gmap`` (the graph update from the step's observation, the
+bookkeeping and ``_nav_gmap_variable``), ``rollout.bev``
+(``_nav_bev_variable`` with its gather and splat, and the fusion map),
+``rollout.readback`` twice (the sync on the panorama tokens, then the
+logits), ``rollout.node_embeds`` (``_policy_node_embeds``),
+``rollout.navigation``, ``rollout.teacher`` and ``rollout.act`` (the actions,
+``_make_equiv_action`` and the stop-node backtrack); the env's own spans
+(``env.reset``, ``env.get_obs``, ``env.teleport``) nest in them or stand
+alone. ``_forward`` stamps the device phases ``nav.language``,
+``nav.panorama`` and ``nav.navigation`` around its model call.
+``GMapNavAgent.counters()`` counts episodes, decisions, steps, global-map
+nodes and splatted points since the agent was made.
+
 ``make_replay_block`` and ``make_rollout_block`` are the JAX package's
 ``lax.scan`` blocks (a replay-training inner loop over one fixed bundle, and
 the device envelope of the rollout's forward chain): on the card one update
@@ -77,7 +94,7 @@ from ..parallel.train_step import (
     load_checkpoint,
     save_checkpoint,
 )
-from ..utils import graphs
+from ..utils import graphs, profiling
 from ..utils.device import resolve_device, to_device
 from ..utils.rng import make_generator, train_generator
 from .env import R2RNavBatch
@@ -86,6 +103,8 @@ from .graph_map import GraphMap
 
 IGNORE_ID = -100
 FEEDBACKS = ("argmax", "teacher", "sample", "expl_sample")
+#: the device phase of each model mode (``_forward``)
+PHASES = {mode: f"nav.{mode}" for mode in ("language", "panorama", "navigation")}
 # the supervised and acted-on head per fusion mode
 LOGITS_KEY = {"local": "local_logits", "global": "global_logits", "avg": "fused_logits"}
 
@@ -145,6 +164,20 @@ class DevicePcStore:
         self.feats[:, t] = feats
 
 
+class CountingProjector(BevProjector):
+    """The agent's projector: each ``splat`` also adds the points it splats
+    (valid and inside the grid) to ``points``, a device counter that is read
+    only when asked for (``GMapNavAgent.counters``)."""
+
+    def __init__(self, *args, device=None, **kwargs):
+        super().__init__(*args, device=device, **kwargs)
+        self.points = torch.zeros((), dtype=torch.int64, device=device)
+
+    def splat(self, cell, valid, *args, **kwargs):
+        self.points += valid.sum()
+        return super().splat(cell, valid, *args, **kwargs)
+
+
 def gather_and_splat(projector: BevProjector, pc_buf, valid_buf, feat_buf,
                      step_sel, step_ok, T_w2c, S_w2c):
     """Device-side neighbourhood gather + egocentric splat.
@@ -178,7 +211,7 @@ class GMapNavAgent:
         self.device = resolve_device(device)
         self.rank, self.world = distributed.rank(), distributed.world_size()
         self.model = GlocalTextPathNavCMT(cfg.model, device=self.device).eval()
-        self.projector = BevProjector(
+        self.projector = CountingProjector(
             vfov=math.radians(90.0),
             grid_hw=cfg.shapes.grid_hw,
             num_views=cfg.shapes.num_views,
@@ -195,6 +228,18 @@ class GMapNavAgent:
         self._state: Optional[TrainState] = None
         self.transferred: Optional[int] = None
         self.logs: Dict[str, List[float]] = {"IL_loss": [], "grad_norm": [], "entropy": []}
+        self._counts = dict.fromkeys(("episodes", "nav_decisions", "rollout_steps",
+                                      "gmap_nodes"), 0)
+
+    def counters(self) -> Dict[str, int]:
+        """Since the agent was made (this rank's rows): ``episodes`` ended by
+        its rollouts, ``nav_decisions`` (a row's step taken before its
+        episode ended), ``rollout_steps`` (steps of the batch),
+        ``gmap_nodes`` (the global map's valid entries, the stop slot
+        included, over every row of every step) and ``splat_points`` (points
+        splatted into the BEV). Reading ``splat_points`` waits for the
+        device."""
+        return {**self._counts, "splat_points": int(self.projector.points)}
 
     # ------------------------------------------------------------------ init
     def init_params(self, generator: Optional[torch.Generator] = None,
@@ -230,8 +275,13 @@ class GMapNavAgent:
 
     @torch.inference_mode()
     def _forward(self, mode: str, batch: Dict[str, Any]):
-        """One model call ('language' / 'panorama' / 'navigation')."""
-        return self.model(mode, {k: self._upload(v) for k, v in batch.items()})
+        """One model call ('language' / 'panorama' / 'navigation'), stamped
+        as the device phase ``nav.<mode>`` after its uploads."""
+        inputs = {k: self._upload(v) for k, v in batch.items()}
+        profiling.device_phase(PHASES[mode], self.device)
+        out = self.model(mode, inputs)
+        profiling.device_phase(None, self.device)
+        return out
 
     # ------------------------------------------------------ data parallelism
     def _global_rows(self, x: np.ndarray) -> np.ndarray:
@@ -591,175 +641,195 @@ class GMapNavAgent:
 
     def _rollout(self, feedback: str, train: bool):
         cfg = self.cfg
+        span = profiling.span
         obs = self.env.reset()
         B = len(obs)
         T = cfg.max_action_len
 
         gmaps = [GraphMap(ob["viewpoint"]) for ob in obs]
-        for i, ob in enumerate(obs):
-            gmaps[i].update_graph(ob)
+        # rows whose map takes in their latest observation at the next step
+        fresh = np.ones(B, bool)
         traj = [
             {"instr_id": ob["instr_id"], "path": [[ob["viewpoint"]]], "pred_objid": None}
             for ob in obs
         ]
-        lang = self._language_variable(obs)
-        txt_embeds = self._forward("language", lang)
+        with span("rollout.language"):
+            lang = self._language_variable(obs)
+            txt_embeds = self._forward("language", lang)
 
         ended = np.zeros(B, bool)
         just_ended = np.zeros(B, bool)
         pano_store = {"view_lens": {}, "obj_lens": {}, "embeds": {}}
         pc_store = self._make_pc_store(B)
         records: List[StepRecord] = []
+        counts = self._counts
 
         for t in range(T):
-            for i, gmap in enumerate(gmaps):
-                if not ended[i]:
-                    gmap.node_step_ids[obs[i]["viewpoint"]] = t + 1
-
+            counts["rollout_steps"] += 1
+            counts["nav_decisions"] += int((~ended).sum())
             # enqueue the pano forward, then do every piece of host work that
             # does not need its result before reading it back
-            pano_in, cand_vpids, obj_ids = self._panorama_variable(obs)
-            pano_embeds, _ = self._forward("panorama", pano_in)
-            pano_store["view_lens"][t] = pano_in["view_lens"]
-            if self.with_objects:
-                pano_store["obj_lens"][t] = pano_in["obj_lens"]
+            with span("rollout.panorama"):
+                pano_in, cand_vpids, obj_ids = self._panorama_variable(obs)
+                pano_embeds, _ = self._forward("panorama", pano_in)
+                pano_store["view_lens"][t] = pano_in["view_lens"]
+                if self.with_objects:
+                    pano_store["obj_lens"][t] = pano_in["obj_lens"]
 
-            pc, pc_valid, pc_feats = self.lift(obs)
-            pc_store.set_step(t, pc, pc_valid, pc_feats)
+            with span("rollout.lift"):
+                pc, pc_valid, pc_feats = self.lift(obs)
+                pc_store.set_step(t, pc, pc_valid, pc_feats)
 
-            for i, gmap in enumerate(gmaps):
-                if ended[i]:
-                    continue
-                vp = obs[i]["viewpoint"]
-                gmap.set_visited_embed(vp, t, pano_in["view_lens"][i])
-                gmap.set_node_pc(vp, t)
-                for j, cand_vp in enumerate(cand_vpids[i]):
-                    if not gmap.graph.visited(cand_vp):
-                        gmap.add_sighting(cand_vp, t, j)
+            with span("rollout.gmap"):
+                for i, ob in enumerate(obs):
+                    if fresh[i]:
+                        gmaps[i].update_graph(ob)
+                for i, gmap in enumerate(gmaps):
+                    if not ended[i]:
+                        gmap.node_step_ids[obs[i]["viewpoint"]] = t + 1
+                for i, gmap in enumerate(gmaps):
+                    if ended[i]:
+                        continue
+                    vp = obs[i]["viewpoint"]
+                    gmap.set_visited_embed(vp, t, pano_in["view_lens"][i])
+                    gmap.set_node_pc(vp, t)
+                    for j, cand_vp in enumerate(cand_vpids[i]):
+                        if not gmap.graph.visited(cand_vp):
+                            gmap.add_sighting(cand_vp, t, j)
+                nav_g = self._nav_gmap_variable(obs, gmaps, pano_store)
+            counts["gmap_nodes"] += int(nav_g["gmap_masks"].sum())
 
-            nav_g = self._nav_gmap_variable(obs, gmaps, pano_store)
-            nav_b = self._nav_bev_variable(obs, gmaps, pc_store)
-            fuse_map = self._build_fuse_map(
-                nav_g["gmap_vpids"], nav_g["gmap_visited_masks"],
-                nav_b["bev_cand_vpids"],
-            )
+            with span("rollout.bev"):
+                nav_b = self._nav_bev_variable(obs, gmaps, pc_store)
+                fuse_map = self._build_fuse_map(
+                    nav_g["gmap_vpids"], nav_g["gmap_visited_masks"],
+                    nav_b["bev_cand_vpids"],
+                )
             # first point that needs the pano result on the host: sync here
-            pano_store["embeds"][t] = pano_embeds.float().cpu().numpy()
-            gmap_img = self._policy_node_embeds(nav_g["gmap_agg"], pano_store, B)
-            nav_in = {
-                "txt_embeds": txt_embeds,
-                "txt_masks": lang["txt_masks"],
-                "gmap_img_embeds": gmap_img,
-                "gmap_step_ids": nav_g["gmap_step_ids"],
-                "gmap_pos_fts": nav_g["gmap_pos_fts"],
-                "gmap_masks": nav_g["gmap_masks"],
-                "gmap_pair_dists": nav_g["gmap_pair_dists"],
-                "gmap_visited_masks": nav_g["gmap_visited_masks"],
-                "bev_fts": nav_b["bev_fts"],
-                "bev_pos_fts": nav_b["bev_pos_fts"],
-                "bev_masks": np.ones((B, self.cfg.model.num_bev_tokens), bool),
-                "bev_nav_masks": nav_b["bev_nav_masks"],
-                "bev_cand_idxs": nav_b["bev_cand_idxs"],
-                "local_masks": nav_b["local_masks"],
-                "fuse_map": fuse_map,
-            }
-            if self.with_objects:
-                V, O = self.cfg.shapes.max_pano_len, self.cfg.shapes.max_objects
-                nav_in["obj_embeds"] = pano_embeds[:, V : V + O]
-                nav_in["obj_masks"] = np.arange(O)[None, :] < pano_in["obj_lens"][:, None]
-            nav_outs = self._forward("navigation", nav_in)
+            with span("rollout.readback"):
+                pano_store["embeds"][t] = pano_embeds.float().cpu().numpy()
+            with span("rollout.node_embeds"):
+                gmap_img = self._policy_node_embeds(nav_g["gmap_agg"], pano_store, B)
+            with span("rollout.navigation"):
+                nav_in = {
+                    "txt_embeds": txt_embeds,
+                    "txt_masks": lang["txt_masks"],
+                    "gmap_img_embeds": gmap_img,
+                    "gmap_step_ids": nav_g["gmap_step_ids"],
+                    "gmap_pos_fts": nav_g["gmap_pos_fts"],
+                    "gmap_masks": nav_g["gmap_masks"],
+                    "gmap_pair_dists": nav_g["gmap_pair_dists"],
+                    "gmap_visited_masks": nav_g["gmap_visited_masks"],
+                    "bev_fts": nav_b["bev_fts"],
+                    "bev_pos_fts": nav_b["bev_pos_fts"],
+                    "bev_masks": np.ones((B, self.cfg.model.num_bev_tokens), bool),
+                    "bev_nav_masks": nav_b["bev_nav_masks"],
+                    "bev_cand_idxs": nav_b["bev_cand_idxs"],
+                    "local_masks": nav_b["local_masks"],
+                    "fuse_map": fuse_map,
+                }
+                if self.with_objects:
+                    V, O = self.cfg.shapes.max_pano_len, self.cfg.shapes.max_objects
+                    nav_in["obj_embeds"] = pano_embeds[:, V : V + O]
+                    nav_in["obj_masks"] = np.arange(O)[None, :] < pano_in["obj_lens"][:, None]
+                nav_outs = self._forward("navigation", nav_in)
             nav_vpids = (
                 nav_b["bev_cand_vpids"] if cfg.fusion == "local" else nav_g["gmap_vpids"]
             )
 
             # the host teacher overlaps the device navigation forward
-            targets = self._teacher_action(
-                obs, nav_vpids, ended,
-                visited_masks=(
-                    None if cfg.fusion == "local" else nav_g["gmap_visited_masks"]
-                ),
-                imitation_learning=(feedback == "teacher"), t=t, traj=traj,
-            )
-            obj_targets = (self._teacher_object(obs, ended, obj_ids)
-                           if self.with_objects else None)
+            with span("rollout.teacher"):
+                targets = self._teacher_action(
+                    obs, nav_vpids, ended,
+                    visited_masks=(
+                        None if cfg.fusion == "local" else nav_g["gmap_visited_masks"]
+                    ),
+                    imitation_learning=(feedback == "teacher"), t=t, traj=traj,
+                )
+                obj_targets = (self._teacher_object(obs, ended, obj_ids)
+                               if self.with_objects else None)
 
             # float32 logits, then the JAX agent's numpy ops: equal logits
             # give equal probabilities and equal sampled actions
-            nav_logits = nav_outs[LOGITS_KEY.get(cfg.fusion, "fused_logits")].float().cpu().numpy()
-            nav_probs = np.exp(nav_logits - nav_logits.max(-1, keepdims=True))
-            nav_probs /= nav_probs.sum(-1, keepdims=True)
+            with span("rollout.readback"):
+                nav_logits = nav_outs[LOGITS_KEY.get(cfg.fusion, "fused_logits")
+                                      ].float().cpu().numpy()
+                obj_logits = (nav_outs["obj_logits"].float().cpu().numpy()
+                              if self.with_objects else None)
+            with span("rollout.act"):
+                nav_probs = np.exp(nav_logits - nav_logits.max(-1, keepdims=True))
+                nav_probs /= nav_probs.sum(-1, keepdims=True)
+                for i, gmap in enumerate(gmaps):
+                    if not ended[i]:
+                        vp = obs[i]["viewpoint"]
+                        gmap.node_stop_scores[vp] = float(nav_probs[i, 0])
+                        if self.with_objects and obj_ids[i]:
+                            # the grounded object at this node, for a stop here
+                            best = int(obj_logits[i, : len(obj_ids[i])].argmax())
+                            gmap.node_og[vp] = obj_ids[i][best]
 
-            obj_logits = (nav_outs["obj_logits"].float().cpu().numpy()
-                          if self.with_objects else None)
-            for i, gmap in enumerate(gmaps):
-                if not ended[i]:
-                    vp = obs[i]["viewpoint"]
-                    gmap.node_stop_scores[vp] = float(nav_probs[i, 0])
-                    if self.with_objects and obj_ids[i]:
-                        # the grounded object at this node, for a stop here
-                        best = int(obj_logits[i, : len(obj_ids[i])].argmax())
-                        gmap.node_og[vp] = obj_ids[i][best]
+                if train:
+                    records.append(StepRecord(
+                        active=~ended.copy(),
+                        view_fts=pano_in["view_fts"], loc_fts=pano_in["loc_fts"],
+                        nav_types=pano_in["nav_types"], view_lens=pano_in["view_lens"],
+                        gmap_agg=nav_g["gmap_agg"], gmap_step_ids=nav_g["gmap_step_ids"],
+                        gmap_pos_fts=nav_g["gmap_pos_fts"], gmap_masks=nav_g["gmap_masks"],
+                        gmap_visited_masks=nav_g["gmap_visited_masks"],
+                        gmap_pair_dists=nav_g["gmap_pair_dists"],
+                        targets=np.where(ended, IGNORE_ID, targets),
+                        bev_fts=nav_b["bev_fts"], bev_nav_masks=nav_b["bev_nav_masks"],
+                        bev_cand_idxs=nav_b["bev_cand_idxs"], local_masks=nav_b["local_masks"],
+                        fuse_map=fuse_map, bev_pos_fts=nav_b["bev_pos_fts"], step_idx=t,
+                        obj_fts=pano_in.get("obj_fts"), obj_lens=pano_in.get("obj_lens"),
+                        obj_targets=obj_targets,
+                    ))
 
-            if train:
-                records.append(StepRecord(
-                    active=~ended.copy(),
-                    view_fts=pano_in["view_fts"], loc_fts=pano_in["loc_fts"],
-                    nav_types=pano_in["nav_types"], view_lens=pano_in["view_lens"],
-                    gmap_agg=nav_g["gmap_agg"], gmap_step_ids=nav_g["gmap_step_ids"],
-                    gmap_pos_fts=nav_g["gmap_pos_fts"], gmap_masks=nav_g["gmap_masks"],
-                    gmap_visited_masks=nav_g["gmap_visited_masks"],
-                    gmap_pair_dists=nav_g["gmap_pair_dists"],
-                    targets=np.where(ended, IGNORE_ID, targets),
-                    bev_fts=nav_b["bev_fts"], bev_nav_masks=nav_b["bev_nav_masks"],
-                    bev_cand_idxs=nav_b["bev_cand_idxs"], local_masks=nav_b["local_masks"],
-                    fuse_map=fuse_map, bev_pos_fts=nav_b["bev_pos_fts"], step_idx=t,
-                    obj_fts=pano_in.get("obj_fts"), obj_lens=pano_in.get("obj_lens"),
-                    obj_targets=obj_targets,
-                ))
-
-            a_t = self._pick_actions(feedback, targets, nav_logits, nav_probs, nav_g, nav_b)
-            if feedback in ("teacher", "sample"):
-                a_t_stop = [ob["viewpoint"] == ob["gt_path"][-1] for ob in obs]
-            else:
-                a_t_stop = a_t == 0
-
-            actions: List[Optional[str]] = []
-            for i in range(B):
-                if (
-                    a_t_stop[i]
-                    or ended[i]
-                    or nav_g["no_vp_left"][i]
-                    or t == T - 1
-                    or targets[i] == IGNORE_ID and feedback == "teacher"
-                ):
-                    actions.append(None)
-                    just_ended[i] = True
+                a_t = self._pick_actions(feedback, targets, nav_logits, nav_probs, nav_g,
+                                         nav_b)
+                if feedback in ("teacher", "sample"):
+                    a_t_stop = [ob["viewpoint"] == ob["gt_path"][-1] for ob in obs]
                 else:
-                    actions.append(nav_vpids[i][a_t[i]])
+                    a_t_stop = a_t == 0
 
-            self._make_equiv_action(actions, gmaps, obs, traj)
+                actions: List[Optional[str]] = []
+                for i in range(B):
+                    if (
+                        a_t_stop[i]
+                        or ended[i]
+                        or nav_g["no_vp_left"][i]
+                        or t == T - 1
+                        or targets[i] == IGNORE_ID and feedback == "teacher"
+                    ):
+                        actions.append(None)
+                        just_ended[i] = True
+                    else:
+                        actions.append(nav_vpids[i][a_t[i]])
 
-            # stop-node backtrack on episode end
-            for i in range(B):
-                if not ended[i] and just_ended[i]:
-                    stop_node, stop_score = None, -math.inf
-                    for vp, sc in gmaps[i].node_stop_scores.items():
-                        if sc > stop_score:
-                            stop_node, stop_score = vp, sc
-                    if stop_node is not None and obs[i]["viewpoint"] != stop_node:
-                        traj[i]["path"].append(
-                            gmaps[i].graph.path(obs[i]["viewpoint"], stop_node)
-                        )
-                    if self.with_objects and stop_node is not None:
-                        traj[i]["pred_objid"] = gmaps[i].node_og.get(stop_node)
+                self._make_equiv_action(actions, gmaps, obs, traj)
+
+                # stop-node backtrack on episode end
+                for i in range(B):
+                    if not ended[i] and just_ended[i]:
+                        stop_node, stop_score = None, -math.inf
+                        for vp, sc in gmaps[i].node_stop_scores.items():
+                            if sc > stop_score:
+                                stop_node, stop_score = vp, sc
+                        if stop_node is not None and obs[i]["viewpoint"] != stop_node:
+                            traj[i]["path"].append(
+                                gmaps[i].graph.path(obs[i]["viewpoint"], stop_node)
+                            )
+                        if self.with_objects and stop_node is not None:
+                            traj[i]["pred_objid"] = gmaps[i].node_og.get(stop_node)
 
             obs = self.env.get_obs()
-            for i, ob in enumerate(obs):
-                if not ended[i]:
-                    gmaps[i].update_graph(ob)
+            # the rows not ended before this step take in the observation
+            # (at the next step's ``rollout.gmap``)
+            fresh = ~ended
             ended |= np.array([a is None for a in actions])
             if self._all_ranks(ended.all()):
                 break
+        counts["episodes"] += B
         return traj, lang, records
 
     def _pick_actions(self, feedback, targets, nav_logits, nav_probs, nav_g, nav_b):

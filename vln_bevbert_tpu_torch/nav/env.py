@@ -11,7 +11,9 @@ graph math lives in native/ (optional, same semantics).
 
 ``R2RNavBatch`` provides minibatch cycling, candidate construction, agent
 observations (with the rgb/depth camera-ring roll to agent-relative order,
-ref env.py:246-262) and the navigation metrics (env.py:308-377). As
+ref env.py:246-262) and the navigation metrics (env.py:308-377). Its
+``reset``, ``get_obs`` and ``teleport`` are the spans ``env.reset``,
+``env.get_obs`` and ``env.teleport`` (``utils/profiling.py``). As
 data-parallel rank ``rank`` of ``world`` it cycles the global batch of
 ``batch_size`` episodes, with every draw over its rows, and simulates rows
 ``[rank * b, (rank + 1) * b)`` of it, b = ``batch_size / world``.
@@ -33,6 +35,7 @@ from ..geometry import (
     view_rel_angles,
 )
 from ..data.nav_graph import NavGraph
+from ..utils import profiling
 from .eval_utils import compute_cls, compute_dtw_metrics
 
 ERROR_MARGIN = 3.0
@@ -205,6 +208,10 @@ class R2RNavBatch:
 
     # ----------------------------------------------------------- observations
     def get_obs(self) -> List[dict]:
+        with profiling.span("env.get_obs"):
+            return self._observations()
+
+    def _observations(self) -> List[dict]:
         obs = []
         for i, (view_fts, grid, depth, state) in enumerate(self.env.get_states()):
             item = self.batch[i]
@@ -246,19 +253,21 @@ class R2RNavBatch:
         return obs
 
     def reset(self) -> List[dict]:
-        self.next_minibatch()
-        b = self.batch_size // self.world
-        self.batch = self.batch[self.rank * b:(self.rank + 1) * b]
-        self.env.new_episodes(
-            [b["scan"] for b in self.batch],
-            [b["path"][0] for b in self.batch],
-            [b.get("heading", 0.0) for b in self.batch],
-        )
-        return self.get_obs()
+        with profiling.span("env.reset"):
+            self.next_minibatch()
+            b = self.batch_size // self.world
+            self.batch = self.batch[self.rank * b:(self.rank + 1) * b]
+            self.env.new_episodes(
+                [b["scan"] for b in self.batch],
+                [b["path"][0] for b in self.batch],
+                [b.get("heading", 0.0) for b in self.batch],
+            )
+            return self._observations()
 
     def teleport(self, slot: int, viewpoint: str, heading: float):
-        sim = self.env.sims[slot]
-        sim.new_episode(sim.state.scan, viewpoint, heading)
+        with profiling.span("env.teleport"):
+            sim = self.env.sims[slot]
+            sim.new_episode(sim.state.scan, viewpoint, heading)
 
     # ------------------------------------------------------------------ eval
     def shortest_distance(self, scan: str, a: str, b: str) -> float:

@@ -80,8 +80,8 @@ class ReverieObjectNavBatch(R2RNavBatch):
                 item["path"] = g.path(item["path"][0], end_vp)
         self.batch = batch
 
-    def get_obs(self) -> List[dict]:
-        obs = super().get_obs()
+    def _observations(self) -> List[dict]:
+        obs = super()._observations()
         for ob, item in zip(obs, self.batch):
             rec = self.obj_db.get(ob["scan"], ob["viewpoint"])
             if rec is None:
