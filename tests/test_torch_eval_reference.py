@@ -208,6 +208,8 @@ def test_a_recorded_rollout_has_each_span_at_its_place_and_counts_its_work(cell)
     # an episode decides at each step up to the one it ends at
     assert counts["nav_decisions"] == moves + len(trajs)
     assert 0 < counts["gmap_nodes"] <= steps * cfg.batch_size * cfg.shapes.max_gmap_len
+    # the node contraction reads the slots of the steps stored so far
+    assert 0 < counts["node_tokens"] <= steps * cfg.max_action_len * agent.num_pano_slots
     assert 0 < counts["splat_points"] <= (steps * cfg.batch_size * cfg.shapes.max_pc_steps
                                           * cfg.shapes.num_views * cfg.shapes.grid_hw ** 2)
 

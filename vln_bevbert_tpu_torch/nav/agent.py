@@ -41,7 +41,8 @@ logits), ``rollout.node_embeds`` (``_policy_node_embeds``),
 alone. ``_forward`` stamps the device phases ``nav.language``,
 ``nav.panorama`` and ``nav.navigation`` around its model call.
 ``GMapNavAgent.counters()`` counts episodes, decisions, steps, global-map
-nodes and splatted points since the agent was made.
+nodes, the node contraction's token slots and splatted points since the
+agent was made.
 
 ``make_replay_block`` and ``make_rollout_block`` are the JAX package's
 ``lax.scan`` blocks (a replay-training inner loop over one fixed bundle, and
@@ -229,16 +230,18 @@ class GMapNavAgent:
         self.transferred: Optional[int] = None
         self.logs: Dict[str, List[float]] = {"IL_loss": [], "grad_norm": [], "entropy": []}
         self._counts = dict.fromkeys(("episodes", "nav_decisions", "rollout_steps",
-                                      "gmap_nodes"), 0)
+                                      "gmap_nodes", "node_tokens"), 0)
 
     def counters(self) -> Dict[str, int]:
         """Since the agent was made (this rank's rows): ``episodes`` ended by
         its rollouts, ``nav_decisions`` (a row's step taken before its
         episode ended), ``rollout_steps`` (steps of the batch),
         ``gmap_nodes`` (the global map's valid entries, the stop slot
-        included, over every row of every step) and ``splat_points`` (points
-        splatted into the BEV). Reading ``splat_points`` waits for the
-        device."""
+        included, over every row of every step), ``node_tokens`` (token
+        slots the node contraction read, ``s * V`` at a step with ``s``
+        steps stored, counted once for the batch) and ``splat_points``
+        (points splatted into the BEV). Reading ``splat_points`` waits for
+        the device."""
         return {**self._counts, "splat_points": int(self.projector.points)}
 
     # ------------------------------------------------------------------ init
@@ -858,14 +861,25 @@ class GMapNavAgent:
         return a_t
 
     def _policy_node_embeds(self, gmap_agg, pano_store, B):
-        """Host float32 contraction of the stored pano tokens."""
+        """Host float32 contraction of the stored pano tokens: each node's
+        row of ``gmap_agg`` (B, N, T * V) against the tokens of the ``s``
+        steps stored so far. Its columns from ``s * V`` on are zero, so one
+        batched BLAS product over the first ``s * V`` gives the whole sum.
+        Both operands are C-contiguous float32 (on a strided slice a BLAS
+        caller falls back to its own loop), and the product runs on
+        PyTorch's CPU threads: numpy's BLAS would keep a second pool of
+        threads spinning after each product, taking the cores from the
+        thread that launches the model's kernels."""
         V = self.num_pano_slots
-        T = self.cfg.max_action_len
         D = self.cfg.model.hidden_size
-        tokens = np.zeros((B, T * V, D), np.float32)
-        for t, emb in pano_store["embeds"].items():
-            tokens[:, t * V : t * V + emb.shape[1]] = emb
-        return np.einsum("bnm,bmd->bnd", gmap_agg, tokens).astype(np.float32)
+        embeds = pano_store["embeds"]
+        s = len(embeds)
+        tokens = np.empty((B, s * V, D), np.float32)
+        for t in range(s):
+            tokens[:, t * V : (t + 1) * V] = embeds[t]
+        self._counts["node_tokens"] += s * V
+        agg = np.ascontiguousarray(gmap_agg[:, :, : s * V], dtype=np.float32)
+        return torch.matmul(torch.from_numpy(agg), torch.from_numpy(tokens)).numpy()
 
     def _make_equiv_action(self, actions, gmaps, obs, traj):
         """Teleport to the chosen node along the map's shortest path."""
