@@ -52,7 +52,7 @@ one line and a failing phase raises, so the script exits non-zero:
              (``utils/profiling.trace``): the device's busy share;
    block   - from one state (two such trainers from seed 16), one 8-step
              block of each task as graph replays and the same steps run
-             eagerly (``step_fn``): the dropout generators end equal (the
+             eagerly (``make_pretrain_step``): the dropout generators end equal (the
              same seeds drawn), every step's loss within 1e-3 relative, the
              parameters within 1e-9 relative L2 and their movement from the
              start within 1e-4 of the eager movement; a cached block
@@ -87,15 +87,13 @@ one line and a failing phase raises, so the script exits non-zero:
              and > 0, every parameter moved; ``--test --pretrain_ckpt
              ckpt_latest`` must predict the trained agent's trajectories; ms
              per replay update and per training-rollout step, peak memory;
-   replay_block, rollout_block - at ``FinetuneConfig()``'s full width, B=4,
-             over a teacher rollout's bundle: ``make_replay_block`` (4
-             updates as graph replays) against the same updates eagerly by an
-             agent from the same seed, held as ``block`` holds its steps
-             (splat launches 0: the bundle carries ``bev_fts``), and
-             ``make_rollout_block`` (2 episodes, eval mode, no kernel) as a
-             graph against its eager episodes (logit sums within 1e-3
-             relative); ms per update and per episode in arms eager /
-             graphed / graphed / eager, busy shares of traced blocks;
+   replay_block - at ``FinetuneConfig()``'s full width, B=4, over a
+             teacher rollout's bundle: ``make_replay_block`` (4 updates as
+             graph replays) against the same updates eagerly by an agent
+             from the same seed, held as ``block`` holds its steps (splat
+             launches 0: the bundle carries ``bev_fts``); ms per update in
+             arms eager / graphed / graphed / eager, the busy share of a
+             traced block;
 8. obj_train - object pretraining at ``configs/reverie_pretrain.json``'s
              widths and mix (image and object features 768, object
              probabilities 1000, 20 objects, B=16, mlm 5 / mrc 2 / sap 5 /
@@ -175,9 +173,10 @@ one line and a failing phase raises, so the script exits non-zero:
              seed: equal trajectories; no worker holds the card open; ms per
              rollout step (all three, and the range of one) and the env's
              host ms per step.
-16. dp_pretrain - data parallelism (the gloo phases run per-step updates,
-             ``task_block_size`` 1: a CUDA graph cannot capture gloo's
-             collectives): full-width pretraining in two gloo
+16. dp_pretrain - data parallelism (under gloo every step runs eagerly:
+             a CUDA graph cannot capture gloo's collectives; the pretraining
+             phase draws a task per step, ``task_block_size`` 1):
+             full-width pretraining in two gloo
              ranks sharing the one card (spawned; a ``file://`` store), 16
              rows each, 4 steps at the first seed whose per-step task draws
              include mlm, sap and masksem, against one process at 32 rows
@@ -1115,10 +1114,11 @@ def instrumented_training(trainer, seen: dict, timed_reduce: bool = False):
     dropout calls, the ``prepare_bev`` calls of training (``seen["bev"]``)
     and of validation (``seen["val_bev"]``), the validations (step, seconds,
     results), the blocks (task, length) and every step: (task, CUDA events
-    around it, its loss and gradient norm), from ``step_fn`` in the per-step
-    loop and from each graph replay in the blocked one. With
-    ``timed_reduce`` the per-step loop's gradient all-reduces are timed
-    (``seen["reduce"]``); a graph's are counted (``seen["reduces"]``)."""
+    around it, its loss and gradient norm), from each graph replay, or, for
+    a block that ran eagerly (under a gloo group), from the block as a
+    whole: one step at ``task_block_size`` 1. With ``timed_reduce`` the
+    eager steps' gradient all-reduces are timed (``seen["reduce"]``); a
+    graph's are counted (``seen["reduces"]``)."""
     from vln_bevbert_tpu_torch.ops import dropout as drop_mod
     from vln_bevbert_tpu_torch.parallel import train_step as ts_mod
     from vln_bevbert_tpu_torch.utils import graphs
@@ -1129,7 +1129,7 @@ def instrumented_training(trainer, seen: dict, timed_reduce: bool = False):
     train_bev, val_bev, reduces = (seen_count(seen, k) for k in ("bev", "val_bev", "reduces"))
     prepare, reduce, replay = ts_mod.prepare_bev, ts_mod.TrainState.all_reduce_grads, \
         graphs.Graph.replay
-    step_fn, block_fn, validate = trainer.step_fn, trainer.block_fn, trainer.validate
+    block_fn, validate = trainer.block_fn, trainer.validate
 
     def counted_prepare(projector, batch):
         if "depths" in batch:
@@ -1138,14 +1138,6 @@ def instrumented_training(trainer, seen: dict, timed_reduce: bool = False):
 
     def events():
         return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-
-    def timed_step(state, batch, task):
-        start, end = events()
-        start.record()
-        metrics = step_fn(state, batch, task)
-        end.record()
-        seen["steps"].append((task, start, end, metrics))
-        return metrics
 
     def timed_replay(graph):
         start, end = events()
@@ -1160,7 +1152,13 @@ def instrumented_training(trainer, seen: dict, timed_reduce: bool = False):
 
     def counted_block(state, batch, task, length, stacked=False):
         seen["blocks"].append((task, length))
-        return block_fn(state, batch, task, length, stacked)
+        n, (start, end) = len(seen["steps"]), events()
+        start.record()
+        metrics = block_fn(state, batch, task, length, stacked)
+        end.record()
+        if len(seen["steps"]) == n:  # no replay: the block ran eager steps
+            seen["steps"].append((task, start, end, metrics))
+        return metrics
 
     def counted_reduce(state):
         reduces.add()
@@ -1185,13 +1183,13 @@ def instrumented_training(trainer, seen: dict, timed_reduce: bool = False):
 
     drop_mod.Dropout.forward, ts_mod.prepare_bev = counted_forward, counted_prepare
     ts_mod.TrainState.all_reduce_grads, graphs.Graph.replay = counted_reduce, timed_replay
-    trainer.step_fn, trainer.block_fn, trainer.validate = timed_step, counted_block, timed_validate
+    trainer.block_fn, trainer.validate = counted_block, timed_validate
     try:
         yield seen
     finally:
         drop_mod.Dropout.forward, ts_mod.prepare_bev = forward, prepare
         ts_mod.TrainState.all_reduce_grads, graphs.Graph.replay = reduce, replay
-        trainer.step_fn, trainer.block_fn, trainer.validate = step_fn, block_fn, validate
+        trainer.block_fn, trainer.validate = block_fn, validate
 
 
 def crossings(blocks, every: int) -> list:
@@ -1426,7 +1424,7 @@ def block_phase(out_dir: str, k: int = 8) -> dict:
     """From one state (two trainers of the CLI's full-width synthetic
     pretraining, B=16, seed 16, over one loader: the same parameters and
     dropout generator), one ``k``-step block of each task graphed (replays of a
-    CUDA graph of the step) and the same steps eagerly (``step_fn``): equal
+    CUDA graph of the step) and the same steps eagerly (``make_pretrain_step``): equal
     generator states afterwards (the same seeds drawn), every step's loss
     within ``BLOCK_LOSS_RTOL``, the parameters as ``check_agreement``
     holds them; a cached block launches each kernel as often as the same
@@ -1435,7 +1433,11 @@ def block_phase(out_dir: str, k: int = 8) -> dict:
     eager block traced: the device's busy share."""
     from vln_bevbert_tpu_torch import _build
     from vln_bevbert_tpu_torch.cli import pretrain
-    from vln_bevbert_tpu_torch.parallel.train_step import dropout_generators, upload
+    from vln_bevbert_tpu_torch.parallel.train_step import (
+        dropout_generators,
+        make_pretrain_step,
+        upload,
+    )
     from vln_bevbert_tpu_torch.pretrain.trainer import PretrainTrainer
     from vln_bevbert_tpu_torch.utils import graphs
 
@@ -1445,6 +1447,7 @@ def block_phase(out_dir: str, k: int = 8) -> dict:
     graphed = PretrainTrainer(eager.cfg, eager.train_loader, "cuda",
                               output_dir=os.path.join(out_dir, "graphed"))
     device = torch.device("cuda")
+    step_fn = make_pretrain_step(eager.model, eager.projector)
     tasks = [t.split("_")[0] for t in eager.cfg.tasks]
     blocks = {t: pretrain_block_batches(eager, t, k, offset=10 * i) for i, t in enumerate(tasks)}
     losses, replay = [], graphs.Graph.replay
@@ -1460,7 +1463,7 @@ def block_phase(out_dir: str, k: int = 8) -> dict:
     try:
         for task, batches in blocks.items():
             for b in batches:
-                want.append(eager.step_fn(eager.state, upload(b, device), task)["loss"])
+                want.append(step_fn(eager.state, upload(b, device), task)["loss"])
             graphed.block_fn(graphed.state, batches, task, k, stacked=True)
     finally:
         graphs.Graph.replay = replay
@@ -1477,7 +1480,7 @@ def block_phase(out_dir: str, k: int = 8) -> dict:
     def run_eager():
         for task, batches in blocks.items():
             for b in batches:
-                eager.step_fn(eager.state, upload(b, device), task)
+                step_fn(eager.state, upload(b, device), task)
 
     def run_graphed():
         for task, batches in blocks.items():
@@ -1500,7 +1503,7 @@ def block_phase(out_dir: str, k: int = 8) -> dict:
     _, busy_graphed = traced_busy(lambda: graphed.block_fn(graphed.state, blocks[task], task, k,
                                                            stacked=True),
                                   "graphed block", os.path.join(out_dir, "trace"))
-    _, busy_eager = traced_busy(lambda: [eager.step_fn(eager.state, upload(b, device), task)
+    _, busy_eager = traced_busy(lambda: [step_fn(eager.state, upload(b, device), task)
                                          for b in blocks[task]],
                                 "eager block", os.path.join(out_dir, "trace"))
     return {"k": k, "tasks": tasks, "loss_rel": loss_rel, **agree,
@@ -1540,24 +1543,19 @@ def replay_bundle(out_dir: str, batch: int = 4):
     return cfg, agent_build_bundle(agent, lang, records), teacher
 
 
-def nav_block_phase(out_dir: str, length: int = 4, episodes: int = 2) -> dict:
-    """``make_replay_block`` and ``make_rollout_block`` at ``FinetuneConfig()``'s
-    full width, B=4, over a teacher rollout's bundle: two agents from one
-    seed (the same parameters and dropout generator), ``length`` replay
-    updates graphed against the same updates eagerly (``block.eager``):
-    equal generator states, every loss within ``BLOCK_LOSS_RTOL``, the
-    parameters as ``check_agreement`` holds them; a cached block's dropout
-    launches (counted on the device) equal the eager updates' dropout
-    calls, forward and backward, and the splat launches none. The rollout block (``episodes`` episodes, eval mode) graphed
-    against eager. Wall ms per update and per episode in arms eager /
-    graphed / graphed / eager; each graphed block traced once: the device's
-    busy share."""
+def nav_block_phase(out_dir: str, length: int = 4) -> dict:
+    """``make_replay_block`` at ``FinetuneConfig()``'s full width, B=4, over
+    a teacher rollout's bundle: two agents from one seed (the same
+    parameters and dropout generator), ``length`` replay updates graphed
+    against the same updates eagerly (``block.eager``): equal generator
+    states, every loss within ``BLOCK_LOSS_RTOL``, the parameters as
+    ``check_agreement`` holds them; a cached block's dropout launches
+    (counted on the device) equal the eager updates' dropout calls, forward
+    and backward, and the splat launches none. Wall ms per update in arms
+    eager / graphed / graphed / eager; the graphed block traced once: the
+    device's busy share."""
     from vln_bevbert_tpu_torch import _build
-    from vln_bevbert_tpu_torch.nav.agent import (
-        make_replay_agent,
-        make_replay_block,
-        make_rollout_block,
-    )
+    from vln_bevbert_tpu_torch.nav.agent import make_replay_agent, make_replay_block
     from vln_bevbert_tpu_torch.parallel.train_step import dropout_generators
 
     cfg, rb, teacher = replay_bundle(out_dir)
@@ -1591,34 +1589,17 @@ def nav_block_phase(out_dir: str, length: int = 4, episodes: int = 2) -> dict:
         raise AssertionError(f"replay_block: a cached block launched {launches}; the eager "
                              f"updates made {eager_calls} dropout calls in {length} updates; "
                              f"{replay_g.graphs.captures} captures")
-    roll_e, roll_g = make_rollout_block(eager, episodes), make_rollout_block(graphed, episodes)
-    # the rollout compares one set of parameters: the graphed agent's
-    roll_want, roll_got = roll_g.eager(rb), roll_g(rb)
-    roll_rel = abs(float(roll_got - roll_want)) / abs(float(roll_want))
-    if roll_rel > BLOCK_LOSS_RTOL or roll_g.graphs.replays != episodes:
-        raise AssertionError(f"rollout_block: {float(roll_got)} against eager "
-                             f"{float(roll_want)}, {roll_g.graphs.replays} replays")
-    _build.reset_launches()
-    roll_g(rb)
-    torch.cuda.synchronize()
-    roll_launches = {n: _build.launches(n) for n in ("splat", "dropout")}
     timed = arms({"eager": lambda: replay_e.eager(rb), "graphed": lambda: replay_g(rb)})
-    roll_timed = arms({"eager": lambda: roll_e.eager(rb), "graphed": lambda: roll_g(rb)})
-    log_dir = os.path.join(out_dir, "trace")
-    _, busy = traced_busy(lambda: replay_g(rb), "graphed replay block", log_dir)
+    _, busy = traced_busy(lambda: replay_g(rb), "graphed replay block",
+                          os.path.join(out_dir, "trace"))
     drop = dropout_device_share(lambda: replay_g(rb))
-    _, roll_busy = traced_busy(lambda: roll_g(rb), "graphed rollout block", log_dir)
     steps = int((rb["targets"] != -100).any(axis=1).sum())
-    return {"length": length, "episodes": episodes, "loss_rel": loss_rel, **agree,
+    return {"length": length, "loss_rel": loss_rel, **agree,
             "launches": launches, "eager_calls": eager_calls,
             "capture_s": replay_g.graphs.capture_ms / 1e3, "teacher": teacher, "steps": steps,
             "T": rb["targets"].shape[0],
             "ms_per_update": {a: [1e3 * t / length for t in v] for a, v in timed.items()},
-            "busy": busy, "dropout": drop, "roll_rel": roll_rel,
-            "roll_capture_s": roll_g.graphs.capture_ms / 1e3, "roll_launches": roll_launches,
-            "ms_per_episode": {a: [1e3 * t / episodes for t in v]
-                               for a, v in roll_timed.items()},
-            "roll_busy": roll_busy}
+            "busy": busy, "dropout": drop}
 
 
 def check_validation(label: str, results: dict) -> None:
@@ -1732,12 +1713,17 @@ def optim_phase(ckpt: str, out_dir: str, updates: int = 7, task: str = "sap") ->
 
     from vln_bevbert_tpu_torch import _build
     from vln_bevbert_tpu_torch.cli import pretrain
-    from vln_bevbert_tpu_torch.parallel.train_step import TrainState, upload
+    from vln_bevbert_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_pretrain_step,
+        upload,
+    )
 
     trainer = pretrain.build(pretrain.parse_args([
         "--synthetic", "--device", "cuda", "--batch_size", "16", "--seed", "16",
         "--resume", ckpt, "--output_dir", out_dir]))
     model, device = trainer.model, trainer.device
+    step_fn = make_pretrain_step(model, trainer.projector)
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
     batches = [upload(trainer.train_loader.build_batch(i, task=task)[1], device)
                for i in range(2 * updates)]
@@ -1769,7 +1755,7 @@ def optim_phase(ckpt: str, out_dir: str, updates: int = 7, task: str = "sap") ->
         _build.reset_launches()
         for i in range(calls):
             before = ([p.detach().clone() for p in state.params] if (i + 1) % k else None)
-            metrics.append(trainer.step_fn(state, batches[i], task))
+            metrics.append(step_fn(state, batches[i], task))
             if before is not None:
                 unchanged.append(all(torch.equal(a, b) for a, b in zip(before, state.params)))
                 del before
@@ -3037,8 +3023,7 @@ def ce_pool_phase(out_dir: str, workers=(2, 4), rollouts: int = 3) -> dict:
 DP_WORLD = 2
 DP_TIMEOUT_S = 300.0
 GLOO_NOTE = "gloo stages the float32 gradients through the host: not a multi-card time"
-PER_STEP_NOTE = ("per-step updates, task_block_size 1 in the config: a CUDA graph cannot "
-                 "capture gloo's collectives")
+PER_STEP_NOTE = "eager steps: a CUDA graph cannot capture gloo's collectives"
 # ranks against one process at the global batch: the same rows and dropout
 # masks, bf16 activations over another batch shape (16 against 32 rows, 4
 # against 8). Measured on the H100: pretraining losses within 4.5e-05 and
@@ -3081,12 +3066,13 @@ def dp_pretrain_run(spec: dict) -> dict:
     """``cli.pretrain`` built from ``spec["argv"]`` and trained (saved too
     with ``spec["save"]``, as its ``main`` does) in this process, which may
     be a rank, instrumented (``instrumented_training``): per step its task,
-    loss, gradient norm and CUDA-event ms (of a graph replay under blocks);
-    the kernels' launches against the dropout and ``prepare_bev`` calls; the
-    gradient all-reduce's CUDA-event ms, per step in the per-step loop, or
-    (a graph's all-reduce cannot be timed apart) over 5 eager all-reduces
-    of the same buffers after training under blocks; peak memory; the
-    process group it ran in."""
+    loss, gradient norm and CUDA-event ms (of a graph replay, or of an
+    eager block of one step under gloo); the kernels' launches against the
+    dropout and ``prepare_bev`` calls; the gradient all-reduce's CUDA-event
+    ms, per step where the steps ran eagerly, or (a graph's all-reduce
+    cannot be timed apart) over 5 eager all-reduces of the same buffers
+    after training where they were replays; peak memory; the process group
+    it ran in."""
     import torch.distributed as dist
 
     from vln_bevbert_tpu_torch import _build
@@ -3095,7 +3081,6 @@ def dp_pretrain_run(spec: dict) -> dict:
 
     _build.load()
     trainer = pretrain.build(pretrain.parse_args(spec["argv"]))
-    blocked = trainer.cfg.task_block_size > 1
     with instrumented_training(trainer, {}, timed_reduce=True) as seen:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3105,16 +3090,17 @@ def dp_pretrain_run(spec: dict) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: _build.launches(k) for k in ("splat", "dropout")}
+    graphs = trainer.block_fn.graphs.counters()
+    graphed = graphs["replays"] > 0
     reduce_ms = [s.elapsed_time(e) for s, e in seen["reduce"]]
-    if blocked:
+    if graphed:
         reduce_ms = [cuda_ms(trainer.state.all_reduce_grads, iters=1, warmup=0 if i else 1)
                      for i in range(5)]
     values = torch.stack([torch.stack([m["loss"], m["grad_norm"]])
                           for *_, m in seen["steps"]]).tolist()
-    graphs = trainer.block_fn.graphs.counters() if blocked else {"captures": 0, "replays": 0}
     out = {"rank": distributed.rank(), "world": distributed.world_size(),
            "backend": dist.get_backend() if distributed.active() else None,
-           "rows": trainer.train_loader.cfg.train_batch_size, "blocked": blocked,
+           "rows": trainer.train_loader.cfg.train_batch_size, "graphed": graphed,
            "blocks": seen["blocks"], "captures": graphs["captures"],
            "replays": graphs["replays"], "reduces": seen["reduces"],
            "tasks": [t for t, *_ in seen["steps"]], "loss": [v[0] for v in values],
@@ -3147,10 +3133,11 @@ def rel_diff(a: float, b: float) -> float:
 
 def dp_pretrain_phase(out_dir: str, steps: int = 4, per_rank: int = 16) -> dict:
     """Full-width pretraining (``PretrainConfig()``, 238,831,719 parameters)
-    in two gloo ranks on the one card, ``per_rank`` rows each, for ``steps``
-    steps at the first seed whose per-step task draws (``task_block_size``
-    1) include mlm, sap and masksem; then one process at the global batch
-    from the same seed. The ranks compute what it computes: the same rows
+    in two gloo ranks on the one card (eager steps), ``per_rank`` rows
+    each, for ``steps`` steps at the first seed whose per-step task draws
+    (``task_block_size`` 1) include mlm, sap and masksem; then one process
+    at the global batch from the same seed (graph replays, blocks of one
+    step). The ranks compute what it computes: the same rows
     and dropout masks; losses and gradient norms agree to bf16 rounding over
     another batch shape (``DP_PRETRAIN_RTOL``)."""
     from vln_bevbert_tpu_torch.configs import PretrainConfig
@@ -3556,7 +3543,7 @@ def dp_nccl_phase(out_dir: str, plain_ms_per_task: dict, timeout_s: float = 300.
         raise AssertionError(f"dp_nccl: ran {pre['backend']} at world {pre['world']}, "
                              f"checkpoint {pre['ckpt']}")
     check_dp_launches("dp_nccl", pre)
-    if not pre["blocked"] or pre["replays"] != 8 or pre["reduces"] != 8 + pre["captures"]:
+    if not pre["graphed"] or pre["replays"] != 8 or pre["reduces"] != 8 + pre["captures"]:
         raise AssertionError(f"dp_nccl: {pre['replays']} graph replays and {pre['reduces']} "
                              f"gradient all-reduces ({pre['captures']} captures) in 8 steps")
     task = pre["tasks"][0]
@@ -3858,15 +3845,6 @@ def main() -> None:
               f"{nav['dropout']['dropout_device_ms'] / nav['length']:.4f}"),
           device_ms_per_update=f"{nav['dropout']['device_ms'] / nav['length']:.3f}",
           dropout_device_share=f"{nav['dropout']['dropout_share']:.2%}")
-    for arm, ms in nav["ms_per_episode"].items():
-        phase("rollout_block", arm=arm, episodes=nav["episodes"], rows=4, T=nav["T"],
-              ms_per_episode=",".join(f"{v:.2f}" for v in ms))
-    phase("rollout_block", logit_sum_rel_diff=f"{nav['roll_rel']:.3e}",
-          capture_s=f"{nav['roll_capture_s']:.2f}",
-          splat_launches=nav["roll_launches"]["splat"],
-          dropout_launches=nav["roll_launches"]["dropout"],
-          traced_ms_per_episode=f"{nav['roll_busy']['wall_ms'] / nav['episodes']:.2f}",
-          traced_busy_share=f"{nav['roll_busy']['busy_share']:.2%}")
     work.cleanup()
 
     # R4R and RxR pretraining at their configs' widths and mixes, validating
@@ -4057,8 +4035,7 @@ def main() -> None:
          "launches_dp_ce_one": dce["one"]["launches"]["splat"],
          "launches_dp_nccl_ce": nccl["ce"]["launches"]["splat"],
          "launches_block_cached": blk["launches"]["splat"],
-         "launches_replay_block_cached": nav["launches"]["splat"],
-         "launches_rollout_block": nav["roll_launches"]["splat"]},
+         "launches_replay_block_cached": nav["launches"]["splat"]},
         {**DROPOUT, "launches": train["launches"]["dropout"], **drop_record,
          "bound_by": "bytes",
          "device_ms_per_graphed_step": traced["dropout_device_ms"] / traced["k"],
@@ -4084,8 +4061,7 @@ def main() -> None:
          "launches_dp_ce_one": dce["one"]["launches"]["dropout"],
          "launches_dp_nccl_ce": nccl["ce"]["launches"]["dropout"],
          "launches_block_cached": blk["launches"]["dropout"],
-         "launches_replay_block_cached": nav["launches"]["dropout"],
-         "launches_rollout_block": nav["roll_launches"]["dropout"]},
+         "launches_replay_block_cached": nav["launches"]["dropout"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

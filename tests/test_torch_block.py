@@ -1,10 +1,11 @@
 """Parity of the port's block dispatch with the JAX package's, on the CPU:
-the blocked pretraining loop (``PretrainTrainer._train_blocked`` at the
-default ``task_block_size`` of 8), ``make_pretrain_block_step`` in both of
-its modes, ``make_replay_block`` and ``make_rollout_block``, and the
-blocked loop against the per-step one. On the CPU a block runs eager steps
-(there is no graph); the card tests of
-``tests/test_torch_cuda.py`` hold the graphed blocks to these eager ones.
+the pretraining loop (``PretrainTrainer.train`` at the default
+``task_block_size`` of 8), ``make_pretrain_block_step`` in both of its
+modes, ``make_replay_block``, the loop at blocks of 8 against blocks of
+one, and ``graphs.capturable``, which chooses between graph replays and
+eager steps. On the CPU a block runs eager steps (there is no graph); the
+card tests of ``tests/test_torch_cuda.py`` hold the graphed blocks to these
+eager ones.
 
 Every dropout rate is 0, so both packages are deterministic. Parameters
 start from JAX's initial ones plus N(0, 0.02) noise where a step follows
@@ -16,8 +17,7 @@ at rtol 1e-5 (``test_torch_train_step.py``'s for three full steps); the
 parameters after the blocks at atol 4e-6 (that file's: Adam normalises
 float32 gradient noise into update noise of up to ~lr), the biases held by
 a softmax's shift invariance to a bound on such steps; replay losses at
-rtol 1e-5 and parameters at atol 4e-6; the rollout block's logit sum at
-rtol 1e-5 (sums of float32 logits in another order).
+rtol 1e-5 and parameters at atol 4e-6.
 """
 
 import dataclasses
@@ -40,7 +40,6 @@ from vln_bevbert_tpu.models import GlocalTextPathCMTPreTraining as JaxPreTrainin
 from vln_bevbert_tpu.nav.agent import GMapNavAgent as JaxAgent
 from vln_bevbert_tpu.nav.agent import _EnvStub as JaxEnvStub
 from vln_bevbert_tpu.nav.agent import make_replay_block as jax_make_replay_block
-from vln_bevbert_tpu.nav.agent import make_rollout_block as jax_make_rollout_block
 from vln_bevbert_tpu.parallel.optim import make_optimizer
 from vln_bevbert_tpu.parallel.train_step import TrainState as JaxTrainState
 from vln_bevbert_tpu.parallel.train_step import build_projector as jax_build_projector
@@ -48,13 +47,15 @@ from vln_bevbert_tpu.pretrain import PretrainTrainer as JaxTrainer
 from vln_bevbert_tpu.pretrain import trainer as jax_trainer_mod
 from vln_bevbert_tpu_torch.convert import flax_to_state_dict, load_flax_params, module_to_flax
 from vln_bevbert_tpu_torch.models.glocal import GlocalTextPathCMTPreTraining
-from vln_bevbert_tpu_torch.nav.agent import make_replay_agent, make_replay_block, make_rollout_block
+from vln_bevbert_tpu_torch.nav.agent import make_replay_agent, make_replay_block
+from vln_bevbert_tpu_torch.parallel import distributed
 from vln_bevbert_tpu_torch.parallel.train_step import (
     TrainState,
     build_projector,
     make_pretrain_block_step,
 )
 from vln_bevbert_tpu_torch.pretrain.trainer import PretrainTrainer, pad_block
+from vln_bevbert_tpu_torch.utils import graphs
 
 TASKS = ("mlm", "sap", "masksem")
 # one layer a stack: JAX compiles one scan program per (task, block length)
@@ -158,11 +159,13 @@ def test_blocked_trainer_logs_and_saves_as_jax(blocked_runs):
     compare_params(ours.model, ref_state.params)
 
 
-def test_blocked_trainer_matches_its_per_step_loop(tmp_path):
-    """With dropout on, the port's blocked loop (``task_block_size`` 8) and
-    its per-step loop (1) over the same schedule draw the same seeds and
-    end with equal parameters, bit for bit (on the CPU a block runs the
-    eager steps); they differ only in when they log and save."""
+def test_blocked_trainer_matches_blocks_of_one(tmp_path):
+    """With dropout on, the port's loop at blocks of 8 (``task_block_size``
+    8) and at blocks of one (1) over the same schedule draw the same seeds
+    and end with equal parameters, bit for bit (on the CPU a block runs the
+    eager steps); they differ only in when they log and save, and blocks of
+    one log and save at every step that reaches a multiple, as a per-step
+    loop does."""
     model = dataclasses.replace(MODEL, hidden_dropout_prob=0.1,
                                 attention_probs_dropout_prob=0.1, feat_dropout=0.4)
     runs = {}
@@ -271,16 +274,17 @@ def test_replay_block_matches_jax(replay_pair):
                                    err_msg=name)
 
 
-def test_rollout_block_matches_jax(replay_pair):
-    """``make_rollout_block``: the fused logits summed over 2 episodes of the
-    bundle, language once, the pano-token buffer and its contraction per
-    step; the agent stays in its mode and its parameters as they were."""
-    jax_agent, params = replay_pair
-    rb = padded_bundle(seed=12)
-    want = jax_make_rollout_block(jax_agent, 2)(jax.tree.map(jnp.asarray, params), rb)
-    ours = make_replay_agent(REPLAY_CFG, REPLAY_CFG.batch_size, device="cpu")
-    load_flax_params(ours.model, params)
-    ours.model.train()
-    got = make_rollout_block(ours, 2)(rb)
-    assert got.shape == () and ours.model.training
-    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+@pytest.mark.parametrize("device,gloo,want", [("cpu", False, False), ("cuda", False, True),
+                                              ("cuda", True, False)])
+def test_capturable_reads_the_device_and_the_groups_backend(tmp_path, device, gloo, want):
+    """A step is graphed only on a CUDA device, and not under a gloo group,
+    whose collectives a CUDA graph cannot capture; the predicate reads the
+    device's type and the group's backend, so it needs no card."""
+    if gloo:
+        distributed.initialize("cpu", backend="gloo", rank=0, world_size=1,
+                               init_method="file://" + str(tmp_path / "store"))
+    try:
+        assert distributed.active() == gloo
+        assert graphs.capturable(torch.device(device)) == want
+    finally:
+        distributed.shutdown()

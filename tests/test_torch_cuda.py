@@ -15,7 +15,7 @@ from vln_bevbert_tpu_torch import _build
 from vln_bevbert_tpu_torch.cli import finetune, pretrain
 from vln_bevbert_tpu_torch.ops.dropout import draw_seeds, dropout, dropout_ref
 from vln_bevbert_tpu_torch.ops.splat import splat_sums, splat_sums_plain
-from vln_bevbert_tpu_torch.parallel.train_step import upload
+from vln_bevbert_tpu_torch.parallel.train_step import make_pretrain_step, upload
 
 # (B, T, P, S, C, F, num_sem, dtype): T > 1 reads a (B, T, P, F) store
 # through a (B, S) step_sel, T == 1 a (B, S * P, F) tensor
@@ -292,11 +292,12 @@ def test_train_step_queues_device_work_without_a_host_sync(tmp_path):
         "--output_dir", str(tmp_path)]))
     trainer.train()  # warm-up: cuBLAS handles, allocator
     device = torch.device("cuda")
+    step_fn = make_pretrain_step(trainer.model, trainer.projector)
     for step in range(3):
         task, batch = trainer.train_loader.build_batch(step)
         torch.cuda.set_sync_debug_mode("error")
         try:
-            metrics = trainer.step_fn(trainer.state, upload(batch, device), task)
+            metrics = step_fn(trainer.state, upload(batch, device), task)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         values = torch.stack([v.float() for v in metrics.values()])
@@ -343,9 +344,10 @@ def test_small_train_steps_match_cpu_on_card(tmp_path, monkeypatch):
     losses = {}
     for device, trainer in trainers.items():
         losses[device] = []
+        step_fn = make_pretrain_step(trainer.model, trainer.projector)
         for step, task in enumerate(("mlm", "sap", "masksem")):
             _, batch = trainer.train_loader.build_batch(step, task=task)
-            m = trainer.step_fn(trainer.state, upload(batch, torch.device(device)), task)
+            m = step_fn(trainer.state, upload(batch, torch.device(device)), task)
             losses[device].append([float(m["loss"]), float(m["grad_norm"])])
     torch.testing.assert_close(torch.tensor(losses["cuda"]), torch.tensor(losses["cpu"]),
                                rtol=1e-4, atol=0)
@@ -1001,13 +1003,14 @@ def test_small_graphed_block_matches_eager_steps_on_card(tmp_path, monkeypatch, 
     from vln_bevbert_tpu_torch.pretrain.trainer import pad_block
 
     eager, graphed = _small_block_trainers(tmp_path, accumulation)
+    step_fn = make_pretrain_step(eager.model, eager.projector)
     losses = _replayed_losses(monkeypatch)
     want = []
     for offset, task in ((0, "mlm"), (4, "sap")):
         batches = pad_block([eager.train_loader.build_batch(offset + i, task=task)[1]
                              for i in range(4)])
         for b in batches:
-            want.append(eager.step_fn(eager.state, upload(b, torch.device("cuda")), task)["loss"])
+            want.append(step_fn(eager.state, upload(b, torch.device("cuda")), task)["loss"])
         graphed.block_fn(graphed.state, batches, task, 4, stacked=True)
     cache = graphed.block_fn.graphs
     assert cache.captures == 2 * accumulation and cache.replays == 8
@@ -1031,7 +1034,8 @@ def test_replays_are_counted_in_launch_count_on_card(tmp_path):
     trainer, eager = _small_block_trainers(tmp_path)
     _, batch = trainer.train_loader.build_batch(0, task="sap")
     _build.reset_launches()
-    eager.step_fn(eager.state, upload(batch, torch.device("cuda")), "sap")
+    make_pretrain_step(eager.model, eager.projector)(
+        eager.state, upload(batch, torch.device("cuda")), "sap")
     per_step = {k: _build.launches(k) for k in ("splat", "dropout")}
     assert per_step["splat"] == 1 and per_step["dropout"] > 0
     _build.reset_launches()
@@ -1057,6 +1061,7 @@ def test_evicted_graphs_are_captured_again_and_match_eager_steps_on_card(tmp_pat
     from vln_bevbert_tpu_torch.pretrain.trainer import pad_block
 
     eager, graphed = _small_block_trainers(tmp_path)
+    step_fn = make_pretrain_step(eager.model, eager.projector)
     block = make_pretrain_block_step(graphed.model, graphed.projector, graphed.state,
                                      max_graphs=1)
     losses = _replayed_losses(monkeypatch)
@@ -1065,7 +1070,7 @@ def test_evicted_graphs_are_captured_again_and_match_eager_steps_on_card(tmp_pat
         batches = pad_block([eager.train_loader.build_batch(offset + i, task=task)[1]
                              for i in range(2)])
         for b in batches:
-            want.append(eager.step_fn(eager.state, upload(b, torch.device("cuda")), task)["loss"])
+            want.append(step_fn(eager.state, upload(b, torch.device("cuda")), task)["loss"])
         block(graphed.state, batches, task, 2, stacked=True)
     counters = block.graphs.counters()
     assert (counters["captures"], counters["evictions"], counters["graphs"]) == (3, 2, 1)
@@ -1201,43 +1206,47 @@ def test_a_host_span_lines_up_with_the_device_traces_idle_gap_on_card():
 
 
 @pytest.mark.cuda
-def test_block_raises_under_a_gloo_group_on_card(tmp_path):
+def test_block_runs_eagerly_under_a_gloo_group_on_card(tmp_path):
     """gloo cannot run its collectives inside a CUDA graph: a block on CUDA
-    tensors under a gloo group raises and names it, before any capture."""
+    tensors, made before a gloo group and called under one, captures
+    nothing and runs the eager steps, which the same steps run eagerly from
+    the same state match (losses, dropout generator, parameters)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from vln_bevbert_tpu_torch.parallel import distributed
 
-    trainer, _ = _small_block_trainers(tmp_path)
+    trainer, eager = _small_block_trainers(tmp_path)
+    step_fn = make_pretrain_step(eager.model, eager.projector)
     _, batch = trainer.train_loader.build_batch(0, task="sap")
     distributed.initialize("cuda:0", backend="gloo", rank=0, world_size=1,
                            init_method="file://" + str(tmp_path / "store"))
     try:
-        with pytest.raises(RuntimeError, match="gloo"):
-            trainer.block_fn(trainer.state, batch, "sap", 2)
-        assert trainer.block_fn.graphs.captures == 0 and trainer.state.step == 0
+        got = trainer.block_fn(trainer.state, batch, "sap", 2)
+        for _ in range(2):
+            want = step_fn(eager.state, upload(batch, torch.device("cuda")), "sap")
+        assert trainer.block_fn.graphs.captures == 0 and trainer.state.step == 2
     finally:
         distributed.shutdown()
+    gen = lambda t: t.model.feat_dropout.generator.get_state()  # noqa: E731
+    assert torch.equal(gen(trainer), gen(eager))
+    torch.testing.assert_close(got["loss"], want["loss"], rtol=1e-4, atol=0)
+    for a, b in zip(trainer.model.parameters(), eager.model.parameters()):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.cuda
-def test_small_graphed_replay_and_rollout_blocks_match_eager_on_card():
+def test_small_graphed_replay_block_matches_eager_on_card():
     """A small float32 replay block (3 updates over one bundle, dropout on)
     as graph replays against the same updates run eagerly by an identical
     agent: equal generator states, losses and parameters to float32
-    summation order; the rollout block's logit sum (2 episodes, eval mode)
-    as a graph against its eager episodes."""
+    summation order."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import numpy as np
 
     from vln_bevbert_tpu.configs import FinetuneConfig, ModelConfig, ShapeConfig
     from vln_bevbert_tpu.data.synthetic import synthetic_replay_bundle
-    from vln_bevbert_tpu_torch.nav.agent import (
-        make_replay_agent,
-        make_replay_block,
-        make_rollout_block,
-    )
+    from vln_bevbert_tpu_torch.nav.agent import make_replay_agent, make_replay_block
     from vln_bevbert_tpu_torch.parallel.train_step import dropout_generators
 
     cfg = FinetuneConfig(
@@ -1260,9 +1269,6 @@ def test_small_graphed_replay_and_rollout_blocks_match_eager_on_card():
     torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
     for a, b in zip(graphed.model.parameters(), eager.model.parameters()):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
-    roll = make_rollout_block(graphed, 2)
-    torch.testing.assert_close(roll(rb), roll.eager(rb), rtol=1e-5, atol=0)
-    assert roll.graphs.replays == 2 and not graphed.model.training
 
 
 @pytest.mark.cuda
@@ -1385,6 +1391,7 @@ def test_blocked_train_after_warm_up_captures_stages_pinned_batches_on_card(tmp_
         "--synthetic", "--device", "cuda", "--batch_size", "4", "--config", str(config),
         "--tasks", "mlm.1.sap.1.masksem.1", "--output_dir", str(tmp_path / "run")]))
     state, cache = trainer.state, trainer.block_fn.graphs
+    step_fn = make_pretrain_step(trainer.model, trainer.projector)
     for i, task in enumerate(("mlm", "sap", "masksem")):
         _, real = trainer.train_loader.build_batch(10 ** 9 + i, task=task)
         b = {k: np.asarray(v).copy() if k.startswith("traj_") else v for k, v in real.items()}
@@ -1393,7 +1400,7 @@ def test_blocked_train_after_warm_up_captures_stages_pinned_batches_on_card(tmp_
         cache.load(inputs, b)
         cache.capture((task, graphs.signature(b), moves), inputs,
                       lambda inputs=inputs, task=task, moves=moves:
-                      trainer.step_fn(state, inputs, task, moves),
+                      step_fn(state, inputs, task, moves),
                       state.device_state(), dropout_generators(trainer.model))
     before = cache.counters()
     trainer.train(num_steps=24)

@@ -78,28 +78,6 @@ def test_cli_cuda_device_raises_without_cuda(tmp_path, monkeypatch):
                                   "--output_dir", str(tmp_path)]))
 
 
-def test_profile_train_ab_runs_both_dropouts_through_the_trainer(tmp_path):
-    """``cli.profile_train --ab`` on the CPU at the tiny configuration: four
-    arms (kernel, eager, eager, kernel) over the same schedule, each timed per
-    task; the eager arms leave ``Dropout.forward`` as it was."""
-    from vln_bevbert_tpu_torch.cli import profile_train
-    from vln_bevbert_tpu_torch.ops.dropout import Dropout
-
-    forward = Dropout.forward
-    out = profile_train.main([
-        "--ab", "--ab_steps", str(STEPS), "--device", "cpu", "--batch_size", "2",
-        "--seed", str(SEED), "--tasks", "mlm.1.sap.1.masksem.1",
-        "--config", _tiny_config(tmp_path), "--output_dir", str(tmp_path / "out")])
-    assert Dropout.forward is forward
-    assert [a["dropout"] for a in out["arms"]] == ["kernel", "eager", "eager", "kernel"]
-    for arm in out["arms"]:
-        assert arm["steps"] == STEPS and sorted(arm["ms_per_task"]) == sorted(TASKS)
-        assert np.isfinite(arm["samples_per_s_at_mix"]) and arm["peak_MiB"] is None
-    assert [s["site"] for s in out["sites"]] == ["attn_probs", "hidden", "feat"]
-    assert out["sites"][0]["shape"] == [2, 2, 25, 25]
-    assert all(s["kernel_device_ms"] is None for s in out["sites"])  # not measured off the card
-
-
 def test_trainer_saves_at_every_valid_steps_crossing(tmp_path):
     """As the JAX trainer does (``pretrain/trainer.py:125-127``), ``train``
     writes ``ckpt_<step>`` whenever the step reaches a multiple of

@@ -170,11 +170,12 @@ def test_validation_changes_nothing_in_training(tmp_path):
             "--seed", "3", "--tasks", "mlm.1.sap.1.masksem.1",
             "--config", _tiny_config(tmp_path), "--output_dir", str(out)]))
         trainer.cfg.valid_steps = valid_steps
-        step_fn, losses, validated = trainer.step_fn, [], []
+        block_fn, losses, validated = trainer.block_fn, [], []
         validate = trainer.validate
 
-        def recorded(state, batch, task, step_fn=step_fn, losses=losses):
-            metrics = step_fn(state, batch, task)
+        def recorded(state, batch, task, length, stacked=False, block_fn=block_fn,
+                     losses=losses):
+            metrics = block_fn(state, batch, task, length, stacked)
             losses.append(metrics["loss"].clone())
             return metrics
 
@@ -182,7 +183,7 @@ def test_validation_changes_nothing_in_training(tmp_path):
             validated.append(validate(step, num_batches=1))
             return validated[-1]
 
-        trainer.step_fn, trainer.validate = recorded, counted
+        trainer.block_fn, trainer.validate = recorded, counted
         trainer.train()
         gen = trainer.model.feat_dropout.generator
         runs[valid_steps] = (torch.stack(losses), gen.get_state(), validated, out)

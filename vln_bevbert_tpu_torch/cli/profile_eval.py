@@ -56,6 +56,16 @@ def timed_rollout(agent) -> float:
     return time.perf_counter() - t0
 
 
+def card_name(device) -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reads them."""
+    if device.type != "cuda":
+        return "no card"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def device_busy_us(events) -> float:
     """Length of the union of the device-side kernel and copy intervals
     (us). A ``record_function`` span also lands on the device's timeline,
@@ -97,13 +107,7 @@ def main(argv=None):
     agent.env = next(iter(val_envs.values()))
     agent.env.reset_epoch(shuffle=False)
     counter = count_steps(agent)
-    if agent.device.type == "cuda":
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60,
-        ).stdout.strip().splitlines()[0]
-    else:
-        smi = "no card"
+    smi = card_name(agent.device)
 
     timed_rollout(agent)  # warm-up: cuBLAS handles, allocator, kernel build
 

@@ -37,8 +37,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..nav.agent import IGNORE_ID
 from . import finetune
-from .profile_eval import device_busy_us, host_table
-from .profile_train import card_name
+from .profile_eval import card_name, device_busy_us, host_table
 
 
 def timed(fn, device) -> float:

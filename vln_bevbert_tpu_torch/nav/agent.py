@@ -44,11 +44,10 @@ alone. ``_forward`` stamps the device phases ``nav.language``,
 nodes, the node contraction's token slots and splatted points since the
 agent was made.
 
-``make_replay_block`` and ``make_rollout_block`` are the JAX package's
-``lax.scan`` blocks (a replay-training inner loop over one fixed bundle, and
-the device envelope of the rollout's forward chain): on the card one update
-(or one episode) is captured into a CUDA graph (``utils/graphs.py``) and
-replayed; on the CPU they run eagerly.
+``make_replay_block`` is the JAX package's ``lax.scan`` block of a
+replay-training inner loop over one fixed bundle: where
+``graphs.capturable`` says so (the card) one update is captured into a CUDA
+graph (``utils/graphs.py``) and replayed; elsewhere the updates run eagerly.
 
 Data parallelism (JAX's ``mesh=``; the reference fine-tunes under DDP,
 agent_base.py:121-123): rank ``rank`` of ``world`` processes acts in an env
@@ -1115,8 +1114,9 @@ def make_replay_block(agent: GMapNavAgent, length: int) -> Callable[[Mapping[str
     all-reduce, the clip and AdamW) is captured into a CUDA graph per
     (bundle signature, skipped steps, whether it moves the parameters) and
     replayed ``length`` times; the splat does not run (the bundle carries
-    ``bev_fts``). On the CPU the updates run eagerly, as ``block.eager``
-    runs them on any device."""
+    ``bev_fts``). Where ``graphs.capturable`` says no at the call (the CPU,
+    a gloo group) the updates run eagerly, as ``block.eager`` runs them on
+    any device."""
     device = agent.device
     cache = graphs.GraphCache()
 
@@ -1126,7 +1126,7 @@ def make_replay_block(agent: GMapNavAgent, length: int) -> Callable[[Mapping[str
         return torch.stack([agent._replay_update(dev, skip)[0] for _ in range(length)])
 
     def block(rb: Mapping[str, Any]) -> torch.Tensor:
-        if device.type != "cuda":
+        if not graphs.capturable(device):
             return eager(rb)
         state = agent.train_state
         skip = agent._replay_skip(rb)
@@ -1139,84 +1139,6 @@ def make_replay_block(agent: GMapNavAgent, length: int) -> Callable[[Mapping[str
             losses.append(loss.clone())
             state.tx.advance(moves)
         return torch.stack(losses)
-
-    block.graphs, block.eager = cache, eager
-    return block
-
-
-def make_rollout_block(agent: GMapNavAgent, episodes: int) -> Callable[[Mapping[str, Any]],
-                                                                        torch.Tensor]:
-    """The device envelope of the live rollout's forward chain (JAX
-    ``make_rollout_block``): returns ``block(rb)`` -> the sum over
-    ``episodes`` episodes of the fused (or, without the BEV branch, global)
-    navigation logits, a device scalar. An episode runs the language
-    encoder once, then per step the panorama encoder, the step's tokens
-    written into a (B, T, P, D) float32 buffer at ``step_idx``, the
-    ``gmap_agg`` contraction over that buffer and the navigation model, in
-    eval mode under ``inference_mode``, so no kernel runs. On the card one
-    episode is captured into a CUDA graph and replayed ``episodes`` times;
-    on the CPU the episodes run eagerly, as ``block.eager`` runs them on any
-    device."""
-    model, device = agent.model, agent.device
-    use_bev = agent.cfg.model.use_bev
-    hidden = agent.cfg.model.hidden_size
-    pano_keys = ("view_fts", "loc_fts", "nav_types", "view_lens")
-    nav_keys = ("gmap_step_ids", "gmap_pos_fts", "gmap_masks", "gmap_pair_dists",
-                "gmap_visited_masks")
-    bev_keys = ("bev_fts", "bev_pos_fts", "bev_nav_masks", "bev_cand_idxs", "local_masks",
-                "fuse_map")
-    cache = graphs.GraphCache()
-
-    def episode(dev: Dict[str, torch.Tensor]) -> torch.Tensor:
-        T, B = dev["targets"].shape[0], dev["txt_ids"].shape[0]
-        txt_embeds = model("language", {"txt_ids": dev["txt_ids"],
-                                        "txt_masks": dev["txt_masks"]})
-        buf = torch.zeros(B, T, dev["view_fts"].shape[2], hidden, device=device)
-        acc = torch.zeros((), device=device)
-        for t in range(T):
-            pano_embeds, pano_masks = model("panorama", {k: dev[k][t] for k in pano_keys})
-            tok = (pano_embeds * pano_masks[..., None]).float()
-            buf.index_copy_(1, dev["step_idx"][t:t + 1].long(), tok[:, None])
-            nav_in = {"txt_embeds": txt_embeds, "txt_masks": dev["txt_masks"],
-                      "gmap_img_embeds": torch.matmul(dev["gmap_agg"][t].float(),
-                                                      buf.reshape(B, -1, hidden)),
-                      **{k: dev[k][t] for k in nav_keys}}
-            if use_bev:
-                nav_in.update({k: dev[k][t] for k in bev_keys})
-                nav_in["bev_masks"] = torch.ones(dev["bev_fts"].shape[1:3], dtype=torch.bool,
-                                                 device=device)
-            outs = model("navigation", nav_in)
-            acc = acc + outs["fused_logits" if use_bev else "global_logits"].float().sum()
-        return acc
-
-    def in_eval(fn):
-        @torch.inference_mode()
-        def run(rb: Mapping[str, Any]) -> torch.Tensor:
-            training = model.training
-            model.eval()
-            try:
-                return fn(rb)
-            finally:
-                model.train(training)
-        return run
-
-    @in_eval
-    def eager(rb: Mapping[str, Any]) -> torch.Tensor:
-        dev = {k: agent._upload(v) for k, v in rb.items()}
-        total = torch.zeros((), device=device)
-        for _ in range(episodes):
-            total += episode(dev)
-        return total
-
-    @in_eval
-    def graphed(rb: Mapping[str, Any]) -> torch.Tensor:
-        total, loaded = torch.zeros((), device=device), set()
-        for _ in range(episodes):
-            total += cache.step(graphs.signature(rb), rb, device, episode, loaded=loaded)
-        return total
-
-    def block(rb: Mapping[str, Any]) -> torch.Tensor:
-        return graphed(rb) if device.type == "cuda" else eager(rb)
 
     block.graphs, block.eager = cache, eager
     return block

@@ -12,9 +12,11 @@ buffers and the optimizer state, and the step updates them in place.
 ``make_eval_fn`` is validation's forward: the same lift-splat, dropout off.
 
 ``make_pretrain_block_step`` is the JAX package's block of K steps in one
-``lax.scan`` dispatch: on the card one step is captured into a CUDA graph
-(``utils/graphs.py``) and replayed K times, the batch copied into its
-static inputs before each replay; on the CPU it runs K eager steps.
+``lax.scan`` dispatch: where ``graphs.capturable`` says a step can be
+captured (on the card, with no process group or an NCCL one) one step is
+captured into a CUDA graph (``utils/graphs.py``) and replayed K times, the
+batch copied into its static inputs before each replay; elsewhere it runs K
+eager steps.
 
 A step queues its device work and reads nothing back: the learning rate and
 the update count are device scalars (the host keeps its own count), the
@@ -303,30 +305,25 @@ def make_pretrain_block_step(model: GlocalTextPathCMTPreTraining, projector: Bev
     whole step (the lift-splat through the splat kernel, the forward with
     its dropout kernels, the backward, the gradient all-reduce, the clip and
     the update), captured once per (task, batch signature, whether the step
-    moves the parameters) and cached; nothing reads back to the host. On
-    the CPU the steps run eagerly. ``state`` is the one the block runs on;
-    at most ``max_graphs`` graphs are kept (``block_graph_bound`` gives a
+    moves the parameters) and cached; nothing reads back to the host. Where
+    ``graphs.capturable`` says no at the call (the CPU, a gloo group) the
+    steps run eagerly. ``state`` is the one the block runs on; at most
+    ``max_graphs`` graphs are kept (``block_graph_bound`` gives a
     configuration's; None keeps every one), the least recently used evicted
-    first. A call is the span ``block_step`` (``utils/profiling.py``), the
-    cache's ``graphs.stage``, ``graphs.replay`` and ``graphs.capture``
-    within it."""
+    first; a block on the card shows its cache as ``block.graphs``. A call
+    is the span ``block_step`` (``utils/profiling.py``), the cache's
+    ``graphs.stage``, ``graphs.replay`` and ``graphs.capture`` within it."""
     device = state.params[0].device
     step = make_pretrain_step(model, projector)
-    if device.type != "cuda":
-
-        def eager_block(state_: TrainState, batch, task: str, length: int,
-                        stacked: bool = False) -> Dict[str, torch.Tensor]:
-            with profiling.span("block_step"):
-                for b in block_batches(batch, length, stacked):
-                    metrics = step(state_, upload(b, device), task)
-            return metrics
-
-        return eager_block
-
     cache = graphs.GraphCache(max_graphs)
 
     def block(state_: TrainState, batch, task: str, length: int,
               stacked: bool = False) -> Dict[str, torch.Tensor]:
+        if not graphs.capturable(device):
+            with profiling.span("block_step"):
+                for b in block_batches(batch, length, stacked):
+                    metrics = step(state_, upload(b, device), task)
+            return metrics
         if state_ is not state:
             raise ValueError("this block step was made for another TrainState")
         loaded = None if stacked else set()  # one re-fed batch is copied in once
@@ -339,5 +336,6 @@ def make_pretrain_block_step(model: GlocalTextPathCMTPreTraining, projector: Bev
                 state.tx.advance(moves)
             return {k: v.clone() for k, v in out.items()}
 
-    block.graphs = cache
+    if device.type == "cuda":  # a CPU block never captures: no cache to show
+        block.graphs = cache
     return block

@@ -5,22 +5,23 @@ running meters and ``MetricLogger`` lines, validation and checkpoints
 at every ``valid_steps`` crossing the trainer validates, then saves, as the
 JAX trainer does.
 
-With ``task_block_size`` > 1 (the default, 8) ``train`` runs blocks, as
-the JAX trainer's ``_train_blocked`` does: consecutive batches of one task
-(the MetaLoader's blocks) are zero-padded to the block's largest shape and
-run as one ``make_pretrain_block_step`` call (on the card, replays of a
-CUDA graph of the step); the meters take each block's last step, a log
-line follows a block that crossed a ``log_steps`` boundary, and validation
-and ``ckpt_<step>`` follow a block that crossed a ``valid_steps`` boundary,
-at the block's end step. ``task_block_size`` 1 runs and logs every step.
+``train`` runs blocks, as the JAX trainer's ``_train_blocked`` does:
+consecutive batches of one task (the MetaLoader's blocks of
+``task_block_size``, default 8) are zero-padded to the block's largest
+shape and run as one ``make_pretrain_block_step`` call (which replays a
+CUDA graph of the step where one can be captured, and runs eager steps
+elsewhere); the meters take each block's last step, a log line follows a
+block that crossed a ``log_steps`` boundary, and validation and
+``ckpt_<step>`` follow a block that crossed a ``valid_steps`` boundary, at
+the block's end step. ``task_block_size`` 1 runs and logs every step.
 
-The loop reads each step's (or block's) metrics back only after it has
-queued the next, so the card never waits for the host's readback.
+The loop reads each block's metrics back only after it has queued the
+next, so the card never waits for the host's readback.
 Validation runs the model in eval mode under ``torch.inference_mode()``: no
 dropout, so it draws nothing from the dropout generator and leaves
 training's stream as it was.
 
-Spans (``utils/profiling.py``) of the blocked loop: ``trainer.block``, one
+Spans (``utils/profiling.py``) of the loop: ``trainer.block``, one
 an iteration, keyed by the block's first step (the loader's waits and the
 block step within it; its self time is the block's padding and the loop's
 bookkeeping, the loader's own included), and ``trainer.readback`` around
@@ -55,7 +56,6 @@ from ..parallel.train_step import (
     load_checkpoint,
     make_eval_fn,
     make_pretrain_block_step,
-    make_pretrain_step,
     save_checkpoint,
     upload,
 )
@@ -76,7 +76,6 @@ class PretrainTrainer:
         self.logger = make_logger(self.output_dir, distributed.is_primary())
         self.model, self.projector, self.state = init_pretrain_state(cfg, cfg.seed, self.device)
         replicate_module(self.model)
-        self.step_fn = make_pretrain_step(self.model, self.projector)
         self.block_fn = make_pretrain_block_step(self.model, self.projector, self.state,
                                                  block_graph_bound(cfg))
         self.eval_fn = make_eval_fn(self.model, self.projector)
@@ -112,52 +111,9 @@ class PretrainTrainer:
     def train(self, num_steps: Optional[int] = None) -> Dict[str, float]:
         """Train until ``num_steps`` steps (default
         ``cfg.optim.num_train_steps``; with gradient accumulation a step is a
-        micro-step, as in JAX); returns the meters' values by "<task>/<metric>"."""
-        if self.cfg.task_block_size > 1:
-            return self._train_blocked(num_steps)
-        num_steps = num_steps or self.cfg.optim.num_train_steps
-        meters: Dict[str, RunningMeter] = defaultdict(RunningMeter)
-        n_examples, t_start = 0, time.time()
-
-        def record(step: int, task: str, metrics: Dict[str, torch.Tensor]):
-            # one device -> host copy per step
-            values = torch.stack([v.float() for v in metrics.values()]).tolist()
-            for key, val in zip(metrics, values):
-                meters[f"{task}/{key}"].update(val)
-            if step % self.cfg.log_steps == 0:
-                self.logger.log(step, {
-                    "train/examples_per_sec": n_examples / (time.time() - t_start),
-                    "train/lr": self.state.lr(step),
-                    **{k: m.value for k, m in meters.items()},
-                })
-
-        pending = None
-        batches = iter(self.train_loader)
-        try:
-            while self.state.step < num_steps:
-                task, batch = next(batches)
-                base = task.split("_")[0]
-                metrics = self.step_fn(self.state, upload(batch, self.device), base)
-                n_examples += self.train_loader.global_batch_size
-                if pending is not None:
-                    record(*pending)
-                pending = (self.state.step, base, metrics)
-                step = self.state.step
-                if self.cfg.valid_steps and step % self.cfg.valid_steps == 0:
-                    record(*pending)
-                    pending = None
-                    self.validate(step)
-                    self.save(step)
-            if pending is not None:
-                record(*pending)
-        finally:
-            batches.close()  # stops the loader's prefetch thread or workers
-        return {k: m.value for k, m in meters.items()}
-
-    def _train_blocked(self, num_steps: Optional[int] = None) -> Dict[str, float]:
-        """``train`` in blocks of up to ``task_block_size`` consecutive
-        batches of one base task, never past ``num_steps`` (JAX
-        ``_train_blocked``)."""
+        micro-step, as in JAX) in blocks of up to ``task_block_size``
+        consecutive batches of one base task, never past ``num_steps`` (JAX
+        ``_train_blocked``); returns the meters' values by "<task>/<metric>"."""
         cfg = self.cfg
         num_steps = num_steps or cfg.optim.num_train_steps
         meters: Dict[str, RunningMeter] = defaultdict(RunningMeter)

@@ -1,8 +1,8 @@
-"""CUDA-graph capture and replay of training and rollout steps.
+"""CUDA-graph capture and replay of training steps.
 
 The JAX package takes per-step host dispatch out of its hot loops by
 compiling K steps into one ``lax.scan`` program (``make_pretrain_block_step``,
-``make_replay_block``, ``make_rollout_block``); XLA caches one compiled
+``make_replay_block``); XLA caches one compiled
 program per static signature. Here one step is captured into a CUDA graph
 once per key and replayed once per step, and ``GraphCache`` is that
 program cache:
@@ -33,9 +33,12 @@ program cache:
   the static inputs, pinning included), ``graphs.replay``,
   ``graphs.capture`` (warm-up and capture).
 
-A capture that fails raises and names its key; nothing falls back to eager
-steps on the card. Collectives of a gloo group cannot be captured:
-``check_capturable`` raises under one.
+Whether a step is graphed at all is ``capturable``'s answer, asked by the
+block steps at every call: a CUDA device, and no process group or an NCCL
+one (gloo's collectives on CUDA tensors cannot be captured). Where it says
+no, the block steps run eagerly; ``GraphCache.step`` raises
+(``check_capturable``). A capture that fails raises and names its key;
+nothing falls back to eager steps after it.
 
 The kernels count their own launches on the device (``_build.launches``),
 so replays are counted where they run and a capture counts nothing. A count
@@ -76,15 +79,19 @@ class CallCount:
             self.value += n
 
 
+def capturable(device: torch.device) -> bool:
+    """Whether a step on ``device`` can be captured into a CUDA graph: the
+    device is CUDA, and a process group, if this process is in one, runs
+    NCCL's collectives."""
+    return device.type == "cuda" and (not distributed.active() or dist.get_backend() == "nccl")
+
+
 def check_capturable(device: torch.device) -> None:
-    """Raise unless a step on ``device`` can be captured: it must be a
-    CUDA device, and a process group's collectives must be NCCL's."""
-    if device.type != "cuda":
-        raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
-    if distributed.active() and dist.get_backend() != "nccl":
-        raise RuntimeError(
-            f"a CUDA graph cannot capture the collectives of a {dist.get_backend()} "
-            "process group on CUDA tensors: use NCCL, or task_block_size 1")
+    """Raise unless ``capturable(device)``."""
+    if not capturable(device):
+        backend = dist.get_backend() if distributed.active() else None
+        raise RuntimeError(f"a CUDA graph cannot capture a step on {device}"
+                           + (f" under a {backend} process group" if backend else ""))
 
 
 def signature(batch: Mapping[str, Any]) -> tuple:
