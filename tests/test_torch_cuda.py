@@ -1365,15 +1365,11 @@ def test_to_device_moves_host_tensors_to_the_card_on_card():
     assert to_device(on_card, device) is on_card
 
 
-@pytest.mark.cuda
-def test_blocked_train_after_warm_up_captures_stages_pinned_batches_on_card(tmp_path):
-    """Graphs captured from the loader's batches with their trajectory
-    arrays turned into numpy (as the benchmark's warm-up resizes them) key
-    the same graphs as the pinned batches of the trainer's stream: a blocked
-    ``train`` captures nothing more, and at least 95% of the host bytes it
-    stages are already page-locked."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _small_trainer_warmed_up(tmp_path):
+    """A small pretraining trainer whose block step has captured the graph
+    of each task from the loader's batches, their trajectory arrays turned
+    into numpy (as the benchmark's warm-up resizes them); and its graph
+    cache."""
     import numpy as np
 
     from vln_bevbert_tpu_torch.parallel.train_step import dropout_generators
@@ -1402,14 +1398,58 @@ def test_blocked_train_after_warm_up_captures_stages_pinned_batches_on_card(tmp_
                       lambda inputs=inputs, task=task, moves=moves:
                       step_fn(state, inputs, task, moves),
                       state.device_state(), dropout_generators(trainer.model))
+    return trainer, cache
+
+
+def _trains_without_capture_from_pinned_batches(trainer, cache, num_steps):
+    """``trainer.train`` to ``num_steps`` steps captures nothing more, and
+    at least 95% of the host bytes it stages are already page-locked."""
     before = cache.counters()
-    trainer.train(num_steps=24)
+    trainer.train(num_steps=num_steps)
     after = cache.counters()
     assert before["captures"] == after["captures"] == 3
-    assert after["replays"] - before["replays"] == 24
+    assert after["replays"] - before["replays"] == num_steps
     staged = after["staged_bytes"] - before["staged_bytes"]
     pinned = after["staged_pinned_bytes"] - before["staged_pinned_bytes"]
     assert staged > 0 and pinned / staged >= 0.95, (pinned, staged)
+
+
+@pytest.mark.cuda
+def test_blocked_train_after_warm_up_captures_stages_pinned_batches_on_card(tmp_path):
+    """Graphs captured from the loader's batches with their trajectory
+    arrays turned into numpy (as the benchmark's warm-up resizes them) key
+    the same graphs as the pinned batches of the trainer's stream: a blocked
+    ``train`` captures nothing more, and at least 95% of the host bytes it
+    stages are already page-locked."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    trainer, cache = _small_trainer_warmed_up(tmp_path)
+    _trains_without_capture_from_pinned_batches(trainer, cache, 24)
+
+
+@pytest.mark.cuda
+def test_blocked_train_from_a_full_block_deep_queue_stages_pinned_batches_on_card(tmp_path):
+    """Three blocks of 8 through the loader's queue of 9, the trainer held
+    back for a second after each block's dispatch (a card busy with it), so
+    that the prefetch thread queues the whole next block of page-locked
+    batches meanwhile: only the first block's gets can find the queue
+    empty, nothing is captured after warm-up, and at least 95% of the
+    staged host bytes are page-locked."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    trainer, cache = _small_trainer_warmed_up(tmp_path)
+    loader, block_fn = trainer.train_loader, trainer.block_fn
+    assert trainer.cfg.task_block_size == 8 and loader.depth == 9
+
+    def held_back(*args, **kwargs):
+        out = block_fn(*args, **kwargs)
+        time.sleep(1.0)
+        return out
+
+    trainer.block_fn = held_back
+    _trains_without_capture_from_pinned_batches(trainer, cache, 24)
+    counts = loader.counters()
+    assert counts["batches"] == 24 and counts["waited"] <= 8, counts
 
 
 @pytest.mark.cuda

@@ -7,8 +7,11 @@
   (reference pretrain_src/data/loader.py:54-59) with no collective.
 - ``PretrainLoader``: per-task example sampling (end-viewpoint type ratios as
   in train_r2r.py:45-57) + static-shape batch assembly, with an optional
-  background thread double-buffering host batch construction against device
-  compute (the reference's PrefetchLoader role, loader.py:62-124).
+  background thread building host batches ahead of the consumer (the
+  reference's PrefetchLoader role, loader.py:62-124). Its queue holds at
+  least one whole block of the trainer's schedule and one batch more
+  (``PretrainLoader.depth``), so that the next block is built while the
+  card runs this one.
 
 Where CUDA is available and the batch is built in the process that made the
 loader (its prefetch thread, or the caller), the collate allocates its
@@ -26,7 +29,9 @@ children ``loader.items`` (the examples' ``get_input``) and
 ``loader.collate`` (``make_pretrain_batch``); ``loader.wait`` around the
 consumer's wait for a built batch. Forked workers (``num_workers`` > 0)
 build in other processes, whose spans the consumer's recorder never sees:
-there only ``loader.wait`` is recorded.
+there only ``loader.wait`` is recorded. ``PretrainLoader.counters()``
+counts the prefetch thread's batches served and the gets that found its
+queue empty.
 """
 
 from __future__ import annotations
@@ -159,8 +164,12 @@ class PretrainLoader:
         ``num_workers`` > 0 fans batch construction out over forked worker
         processes (the reference's DataLoader num_workers role,
         pretrain_src/data/loader.py:149-156) — batches are keyed by step so
-        any worker count yields the identical stream. 0 keeps construction
-        in-process (with the ``prefetch`` background thread)."""
+        any worker count yields the identical stream; their queue holds
+        ``prefetch`` (at least 1) batches a worker, whatever the schedule's
+        block (no benchmark cell runs this path).
+        0 keeps construction in-process: ``prefetch`` 0 builds each batch
+        when it is asked for, a positive ``prefetch`` starts the background
+        thread, whose queue is ``depth`` batches long."""
         self.nav_db = nav_db
         self.cfg = cfg
         self.n_devices = max(int(n_devices), 1)
@@ -176,10 +185,26 @@ class PretrainLoader:
         self.prefetch = prefetch
         self.num_workers = num_workers
         self._pid = os.getpid()
+        self._counts = {"batches": 0, "waited": 0}
 
     @property
     def global_batch_size(self) -> int:
         return self.cfg.train_batch_size * self.n_devices
+
+    @property
+    def depth(self) -> int:
+        """The prefetch thread's queue length (0: no thread): ``prefetch``,
+        raised to one whole block of the task schedule and one batch more.
+        The trainer takes a block at once and then waits for the card to run
+        it; a queue that deep lets the thread build the next block
+        meanwhile."""
+        return max(self.prefetch, self.meta.block_size + 1) if self.prefetch > 0 else 0
+
+    def counters(self) -> Dict[str, int]:
+        """Since the loader was made: ``batches`` served by the prefetch
+        thread's queue, ``waited``, those of them whose get found the queue
+        empty, and ``depth``, the queue's length."""
+        return {**self._counts, "depth": self.depth}
 
     def build_batch(
         self, step: int, task: Optional[str] = None
@@ -243,7 +268,7 @@ class PretrainLoader:
                 yield self.build_batch(step)
                 step += 1
             return
-        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         stop = threading.Event()
 
         def worker():
@@ -264,7 +289,12 @@ class PretrainLoader:
         try:
             while True:
                 with profiling.span("loader.wait"):
+                    # nothing else takes from the queue: a get that finds
+                    # a batch there does not wait
+                    if q.empty():
+                        self._counts["waited"] += 1
                     item = q.get()
+                self._counts["batches"] += 1
                 yield item
         finally:
             stop.set()
